@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``haghighatshoarmuir2024_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, each failing the run with a non-zero exit:
+
+1. device: a CUDA device must be present; prints the card's name and power
+   limit as ``nvidia-smi`` reports them;
+2. build: compiles ``csrc/*.cu`` with nvcc for sm_90a and loads the library;
+3. K1/K2 (fused bipolar RZCC) against the plain PyTorch versions on the card,
+   bit-exact: random cumsums with plateaus, exact ties, dense chains, wide
+   windows, ragged shapes and the flagship ``cs``;
+4. K3 (integer LIF counts) against the plain simulator on the card,
+   bit-exact: random and saturating configs, ragged T, the flagship config;
+5. slice: the flagship ``Demo.forward_batch(method="matched")`` at B = 96,
+   T = 12 000 (bench.py's frames): every kernel's launch count must rise,
+   the DoAs must equal the plain path's, and ``doa-ok-frac`` must be 1.00 @5°;
+   prints stage and kernel times next to the plain versions'.
+
+The second-to-last line is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SEED = 0
+
+
+def fail(msg: str):
+    raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def timed_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls after one
+    warm-up call, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def mismatches(a, b) -> int:
+    if a.shape != b.shape:
+        fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.to("cpu").long() != b.to("cpu").long()).sum())
+
+
+# ------------------------------------------------------------------ phase 3
+def check_suppress(torch, sk, peaks, dev, flagship_cs):
+    rng = np.random.default_rng(SEED + 11)
+    n_cases = 0
+
+    def wrapper_case(cs_rt: np.ndarray, d, W, label):
+        nonlocal n_cases
+        cs_tm = torch.as_tensor(np.ascontiguousarray(cs_rt.T), device=dev)
+        kp, kn = sk.rzcc_encode_bipolar_tm(cs_tm, d, W)
+        rp, rn = sk.rzcc_encode_bipolar_tm_plain(cs_tm, d, W)
+        torch.cuda.synchronize()
+        bad = mismatches(kp, rp) + mismatches(kn, rn)
+        if bad:
+            fail(f"K1/K2 {label} d={d} W={W}: {bad} mask elements differ from the plain version")
+        n_cases += 1
+
+    for trial, (rows, T) in enumerate([(6, 500), (3, 257), (9, 2050), (40, 3001)]):
+        cs = np.cumsum(rng.standard_normal((rows, T)).astype(np.float32), axis=-1)
+        if trial == 1:  # exact plateaus: the bounded plateau-midpoint logic
+            cs[:, 40:44] = cs[:, 40:41]
+            cs[:, 100:103] = cs[:, 100:101]
+        for d, W in ((3, 6), (7, 14), (12, 24)):
+            wrapper_case(cs, d, W, f"random {rows}x{T}")
+    # coarsely quantized walks: plateaus everywhere, some longer than W, many
+    # across tile boundaries
+    steps = np.round(np.cumsum(rng.standard_normal((7, 2000)), axis=-1) * 2) / 2
+    for d, W in ((3, 6), (12, 24), (24, 48)):
+        wrapper_case(steps.astype(np.float32), d, W, "quantized walk")
+    # wide windows: the 3-band multiband config's (24, 48) and (80, 24)
+    t = np.arange(4000, dtype=np.float32)
+    drift = np.cumsum(np.sin(2 * np.pi * t / 900.0)[None, :]
+                      + 0.3 * rng.standard_normal((3, 4000)).astype(np.float32), axis=-1)
+    wide = np.cumsum(rng.standard_normal((6, 6000)).astype(np.float32), axis=-1)
+    for d, W in ((24, 48), (80, 24)):
+        wrapper_case(drift, d, W, "slow drift")
+        wrapper_case(wide, d, W, "random 6x6000")
+    # ragged: T not a multiple of anything, rows not a multiple of 32
+    wrapper_case(np.cumsum(rng.standard_normal((9, 203)).astype(np.float32), axis=-1), 5, 10, "ragged")
+    wrapper_case(np.cumsum(rng.standard_normal((33, 1)).astype(np.float32), axis=-1), 12, 24, "T=1")
+
+    # K2 fixed point from given candidates: exact ties and dense chains
+    def k2_case(h_rt: np.ndarray, cand_rt: np.ndarray, d, label):
+        nonlocal n_cases
+        w = int(np.ceil(d)) - 1
+        h_tm = torch.as_tensor(np.ascontiguousarray(h_rt.T), device=dev)
+        act = torch.as_tensor(np.ascontiguousarray(cand_rt.T), device=dev)
+        none = torch.zeros_like(act)
+        kept_p, kept_n = torch.zeros_like(act), torch.zeros_like(act)
+        ap, an, rounds = act, none, 0
+        while True:
+            ap, an, flags = sk.rzcc_k2(h_tm, ap, an, kept_p, kept_n, w)
+            rounds += 1
+            if not bool(flags.any()):
+                break
+        ref = peaks.select_by_distance(act.T, h_tm.T, d).T
+        bad = mismatches(kept_p, ref) + int(kept_n.any())
+        if bad:
+            fail(f"K2 {label} d={d}: {bad} elements differ from select_by_distance")
+        n_cases += 1
+        return rounds
+
+    h = np.zeros((1, 64), np.float32)
+    cand = np.zeros((1, 64), bool)
+    h[0, [10, 15, 40, 45, 50]] = 1.0
+    cand[0, [10, 15, 40, 45, 50]] = True
+    for d in (6, 11, 40):
+        k2_case(h, cand, d, "exact ties")
+    dense = rng.standard_normal((3, 257)).astype(np.float32)
+    max_rounds = max(k2_case(dense, np.ones_like(dense, bool), d, "dense chains") for d in (2, 5, 11))
+    # long chains across many 256-sample tiles: the halo must carry every round
+    dense = rng.standard_normal((5, 3000)).astype(np.float32)
+    max_rounds = max([max_rounds] + [k2_case(dense, np.ones_like(dense, bool), d, "dense chains")
+                                     for d in (11, 40)])
+
+    # the flagship cs: the whole wrapper, then K1 and one K2 launch alone
+    T, R = flagship_cs.shape
+    w, W = sk._windows(12, 24)
+    kp, kn = sk.rzcc_encode_bipolar_tm(flagship_cs, 12, 24)
+    rp, rn = sk.rzcc_encode_bipolar_tm_plain(flagship_cs, 12, 24)
+    bad = mismatches(kp, rp) + mismatches(kn, rn)
+    k1 = sk.rzcc_k1(flagship_cs, w, W)
+    k1_ref = sk._k1_plain(flagship_cs, w, W)
+    k1_bad = sum(mismatches(a, b) for a, b in zip(k1, k1_ref))
+    kept_p, kept_n = k1[2].clone(), k1[3].clone()
+    ap, an, _ = sk.rzcc_k2(flagship_cs, k1[0], k1[1], kept_p, kept_n, w)
+    k2_ref = sk._k2_plain(flagship_cs, *k1_ref, w)
+    k2_bad = sum(mismatches(a, b) for a, b in zip((ap, an, kept_p, kept_n), k2_ref))
+    if bad or k1_bad or k2_bad:
+        fail(f"flagship cs: wrapper {bad}, K1 {k1_bad}, K2 {k2_bad} elements differ")
+    n_cases += 1
+    spikes = int(kp.sum()) + int(kn.sum())
+    print(f"[K1/K2] {n_cases} cases bit-exact vs plain (dense chains up to {max_rounds} K2 rounds); "
+          f"flagship cs {T}x{R}: {spikes} spikes, K1 and one K2 launch bit-exact", flush=True)
+
+    ms_k1 = timed_ms(torch, lambda: sk.rzcc_k1(flagship_cs, w, W), 20)
+    ms_k1_plain = timed_ms(torch, lambda: sk._k1_plain(flagship_cs, w, W), 5)
+    ms_k2 = timed_ms(torch, lambda: sk.rzcc_k2(flagship_cs, k1[0], k1[1], k1[2], k1[3], w), 20)
+    ms_k2_plain = timed_ms(torch, lambda: sk._k2_plain(flagship_cs, *k1_ref, w), 5)
+    ms_rzcc = timed_ms(torch, lambda: sk.rzcc_encode_bipolar_tm(flagship_cs, 12, 24), 20)
+    ms_rzcc_plain = timed_ms(torch, lambda: sk.rzcc_encode_bipolar_tm_plain(flagship_cs, 12, 24), 5)
+    return {
+        "k1": dict(max_abs_err=float(k1_bad), ms=ms_k1, plain_ms=ms_k1_plain),
+        "k2": dict(max_abs_err=float(k2_bad), ms=ms_k2, plain_ms=ms_k2_plain),
+        "rzcc_ms": ms_rzcc, "rzcc_plain_ms": ms_rzcc_plain,
+    }
+
+
+# ------------------------------------------------------------------ phase 4
+def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
+    def make_config(seed, C=6, N=20, w_scale=20):
+        r = np.random.default_rng(seed)
+        return XyloConfig(
+            w_in=r.integers(-w_scale, w_scale + 1, size=(2 * C, N)).astype(np.int32),
+            w_rec=np.zeros((N, N), np.int32),
+            w_out=np.ones((N, 1), np.int32),
+            dash_syn=r.integers(1, 7, size=N).astype(np.int32),
+            dash_mem=r.integers(1, 7, size=N).astype(np.int32),
+            dash_syn_out=np.ones(1, np.int32), dash_mem_out=np.ones(1, np.int32),
+            threshold=r.integers(30, 200, size=N).astype(np.int32),
+            threshold_out=np.ones(1, np.int32), dt=1e-3, weight_scale=1.0,
+        )
+
+    def masks(seed, T, B, C, p):
+        r = np.random.default_rng(seed + 1000)
+        kp = torch.as_tensor(r.random((T, B, C)) < p, device=dev)
+        kn = torch.as_tensor(r.random((T, B, C)) < p, device=dev)
+        return kp, kn
+
+    cases = [
+        ("random", make_config(0), masks(0, 50, 3, 6, 0.15), False),
+        ("random, N=200", make_config(1, N=200), masks(1, 777, 5, 6, 0.2), False),
+        ("ragged T=12001", make_config(2, C=14, N=449, w_scale=49), masks(2, 12001, 2, 14, 0.05), False),
+    ]
+    sat = make_config(11, w_scale=5000)
+    sat.threshold[:] = 25_000
+    cases.append(("saturating", sat, masks(11, 300, 3, 6, 0.9), True))
+    cases.append(("flagship", flagship_config, flagship_masks, False))
+    for label, cfg, (kp, kn), must_clip in cases:
+        if must_clip and lk._no_saturation_possible(cfg, 1, 0):
+            fail(f"K3 {label}: the case was meant to exercise the clip path")
+        got = lk.lif_count_rates_bipolar(cfg, kp, kn, spike_bound=1)
+        ref = lk.lif_count_plain(cfg, kp, kn)
+        torch.cuda.synchronize()
+        bad = mismatches(got, ref)
+        if bad:
+            fail(f"K3 {label}: {bad} counts differ from the plain simulator")
+        if int(ref.sum()) == 0:
+            fail(f"K3 {label}: no neuron fired, the case checks nothing")
+    print(f"[K3] {len(cases)} cases bit-exact vs plain sim_hidden "
+          "(incl. saturating clip path, ragged T, flagship config and masks)", flush=True)
+    kp, kn = flagship_masks
+    ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(flagship_config, kp, kn, spike_bound=1), 20)
+    plain_ms = timed_ms(torch, lambda: lk.lif_count_plain(flagship_config, kp, kn), 1)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+
+
+# ------------------------------------------------------------------ main
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; this check runs only on the GPU", file=sys.stderr)
+        return 1
+    repo = Path(__file__).resolve().parent
+    if not (repo / "haghighatshoarmuir2024_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository (port package not found)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+
+    # ---- phase 1: device
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"[device] {kind}; count {torch.cuda.device_count()}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    # ---- phase 2: build
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[build] {so.name} in {build_s:.1f} s", flush=True)
+    for ln in ptxas:
+        print(f"[build] {ln}")
+
+    from haghighatshoarmuir2024_tpu_torch import CenterCircularArray
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
+    from haghighatshoarmuir2024_tpu_torch.ops import peaks
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import suppress_kernel as sk
+    from haghighatshoarmuir2024_tpu_torch.ops.interp import signal_from_template
+
+    # the flagship: bench.py's config and frames
+    fs, frame, B, G = 48_000, 0.25, 96, 64 * 7 + 1
+    demo = Demo(
+        geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
+        freq_bands=[[1600, 1900]],
+        doa_list=np.linspace(-np.pi, np.pi, G),
+        recording_duration=frame,
+        kernel_duration=10e-3,
+        bipolar_spikes=True,
+        fs=fs,
+        device=dev,
+    )
+    demo.calibrate_profiles()
+    t = torch.arange(0, frame, 1 / fs, dtype=torch.float64, device=dev)
+    sig = torch.sin(2 * np.pi * 1750 * t)
+    doas = np.linspace(-np.pi, np.pi, B, endpoint=False)
+    frames = torch.stack([signal_from_template(demo.geometry, t, sig, d, fs=fs) for d in doas])
+    noise = 0.1 * np.random.default_rng(SEED).standard_normal(tuple(frames.shape)).astype(np.float32)
+    frames = frames.to(torch.float32) + torch.as_tensor(noise, device=dev)
+    T = frames.shape[1]
+
+    cs = demo.encode(frames)  # (T, B, C)
+    C = cs.shape[-1]
+    if not bool(torch.isfinite(cs).all()):
+        fail("encode produced non-finite values")
+
+    # ---- phase 3: K1/K2
+    sup = check_suppress(torch, sk, peaks, dev, cs.reshape(T, B * C))
+
+    # ---- phase 4: K3
+    kp, kn = demo.rzcc(cs)
+    lif = check_lif(torch, lk, XyloConfig, dev, demo.xylo_config, (kp, kn))
+
+    # ---- phase 5: the slice through the user's entry point
+    demo.forward_batch(frames, method="matched")  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    doa, rate = demo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    for name in ("rzcc_k1", "rzcc_k2", "lif_k3"):
+        if launches.get(name, 0) < 1:
+            fail(f"the slice run never launched {name} (launch counts {launches})")
+    if doa.shape != (B,) or rate.shape != (B, G) or not bool(torch.isfinite(rate).all()):
+        fail(f"slice output malformed: doa {tuple(doa.shape)}, rate {tuple(rate.shape)}")
+
+    # the plain path on the same frames and card: encode, plain RZCC, plain LIF
+    p_kp, p_kn = sk.rzcc_encode_bipolar_tm_plain(cs.reshape(T, B * C), demo.robust_width,
+                                                 2 * demo.robust_width)
+    p_counts = lk.lif_count_plain(demo.xylo_config, p_kp.reshape(T, B, C), p_kn.reshape(T, B, C))
+    p_doa, p_rate = demo.estimate(p_counts, T, "matched")
+    if not torch.equal(doa, p_doa) or not torch.equal(rate, p_rate):
+        fail("slice DoAs/rates differ from the plain path's")
+
+    def ok_frac(est, tol_deg):
+        err = np.abs(np.arcsin(np.abs(np.sin(np.asarray(est) - doas))))
+        return float(np.mean(np.rad2deg(err) < tol_deg))
+
+    doa_np = doa.cpu().numpy()
+    peak_np = demo.doa_list[rate.argmax(dim=-1).cpu().numpy()]
+    ok_matched, ok_peak = ok_frac(doa_np, 5.0), ok_frac(peak_np, 25.0)
+    print(f"[slice] B={B} T={T}: launches {launches}; DoAs identical to the plain path; "
+          f"doa-ok-frac {ok_matched:.2f} @5deg (matched), {ok_peak:.2f} @25deg (reference-parity peak)",
+          flush=True)
+    if ok_matched < 1.0:
+        fail(f"matched accuracy gate failed: doa-ok-frac {ok_matched:.2f} @5deg")
+
+    # stage and end-to-end times
+    stage_ms = {
+        "encode": timed_ms(torch, lambda: demo.encode(frames), 10),
+        "rzcc (K1+K2)": sup["rzcc_ms"],
+        "lif (K3)": lif["ms"],
+        "estimate": timed_ms(torch, lambda: demo.estimate(p_counts, T, "matched"), 20),
+    }
+    n_rep = 20
+    demo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_rep):
+        demo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t1) / n_rep * 1e3
+    print(f"[times] card: {card}", flush=True)
+    for name, ms in stage_ms.items():
+        print(f"[times] stage {name}: {ms:.3f} ms")
+    print(f"[times] rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
+    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif)):
+        print(f"[times] kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms")
+    print(f"[times] forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
+          f"{B * frame / (batch_ms / 1e3):.1f} audio-sec/sec", flush=True)
+
+    kernels = []
+    for name, src, repl, key, res in (
+        ("rzcc_k1", "haghighatshoarmuir2024_tpu_torch/csrc/suppress.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:334", "rzcc_k1", sup["k1"]),
+        ("rzcc_k2", "haghighatshoarmuir2024_tpu_torch/csrc/suppress.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:248", "rzcc_k2", sup["k2"]),
+        ("lif_k3", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:275", "lif_k3", lif),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": launches[key], "max_abs_err": res["max_abs_err"],
+                        "ms": res["ms"], "plain_ms": res["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

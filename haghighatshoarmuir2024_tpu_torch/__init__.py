@@ -1,0 +1,27 @@
+"""haghighatshoarmuir2024_tpu_torch — the PyTorch/CUDA port of
+``haghighatshoarmuir2024_tpu``.
+
+The JAX package is the reference; this package mirrors its module names so
+each counterpart is easy to find.  Plain tensor code is PyTorch; every
+Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
+(``sm_90a``) under ``csrc/``, built by ``nvcc`` at first use
+(``ops/cuda/_build.py``).  On CPU tensors each kernel wrapper runs its plain
+PyTorch version; on CUDA tensors it launches its kernel or raises.
+
+Ported so far (slice 1): the flagship quantized SNN localizer
+``models.xylo.Demo.forward_batch`` — encode → fused bipolar RZCC (kernels K1,
+K2) → integer LIF spike counts (kernel K3) → fold + matched/peak DoA.
+"""
+
+__version__ = "0.1.0"
+
+from .config import FS, SOUND_SPEED_IN_OPEN_AIR
+from .geometry import ArrayGeometry, CenterCircularArray, resolve_device
+
+__all__ = [
+    "FS",
+    "SOUND_SPEED_IN_OPEN_AIR",
+    "ArrayGeometry",
+    "CenterCircularArray",
+    "resolve_device",
+]

@@ -1,0 +1,58 @@
+"""Array geometries and the plane-wave delay model (counterpart of
+``haghighatshoarmuir2024_tpu/geometry.py``; reference:
+micloc/array_geometry.py:17-94).
+
+``r_vec``/``theta_vec`` stay float64 numpy arrays, byte-identical to the JAX
+package's: the design cache key hashes their bytes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import SOUND_SPEED_IN_OPEN_AIR
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; asking for CUDA without a usable GPU
+    raises instead of carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} requested but no CUDA device is available")
+    return dev
+
+
+class ArrayGeometry:
+    """Maps element polar coordinates to per-DoA propagation delays
+    (micloc/array_geometry.py:17-61)."""
+
+    def __init__(self, r_vec, theta_vec, speed: float = SOUND_SPEED_IN_OPEN_AIR):
+        r_vec = np.asarray(r_vec, dtype=np.float64)
+        theta_vec = np.asarray(theta_vec, dtype=np.float64)
+        if np.any(r_vec < 0):
+            raise ValueError("distances of the elements in `r_vec` should be all positive!")
+        self.r_vec = r_vec
+        self.theta_vec = theta_vec
+        self.speed = float(speed)
+
+    def delays(self, theta: torch.Tensor) -> torch.Tensor:
+        """Non-normalized delays ``-r·cos(θ_vec − θ)/speed`` of shape
+        ``theta.shape + (M,)`` (micloc/array_geometry.py:40-57), in
+        ``theta``'s dtype and on its device."""
+        dtype = theta.dtype if theta.is_floating_point() else torch.float64
+        r = torch.as_tensor(self.r_vec, dtype=dtype, device=theta.device)
+        tv = torch.as_tensor(self.theta_vec, dtype=dtype, device=theta.device)
+        return -r * torch.cos(tv - theta.to(dtype)[..., None]) / self.speed
+
+    def __len__(self) -> int:
+        return len(self.r_vec)
+
+
+class CenterCircularArray(ArrayGeometry):
+    """Ring of ``num_mic - 1`` microphones plus one at the center
+    (micloc/array_geometry.py:81-94, same duplicated-first-mic quirk)."""
+
+    def __init__(self, radius, num_mic, speed=SOUND_SPEED_IN_OPEN_AIR, endpoint=True):
+        r_vec = np.array([*(radius * np.ones(num_mic - 1)), 0.0])
+        theta_vec = np.array([*np.linspace(0, 2 * np.pi, num_mic - 1, endpoint=endpoint), 0.0])
+        super().__init__(r_vec=r_vec, theta_vec=theta_vec, speed=speed)

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface, at first use, with ``nvcc`` for ``sm_90a``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/hm_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``haghighatshoarmuir2024_tpu_torch/build/`` (git-ignored),
+named by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  It is loaded with ``ctypes``; pointers and the
+stream pass as ``c_void_p``.  Nothing here depends on PyTorch's headers.
+
+``launch_counts`` counts kernel launches by name; each wrapper adds one where
+it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+launch_counts: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "hm_rzcc_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "hm_rzcc_rows_per_block": ([], _I),
+    "hm_rzcc_k1": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "hm_rzcc_k2": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "hm_lif_max_channels": ([], _I),
+    "hm_lif_count_bipolar": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "hm_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return path
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"hm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists; returns its
+    path.  The compiler's report (registers, shared memory, spills) is kept
+    beside it as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so", delete=False) as tmp:
+        tmp_path = Path(tmp.name)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp_path.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp_path, so)
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        msg = library().hm_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, rank, layout."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must have dtype in {dtypes} (got {t.dtype})")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D (got shape {tuple(t.shape)})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

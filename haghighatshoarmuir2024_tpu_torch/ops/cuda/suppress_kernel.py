@@ -1,0 +1,149 @@
+"""Fused bipolar RZCC spike extraction: wrapper of kernels K1 and K2
+(``csrc/suppress.cu``), counterpart of ``rzcc_encode_bipolar_tm`` in
+``haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:551``.
+
+K1 (``_round_kernel_bipolar_first``, ``suppress_kernel.py:334``) finds the
+bounded-plateau extrema of ±cs and runs suppression round 1 of both
+polarities from one read of cs.  K2 (``_round_kernel_bipolar``, ``:248``)
+runs one more round given the active masks; it always runs once — that launch
+is the TPU kernel's fused round 2, and tiles with no candidate left exit after
+reading the masks — and then repeats until every per-tile flag is 0, as the
+TPU's fixed-point loop does (``:537-547``).  The flag sum is read on the host
+after each K2 launch.
+
+On CPU tensors the wrapper runs the plain versions in ``ops/peaks.py``; on
+CUDA tensors it launches the kernels or raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import peaks
+from ._build import check, launch_counts, library, require_cuda, stream_handle
+
+TB = 256  # time samples a block owns; its halo is _margin on both sides
+SMEM_MAX = 232_448  # shared memory a Hopper block may use (227 KB)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _margin(w: int, W: int = 0, rounds: int = 1) -> int:
+    """Halo (samples) that makes a tile's outputs exact (``suppress_kernel.py:96-102``):
+    each round chains three w-windows and the extrema reach ``W + 1``."""
+    return _round_up(W + 1 + rounds * 3 * (w + 1) + 8, 8)
+
+
+def _windows(distance, max_plateau: int):
+    """(w, W) as the kernels take them: the suppression half-window
+    ``ceil(distance) - 1`` (no suppression below 1) and the plateau bound
+    (a window of at least one boundary, as the doubling passes give)."""
+    return max(int(math.ceil(distance)) - 1, 0), max(int(max_plateau), 1)
+
+
+def _check_smem(M: int) -> None:
+    need = library().hm_rzcc_smem_bytes(TB, M)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"suppression halo {M} needs {need} bytes of shared memory per block "
+            f"(limit {SMEM_MAX}); window too wide for the fused RZCC kernels"
+        )
+
+
+# ------------------------------------------------------------- plain versions
+def _k1_plain(cs_tm: torch.Tensor, w: int, W: int):
+    """What K1 computes: extrema of ±cs, then one round per polarity.
+    Returns (act_p, act_n, kept_p, kept_n), time-major bool."""
+    x = cs_tm.T
+    maxima, minima = peaks.local_extrema_mask_bounded(x, W)
+    ap, kp = peaks.suppression_round(maxima, torch.zeros_like(maxima), x, w)
+    an, kn = peaks.suppression_round(minima, torch.zeros_like(minima), -x, w)
+    return ap.T, an.T, kp.T, kn.T
+
+
+def _k2_plain(cs_tm, act_p, act_n, kept_p, kept_n, w: int):
+    """What one K2 launch computes: one more round per polarity."""
+    x = cs_tm.T
+    ap, kp = peaks.suppression_round(act_p.T, kept_p.T, x, w)
+    an, kn = peaks.suppression_round(act_n.T, kept_n.T, -x, w)
+    return ap.T, an.T, kp.T, kn.T
+
+
+def rzcc_encode_bipolar_tm_plain(cs_tm: torch.Tensor, distance, max_plateau: int):
+    """``local_extrema_mask_bounded`` then ``select_by_distance`` on each
+    polarity, time-major (T, rows) in and out."""
+    x = cs_tm.T
+    maxima, minima = peaks.local_extrema_mask_bounded(x, int(max_plateau))
+    kp = peaks.select_by_distance(maxima, x, distance)
+    kn = peaks.select_by_distance(minima, -x, distance)
+    return kp.T, kn.T
+
+
+# ------------------------------------------------------------------- kernels
+def rzcc_k1(cs_tm: torch.Tensor, w: int, W: int):
+    """Launch K1 once: (act_p, act_n, kept_p, kept_n) as (T, R) bool."""
+    require_cuda(cs_tm, "cs_tm", (torch.float32,), 2)
+    T, R = cs_tm.shape
+    M = _margin(w, W, rounds=1)
+    _check_smem(M)
+    outs = [torch.empty((T, R), dtype=torch.bool, device=cs_tm.device) for _ in range(4)]
+    with torch.cuda.device(cs_tm.device):
+        rc = library().hm_rzcc_k1(
+            cs_tm.data_ptr(), *(o.data_ptr() for o in outs), T, R, w, W, M, TB,
+            stream_handle(cs_tm.device),
+        )
+    check(rc, "rzcc_k1")
+    launch_counts["rzcc_k1"] += 1
+    return tuple(outs)
+
+
+def rzcc_k2(cs_tm, act_p, act_n, kept_p, kept_n, w: int):
+    """Launch K2 once.  ``kept_p``/``kept_n`` are updated in place; returns
+    the new (act_p, act_n) and the per-tile flags (int32, 1 = candidates
+    remain)."""
+    require_cuda(cs_tm, "cs_tm", (torch.float32,), 2)
+    for name, t in (("act_p", act_p), ("act_n", act_n), ("kept_p", kept_p), ("kept_n", kept_n)):
+        require_cuda(t, name, (torch.bool,), 2)
+        if t.shape != cs_tm.shape or t.device != cs_tm.device:
+            raise ValueError(f"{name} must match cs_tm's shape {tuple(cs_tm.shape)} and device")
+    T, R = cs_tm.shape
+    M = _margin(w)
+    _check_smem(M)
+    rb = library().hm_rzcc_rows_per_block()
+    flags = torch.empty((-(-T // TB), -(-R // rb)), dtype=torch.int32, device=cs_tm.device)
+    ap_out = torch.empty_like(act_p)
+    an_out = torch.empty_like(act_n)
+    with torch.cuda.device(cs_tm.device):
+        rc = library().hm_rzcc_k2(
+            cs_tm.data_ptr(), act_p.data_ptr(), act_n.data_ptr(), ap_out.data_ptr(),
+            an_out.data_ptr(), kept_p.data_ptr(), kept_n.data_ptr(), flags.data_ptr(),
+            T, R, w, M, TB, stream_handle(cs_tm.device),
+        )
+    check(rc, "rzcc_k2")
+    launch_counts["rzcc_k2"] += 1
+    return ap_out, an_out, flags
+
+
+def rzcc_encode_bipolar_tm(cs_tm: torch.Tensor, distance, max_plateau: int):
+    """Bipolar RZCC spike extraction, time-major: bounded-plateau extrema of
+    ±cs and scipy-exact greedy distance suppression of each polarity.
+
+    ``cs_tm``: (T, rows) float32.  Returns ``(kept_pos, kept_neg)`` bool masks
+    of shape (T, rows), exactly ``select_by_distance`` of
+    ``local_extrema_mask_bounded(cs, max_plateau)`` on (maxima, cs) and
+    (minima, -cs).
+    """
+    if cs_tm.device.type == "cpu":
+        return rzcc_encode_bipolar_tm_plain(cs_tm, distance, max_plateau)
+    w, W = _windows(distance, max_plateau)
+    act_p, act_n, kept_p, kept_n = rzcc_k1(cs_tm, w, W)
+    # every round keeps at least the rightmost window-max of each row that
+    # still has candidates, so T rounds always reach the fixed point
+    for _ in range(cs_tm.shape[0] + 1):
+        act_p, act_n, flags = rzcc_k2(cs_tm, act_p, act_n, kept_p, kept_n, w)
+        if not bool(flags.any()):
+            return kept_p, kept_n
+    raise RuntimeError("RZCC suppression did not reach its fixed point")

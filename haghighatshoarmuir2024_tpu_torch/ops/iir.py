@@ -1,0 +1,249 @@
+"""IIR bandpass with its integrator folded into a lifted blocked pass
+(counterpart of ``haghighatshoarmuir2024_tpu/ops/iir.py``).
+
+The float64 host builders are copied from the JAX package
+(``iir.py:34-205``); :func:`iir_cumsum_blocked` is the torch form of
+``_iir_cumsum_blocked_impl`` (``iir.py:375-517``), with the level-2 modal
+lifting and the exactly-carried integrator offset.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .fir import full_fp32
+
+SB = 32  # lifted block size: the TPU form's default (``iir.py:375-396``)
+
+
+def butter_bandpass(order: int, freq_range, fs: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side Butterworth bandpass design (micloc/beamformer.py:69-71)."""
+    from scipy.signal import butter
+
+    b, a = butter(order, list(freq_range), btype="bandpass", analog=False, output="ba", fs=fs)
+    return np.asarray(b, dtype=np.float64), np.asarray(a, dtype=np.float64)
+
+
+def _tdf2_matrices(b: np.ndarray, a: np.ndarray):
+    """Transposed direct-form II state-space matrices (host, float64).
+
+    s_i[n] = (b_i - a_i b0) x[n] - a_i s_1[n-1] + s_{i+1}[n-1]
+    y[n]   = b0 x[n] + s_1[n-1]
+    """
+    b = np.asarray(b, dtype=np.float64)
+    a = np.asarray(a, dtype=np.float64)
+    if a[0] != 1.0:
+        b = b / a[0]
+        a = a / a[0]
+    N = len(a) - 1
+    bp = np.zeros(N + 1)
+    bp[: len(b)] = b
+    A = np.zeros((N, N))
+    for i in range(N):
+        A[i, 0] = -a[i + 1]
+        if i + 1 < N:
+            A[i, i + 1] += 1.0
+    Bvec = bp[1:] - a[1:] * bp[0]
+    return A, Bvec, float(bp[0])
+
+
+def _modal_transform(A: np.ndarray):
+    """Real modal basis of ``A`` (host, float64): columns are [Re v, Im v]
+    per conjugate eigenpair (plus real eigenvectors), normalized.  In this
+    basis every power of A is norm-bounded by the pole radius, so the
+    explicitly-powered lifted matrices are float-safe (the companion form's
+    non-normal transients would amplify float error ~1e3x, ``CLAUDE.md:57-60``).
+
+    Returns (T, Tinv) or None when the eigenbasis is ill-conditioned.
+    """
+    N = A.shape[0]
+    eigvals, eigvecs = np.linalg.eig(A)
+    used = np.zeros(N, bool)
+    cols = []
+    for i in range(N):
+        if used[i]:
+            continue
+        lam, v = eigvals[i], eigvecs[:, i]
+        if abs(lam.imag) <= 1e-12 * max(1.0, abs(lam.real)):
+            used[i] = True
+            re = v.real
+            cols.append(re / np.linalg.norm(re))
+        else:
+            js = [
+                j
+                for j in range(i + 1, N)
+                if not used[j] and abs(eigvals[j] - np.conj(lam)) < 1e-8 * abs(lam)
+            ]
+            if not js:
+                return None
+            used[i] = used[js[0]] = True
+            re, im = v.real, v.imag
+            sc = max(np.linalg.norm(re), np.linalg.norm(im))
+            cols.extend([re / sc, im / sc])
+    T = np.stack(cols, axis=1)
+    if np.linalg.cond(T) > 1e8:
+        return None
+    return T, np.linalg.inv(T)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_block_matrices(b_key, a_key, SB: int):
+    """Lifted SB-sample block form of the recurrence (host, float64):
+
+        y_blk = G @ x_blk + H @ s_in        (intra-block, batched matmuls)
+        s_out = A^SB @ s_in + Bm @ x_blk    (inter-block, tiny scan)
+    """
+    b = np.asarray(b_key, np.float64)
+    a = np.asarray(a_key, np.float64)
+    A, Bv, b0 = _tdf2_matrices(b, a)
+    N = A.shape[0]
+    c = np.zeros(N)
+    c[0] = 1.0
+
+    Apow = [np.eye(N)]
+    for _ in range(SB):
+        Apow.append(A @ Apow[-1])
+
+    G = np.zeros((SB, SB))
+    H = np.zeros((SB, N))
+    Bm = np.zeros((N, SB))
+    for j in range(SB):
+        H[j] = c @ Apow[j]
+        G[j, j] = b0
+        for i in range(j):
+            G[j, i] = c @ Apow[j - 1 - i] @ Bv
+    for i in range(SB):
+        Bm[:, i] = Apow[SB - 1 - i] @ Bv
+    return G, H, Bm, Apow[SB]
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_level2_matrices(b_key, a_key, SB: int, Q: int):
+    """Second lifting level over ``Q`` SB-sample blocks (host, float64), in
+    the modal basis of A (see ``iir.py:116-170`` of the JAX package):
+
+        s_prev(all q)  = Ws @ vec(sP) + Ps @ s_in
+        c_prev(all q)  = c_in + cumE + Hc @ s_in
+        s_out          = A^(SB·Q) s_in + Bm2 @ vec(sP)
+        c_out          = c_in + Σ_q e_q + sum_h · s_in
+
+    Returns None when no well-conditioned modal basis exists.
+    """
+    G_np, H_np, Bm_np, ASB = _cached_block_matrices(b_key, a_key, SB)
+    A_np, _, _ = _tdf2_matrices(np.asarray(b_key), np.asarray(a_key))
+    tr = _modal_transform(A_np)
+    if tr is None:
+        return None
+    T, Tinv = tr
+    N = ASB.shape[0]
+    ASBm = Tinv @ ASB @ T
+    Bm_m = Tinv @ Bm_np
+    LT = np.tril(np.ones((SB, SB)))
+    H2m = (LT @ H_np) @ T
+    h1m = H_np.sum(axis=0) @ T
+
+    Apow = [np.eye(N)]
+    for _ in range(Q):
+        Apow.append(ASBm @ Apow[-1])
+
+    Ws = np.zeros((Q * N, Q * N))
+    Ps = np.zeros((Q * N, N))
+    Bm2 = np.zeros((N, Q * N))
+    hvec = np.zeros((Q, N))
+    for q in range(Q):
+        Ps[q * N : (q + 1) * N] = Apow[q]
+        hvec[q] = h1m @ Apow[q]
+        Bm2[:, q * N : (q + 1) * N] = Apow[Q - 1 - q]
+        for j in range(q):
+            Ws[q * N : (q + 1) * N, j * N : (j + 1) * N] = Apow[q - 1 - j]
+    LTex = np.tril(np.ones((Q, Q)), k=-1)
+    Hc = LTex @ hvec
+    sum_h = hvec.sum(axis=0)
+    return Ws, Ps, Bm2, h1m, Hc, sum_h, LTex, Apow[Q], T, Tinv, Bm_m, H2m
+
+
+@functools.lru_cache(maxsize=16)
+def _device_matrices(b_key, a_key, SB: int, Q: int, device: torch.device):
+    """float32 device copies of the lifted maps, made once per config."""
+    G_np, H_np, Bm_np, ASB_np = _cached_block_matrices(b_key, a_key, SB)
+    LT = np.tril(np.ones((SB, SB)))
+    out = {
+        "G2": LT @ G_np, "H2": LT @ H_np, "g1": G_np.sum(axis=0),
+        "h1": H_np.sum(axis=0), "Bm": Bm_np, "ASB": ASB_np,
+    }
+    lvl2 = _cached_level2_matrices(b_key, a_key, SB, Q) if Q > 2 else None
+    if lvl2 is not None:
+        names = ("Ws", "Ps", "Bm2", "h1m", "Hc", "sum_h", "LTex", "ASBQ", "Tm", "Tinv", "Bmm", "H2m")
+        out.update(dict(zip(names, lvl2)))
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in out.items()}
+
+
+def iir_cumsum_blocked(b, a, x: torch.Tensor) -> torch.Tensor:
+    """``cumsum(lfilter(b, a, x), dim 0)`` as one lifted blocked pass, zero
+    initial state; ``x`` is time-major (T, ...) float32.
+
+    The integrator is part of the lifted block form of the stable filter:
+    within-block prefix sums are ``z_blk = (LT·G) x_blk + (LT·H) s_in + c_in``
+    and the carried offset updates like a blocked cumsum — all instability
+    confined to the float addition of per-block sums.  Q level-1 block steps
+    collapse into matmuls in the modal basis (level 2); with Q ≤ 2 or no
+    well-conditioned modal basis the plain level-1 recurrence runs.  T that is
+    not a multiple of ``SB`` is zero-padded.
+    """
+    full_fp32()
+    b_key = tuple(np.asarray(b, np.float64).tolist())
+    a_key = tuple(np.asarray(a, np.float64).tolist())
+    N = len(a_key) - 1
+
+    T = x.shape[0]
+    rest = x.shape[1:]
+    xf = x.reshape(T, -1).to(torch.float32)
+    L = xf.shape[1]
+    pad = (-T) % SB
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, L))], dim=0)
+    nb = xf.shape[0] // SB
+    xb = xf.reshape(nb, SB, L)
+
+    Qmax = max(1, 512 // max(N, 1))
+    Q = max((q for q in range(1, min(nb, Qmax) + 1) if nb % q == 0), default=1)
+    m = _device_matrices(b_key, a_key, SB, Q, x.device)
+
+    zP = torch.einsum("ji,bil->bjl", m["G2"], xb)  # within-block prefix sums of y
+    cP = torch.einsum("i,bil->bl", m["g1"], xb)  # per-block sums of y
+    s = xf.new_zeros((N, L))
+    c = xf.new_zeros((L,))
+
+    if "Ws" in m:
+        nb2 = nb // Q
+        sP = torch.einsum("ni,bil->bnl", m["Bmm"], xb)  # modal-basis increments
+        sP2 = sP.reshape(nb2, Q * N, L)
+        cP2 = cP.reshape(nb2, Q, L)
+        U = torch.einsum("ab,ibl->ial", m["Ws"], sP2)  # (nb2, Q·N, L)
+        V = torch.einsum("nb,ibl->inl", m["Bm2"], sP2)  # (nb2, N, L)
+        e = cP2 + torch.einsum("n,iqnl->iql", m["h1m"], U.reshape(nb2, Q, N, L))
+        cumE = torch.einsum("pq,iql->ipl", m["LTex"], e)  # exclusive in-super prefix
+        sumE = e.sum(dim=1)  # (nb2, L)
+        s_prev, c_prev = [], []
+        for i in range(nb2):  # outer recurrence: nb2 sequential steps
+            s_prev.append(U[i] + m["Ps"] @ s)
+            c_prev.append(c[None, :] + cumE[i] + m["Hc"] @ s)
+            s, c = m["ASBQ"] @ s + V[i], c + sumE[i] + m["sum_h"] @ s
+        s_prev = torch.stack(s_prev).reshape(nb, N, L)
+        c_prev = torch.stack(c_prev).reshape(nb, L)
+        Hout = m["H2m"]
+    else:
+        sP = torch.einsum("ni,bil->bnl", m["Bm"], xb)
+        s_prev, c_prev = [], []
+        for i in range(nb):  # level-1 recurrence: one step per block
+            s_prev.append(s)
+            c_prev.append(c)
+            s, c = m["ASB"] @ s + sP[i], c + cP[i] + m["h1"] @ s
+        s_prev = torch.stack(s_prev)
+        c_prev = torch.stack(c_prev)
+        Hout = m["H2"]
+    z = zP + torch.einsum("jn,bnl->bjl", Hout, s_prev) + c_prev[:, None, :]
+    return z.reshape(nb * SB, L)[:T].reshape((T,) + rest)

@@ -1,0 +1,122 @@
+"""Peak detection with scipy ``find_peaks(distance=...)`` semantics — the
+plain PyTorch versions of what kernels K1/K2 compute (counterpart of
+``haghighatshoarmuir2024_tpu/ops/peaks.py:172-288``; reference:
+micloc/spike_encoder.py:115-137).
+
+Both functions work along the last axis with any leading batch dims, like
+the JAX originals, and are bit-exact with them:
+
+* :func:`local_extrema_mask_bounded` — plateau-midpoint maxima and minima
+  with the plateau search bounded to ``max_plateau`` samples, from one pass
+  over sign-encoded boundary indices (``2·i + 1`` rise, ``2·i`` fall);
+* :func:`select_by_distance` — scipy's greedy height-ordered suppression as a
+  fixed point of rounds: window-maxima win, exact ties go to the rightmost
+  index, winners delete their window, repeat until no candidates remain.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_INT32_MAX = 2**31 - 1
+
+
+def _shift(v: torch.Tensor, k: int, fill) -> torch.Tensor:
+    """``out[..., i] = v[..., i - k]`` (k > 0 moves toward higher indices),
+    ``fill`` where the source is out of range."""
+    k = max(-v.shape[-1], min(v.shape[-1], k))
+    if k == 0:
+        return v
+    pad = torch.full(v.shape[:-1] + (abs(k),), fill, dtype=v.dtype, device=v.device)
+    if k > 0:
+        return torch.cat([pad, v[..., :-k]], dim=-1)
+    return torch.cat([v[..., -k:], pad], dim=-1)
+
+
+def _running(v: torch.Tensor, L: int, fill, op, direction: int) -> torch.Tensor:
+    """``op`` over the trailing window ``[i-L+1, i]`` (direction=+1) or the
+    leading window ``[i, i+L-1]`` (direction=-1), by log-step doubling."""
+    y = v
+    k = 1
+    while k < L:
+        step = min(k, L - k)
+        y = op(y, _shift(y, direction * step, fill))
+        k += step
+    return y
+
+
+def _window_max(v: torch.Tensor, w: int) -> torch.Tensor:
+    """Max over the centered window ``[i-w, i+w]``; out-of-range is ignored."""
+    fill = -math.inf if v.is_floating_point() else torch.iinfo(v.dtype).min
+    y = _running(v, w + 1, fill, torch.maximum, +1)
+    return _running(y, w + 1, fill, torch.maximum, -1)
+
+
+def local_extrema_mask_bounded(x: torch.Tensor, max_plateau: int):
+    """Bounded-plateau local maxima AND minima of ``x`` along the last axis.
+
+    A position p is a maximum iff the nearest boundary (nonzero diff) within
+    ``max_plateau`` before it is a rise, the nearest at/after it within
+    ``max_plateau`` is a fall, and p is the midpoint ``(l + r) >> 1`` of the
+    run between them (scipy ``_local_maxima_1d``); minima flip the rise/fall
+    test.  Returns ``(maxima, minima)`` bool masks of ``x``'s shape.
+    """
+    T = x.shape[-1]
+    W = int(max_plateau)
+    d = torch.sign(x[..., 1:] - x[..., :-1])
+    idx = torch.arange(T - 1, dtype=torch.int32, device=x.device)
+    code = 2 * idx + (d == 1).to(torch.int32)
+    enc = torch.where(d != 0, code, torch.full_like(code, -1))
+    encN = torch.where(d != 0, code, torch.full_like(code, _INT32_MAX))
+
+    last = _running(enc, W, -1, torch.maximum, +1)
+    edge = x.shape[:-1] + (1,)
+    last = torch.cat([last.new_full(edge, -1), last], dim=-1)  # strictly before p
+    nxt = _running(encN, W, _INT32_MAX, torch.minimum, -1)
+    nxt = torch.cat([nxt, nxt.new_full(edge, _INT32_MAX)], dim=-1)
+
+    has_last = last >= 0
+    last_rise = has_last & ((last & 1) == 1)
+    has_next = nxt < _INT32_MAX
+    next_fall = has_next & ((nxt & 1) == 0)
+    l = (last >> 1) + 1
+    r = nxt >> 1
+    p = torch.arange(T, dtype=torch.int32, device=x.device)
+    mid_ok = p == ((l + r) >> 1)
+    maxima = last_rise & next_fall & mid_ok
+    minima = has_last & ~last_rise & has_next & ~next_fall & mid_ok
+    return maxima, minima
+
+
+def suppression_round(active: torch.Tensor, kept: torch.Tensor, height: torch.Tensor, w: int):
+    """One greedy suppression round: returns the new ``(active, kept)``.
+
+    A candidate is a window-max if its height equals the max over the active
+    heights in ``[i-w, i+w]``; two window-maxima within w tie exactly, so the
+    rightmost wins (no window-max strictly to its right within w).  Winners
+    are kept and clear every candidate inside their window.
+    """
+    T = active.shape[-1]
+    h = torch.where(active, height, torch.full_like(height, -math.inf))
+    top = active & (h == _window_max(h, w)) & torch.isfinite(h)
+    idx = torch.arange(T, dtype=torch.int32, device=active.device)
+    tid = torch.where(top, idx, torch.full_like(idx, -1))
+    winner = top & (_window_max(tid, w) == idx)
+    in_win = _window_max(winner.to(torch.int8), w) > 0
+    return active & ~in_win, kept | winner
+
+
+def select_by_distance(cand_mask: torch.Tensor, height: torch.Tensor, distance) -> torch.Tensor:
+    """Greedy height-ordered distance suppression (scipy
+    ``_select_by_peak_distance``) along the last axis: candidates closer than
+    ``ceil(distance)`` samples to a higher kept peak are removed."""
+    w = int(math.ceil(distance)) - 1
+    if w <= 0:
+        return cand_mask
+    height = height.to(torch.float32) if not height.is_floating_point() else height
+    active, kept = cand_mask, torch.zeros_like(cand_mask)
+    while True:
+        active, kept = suppression_round(active, kept, height, w)
+        if not bool(active.any()):
+            return kept
