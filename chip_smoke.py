@@ -18,14 +18,30 @@ Phases, each failing the run with a non-zero exit:
 5. slice: the flagship ``Demo.forward_batch(method="matched")`` at B = 96,
    T = 12 000 (bench.py's frames): every kernel's launch count must rise,
    the DoAs must equal the plain path's, and ``doa-ok-frac`` must be 1.00 @5°;
-   prints stage and kernel times next to the plain versions'.
+   prints stage and kernel times next to the plain versions';
+6. K4 (stateful integer LIF) against the plain simulator on the card,
+   bit-exact on counts and final state: flagship shapes, two chunks carried
+   equal to one pass of 24 000 steps, ragged T, the clip path and the
+   uniform recurrence rec_coef = -1;
+7. streaming: ``StreamingLocalizer`` over 96 streams, 4 chunks of 0.25 s
+   (experiments/serving_throughput.py's set-up): K1, K2 and K4 must launch,
+   spikes and counts must equal the same steps with the plain RZCC and LIF,
+   and ``doa-ok-frac`` must be 1.00 @5° (matched); prints the step time,
+   serving audio-sec/sec and the single-stream latency;
+8. serving: ``LocalizationServer`` (96 slots, 0.25 s chunks) with 8 TCP
+   clients of 8 chunks each, on the f32 wire and on the u4 wire at fs/4:
+   every answer must arrive and equal the DoA of the direct streaming step
+   on the same chunks; prints ms per serve step.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -176,35 +192,47 @@ def check_suppress(torch, sk, peaks, dev, flagship_cs):
 
 
 # ------------------------------------------------------------------ phase 4
+def make_config(XyloConfig, seed, C=6, N=20, w_scale=20, rec=0):
+    r = np.random.default_rng(seed)
+    return XyloConfig(
+        w_in=r.integers(-w_scale, w_scale + 1, size=(2 * C, N)).astype(np.int32),
+        w_rec=np.full((N, N), rec, np.int32),
+        w_out=np.ones((N, 1), np.int32),
+        dash_syn=r.integers(1, 7, size=N).astype(np.int32),
+        dash_mem=r.integers(1, 7, size=N).astype(np.int32),
+        dash_syn_out=np.ones(1, np.int32), dash_mem_out=np.ones(1, np.int32),
+        threshold=r.integers(30, 200, size=N).astype(np.int32),
+        threshold_out=np.ones(1, np.int32), dt=1e-3, weight_scale=1.0,
+    )
+
+
+def with_rec(config, rec):
+    """``config`` with the uniform recurrence ``w_rec = rec·ones``."""
+    return dataclasses.replace(config, w_rec=np.full_like(np.asarray(config.w_rec), rec))
+
+
+def masks(torch, dev, seed, T, B, C, p):
+    r = np.random.default_rng(seed + 1000)
+    kp = torch.as_tensor(r.random((T, B, C)) < p, device=dev)
+    kn = torch.as_tensor(r.random((T, B, C)) < p, device=dev)
+    return kp, kn
+
+
 def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
-    def make_config(seed, C=6, N=20, w_scale=20):
-        r = np.random.default_rng(seed)
-        return XyloConfig(
-            w_in=r.integers(-w_scale, w_scale + 1, size=(2 * C, N)).astype(np.int32),
-            w_rec=np.zeros((N, N), np.int32),
-            w_out=np.ones((N, 1), np.int32),
-            dash_syn=r.integers(1, 7, size=N).astype(np.int32),
-            dash_mem=r.integers(1, 7, size=N).astype(np.int32),
-            dash_syn_out=np.ones(1, np.int32), dash_mem_out=np.ones(1, np.int32),
-            threshold=r.integers(30, 200, size=N).astype(np.int32),
-            threshold_out=np.ones(1, np.int32), dt=1e-3, weight_scale=1.0,
-        )
-
-    def masks(seed, T, B, C, p):
-        r = np.random.default_rng(seed + 1000)
-        kp = torch.as_tensor(r.random((T, B, C)) < p, device=dev)
-        kn = torch.as_tensor(r.random((T, B, C)) < p, device=dev)
-        return kp, kn
-
+    make = functools.partial(make_config, XyloConfig)
+    rand = functools.partial(masks, torch, dev)
     cases = [
-        ("random", make_config(0), masks(0, 50, 3, 6, 0.15), False),
-        ("random, N=200", make_config(1, N=200), masks(1, 777, 5, 6, 0.2), False),
-        ("ragged T=12001", make_config(2, C=14, N=449, w_scale=49), masks(2, 12001, 2, 14, 0.05), False),
+        ("random", make(0), rand(0, 50, 3, 6, 0.15), False),
+        ("random, N=200", make(1, N=200), rand(1, 777, 5, 6, 0.2), False),
+        ("ragged T=12001", make(2, C=14, N=449, w_scale=49), rand(2, 12001, 2, 14, 0.05), False),
     ]
-    sat = make_config(11, w_scale=5000)
+    sat = make(11, w_scale=5000)
     sat.threshold[:] = 25_000
-    cases.append(("saturating", sat, masks(11, 300, 3, 6, 0.9), True))
+    cases.append(("saturating", sat, rand(11, 300, 3, 6, 0.9), True))
     cases.append(("flagship", flagship_config, flagship_masks, False))
+    # the uniform recurrence: one block per batch row, a block-wide count per step
+    cases.append(("rec_coef=-1", make(3, N=200, rec=-1), rand(3, 1500, 4, 6, 0.2), False))
+    cases.append(("rec_coef=-1, flagship width", with_rec(flagship_config, -1), flagship_masks, False))
     for label, cfg, (kp, kn), must_clip in cases:
         if must_clip and lk._no_saturation_possible(cfg, 1, 0):
             fail(f"K3 {label}: the case was meant to exercise the clip path")
@@ -217,11 +245,218 @@ def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
         if int(ref.sum()) == 0:
             fail(f"K3 {label}: no neuron fired, the case checks nothing")
     print(f"[K3] {len(cases)} cases bit-exact vs plain sim_hidden "
-          "(incl. saturating clip path, ragged T, flagship config and masks)", flush=True)
+          "(incl. saturating clip path, ragged T, flagship config and masks, rec_coef = -1)", flush=True)
     kp, kn = flagship_masks
     ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(flagship_config, kp, kn, spike_bound=1), 20)
     plain_ms = timed_ms(torch, lambda: lk.lif_count_plain(flagship_config, kp, kn), 1)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+
+
+# ------------------------------------------------------------------ phase 6
+def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
+    make = functools.partial(make_config, XyloConfig)
+    rand = functools.partial(masks, torch, dev)
+    n_cases, worst = 0, 0
+
+    def zeros(B, N):
+        return tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))
+
+    def case(label, cfg, kp, kn, state0):
+        nonlocal n_cases, worst
+        got = lk.lif_count_stateful_bipolar(cfg, kp, kn, *state0, spike_bound=1)
+        ref = lk.lif_count_stateful_bipolar_plain(cfg, kp, kn, *state0)
+        torch.cuda.synchronize()
+        bad = sum(mismatches(a, b) for a, b in zip(got, ref))
+        if bad:
+            fail(f"K4 {label}: {bad} elements of counts/isyn/vmem/spk differ from the plain simulator")
+        if int(ref[0].sum()) == 0:
+            fail(f"K4 {label}: no neuron fired, the case checks nothing")
+        worst = max([worst] + [int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref)])
+        n_cases += 1
+        return got
+
+    kp, kn = flagship_masks
+    T, B, _ = kp.shape
+    N = np.asarray(flagship_config.w_in).shape[1]
+    first = case("flagship chunk 1", flagship_config, kp, kn, zeros(B, N))
+    # a second chunk (the time-reversed masks) from the state the first left
+    kp2, kn2 = kp.flip(0).contiguous(), kn.flip(0).contiguous()
+    second = case("flagship chunk 2, carried", flagship_config, kp2, kn2, first[1:])
+    whole = lk.lif_count_stateful_bipolar(flagship_config, torch.cat([kp, kp2]), torch.cat([kn, kn2]),
+                                          *zeros(B, N), spike_bound=1)
+    bad = mismatches(whole[0], first[0] + second[0]) + sum(
+        mismatches(a, b) for a, b in zip(whole[1:], second[1:]))
+    if bad:
+        fail(f"K4: two chunks carried differ from one pass of {2 * T} steps in {bad} elements")
+    # mid-stream states come from the plain dynamics on earlier masks
+    cfg = make(5, N=200)
+    mid = lk.lif_count_stateful_bipolar_plain(cfg, *rand(6, 300, 5, 6, 0.2), None, None, None)
+    case("ragged T=777, mid-stream state", cfg, *rand(5, 777, 5, 6, 0.2), mid[1:])
+    sat = make(11, w_scale=5000)
+    sat.threshold[:] = 25_000
+    if lk._no_saturation_possible(sat, 1, 0):
+        fail("K4 saturating: the case was meant to exercise the clip path")
+    mid = lk.lif_count_stateful_bipolar_plain(sat, *rand(12, 200, 3, 6, 0.9), None, None, None)
+    case("saturating clip path", sat, *rand(11, 301, 3, 6, 0.9), mid[1:])
+    rec = with_rec(flagship_config, -1)
+    head = case("rec_coef=-1, flagship width", rec, kp[:3000].contiguous(), kn[:3000].contiguous(), zeros(B, N))
+    case("rec_coef=-1, carried", rec, kp[3000:6001].contiguous(), kn[3000:6001].contiguous(), head[1:])
+    print(f"[K4] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk "
+          f"(flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, ragged T, clip path, "
+          "rec_coef = -1)", flush=True)
+    ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(flagship_config, kp2, kn2, *first[1:]), 20)
+    plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar_plain(flagship_config, kp2, kn2, *first[1:]), 1)
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+
+
+# ------------------------------------------------------------------ phase 7
+def ok_frac(est, doas, tol_deg):
+    err = np.abs(np.arcsin(np.abs(np.sin(np.asarray(est) - doas))))
+    return float(np.mean(np.rad2deg(err) < tol_deg))
+
+
+def plain_step(torch, sk, lk, sl, state, chunks):
+    """``StreamingLocalizer._step`` with the plain RZCC and the plain LIF:
+    what the kernels' step is held to."""
+    B, Tc, _ = chunks.shape
+    fir_tail, delay_line, iir_state, int_carry, integrated = sl._encode(state, chunks.transpose(0, 1))
+    analysis = torch.cat([state.pending, integrated], dim=0)
+    kp, kn = sk.rzcc_encode_bipolar_tm_plain(analysis.reshape(analysis.shape[0], B * sl.C), sl.rw, 2 * sl.rw)
+    kp = kp[sl.guard:sl.guard + Tc].reshape(Tc, B, sl.C)
+    kn = kn[sl.guard:sl.guard + Tc].reshape(Tc, B, sl.C)
+    counts, isyn, vmem, spk = lk.lif_count_stateful_bipolar_plain(
+        sl.demo.xylo_config, kp, kn, state.isyn, state.vmem, state.spk)
+    new = dataclasses.replace(
+        state, fir_tail=fir_tail, delay_line=delay_line, iir_state=iir_state, int_carry=int_carry,
+        pending=analysis[Tc:], isyn=isyn, vmem=vmem, spk=spk, counts=state.counts + counts,
+        steps=state.steps + Tc)
+    return new, torch.cat([kp & ~kn, kn], dim=-1).to(torch.int8)
+
+
+def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doas, n_chunks=4):
+    sl = StreamingLocalizer(demo)
+    B, Tc, _ = frames.shape
+    sl.process_chunk(sl.init_state(B), frames, return_spikes=False)  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    state, spikes = sl.init_state(B), []
+    for _ in range(n_chunks):  # the same chunk repeated, as serving_throughput.py does
+        state, sp = sl.process_chunk(state, frames)
+        spikes.append(sp)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    for name in ("rzcc_k1", "rzcc_k2", "lif_k4"):
+        if launches.get(name, 0) < 1:
+            fail(f"the streaming run never launched {name} (launch counts {launches})")
+    pstate = sl.init_state(B)
+    for k in range(n_chunks):
+        pstate, psp = plain_step(torch, sk, lk, sl, pstate, frames)
+        bad = mismatches(spikes[k], psp)
+        if bad:
+            fail(f"streaming chunk {k}: {bad} spikes differ from the plain RZCC")
+    bad = sum(mismatches(getattr(state, f), getattr(pstate, f)) for f in ("counts", "isyn", "vmem", "spk"))
+    if bad:
+        fail(f"streaming: {bad} elements of the LIF counts/state differ from the plain path")
+    est = sl.estimate_doa(state, "matched").cpu().numpy()
+    ok = ok_frac(est, doas, 5.0)
+    print(f"[stream] B={B} {n_chunks} x Tc={Tc}: launches {launches}; spikes and counts identical to the "
+          f"plain RZCC + plain LIF; doa-ok-frac {ok:.2f} @5deg (matched)", flush=True)
+    if ok < 1.0:
+        fail(f"streaming accuracy gate failed: doa-ok-frac {ok:.2f} @5deg")
+
+    n_rep = 20
+    st = sl.process_chunk(sl.init_state(B), frames, return_spikes=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_rep):
+        st = sl.process_chunk(st, frames, return_spikes=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / n_rep * 1e3
+    s1 = sl.process_chunk(sl.init_state(), frames[0], return_spikes=False)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        s1 = sl.process_chunk(s1, frames[0], return_spikes=False)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    return launches, dict(step_ms=step_ms, latency_ms=float(np.median(lat)), latency_max_ms=max(lat))
+
+
+# ------------------------------------------------------------------ phase 8
+def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=4):
+    """8 TCP clients through the daemon; each answer must equal the DoA of
+    the direct streaming step at the same batch width on the same chunks.
+    The serve-step times leave out the first round of chunks: a new serving
+    thread pays one-off CUDA library set-up on its first step."""
+    os.environ["HM2024_SERVE_TIMING"] = "1"
+    B, Tc, M = frames.shape
+    sids = list(range(0, B, B // 8))[:8]
+    audio = frames.cpu().numpy()
+    out = {}
+    for wire, up in (("f32", 1), ("u4", 4)):
+        if wire == "f32":
+            sent = {s: [audio[s]] * n_chunks for s in sids}
+        else:
+            sent = {}
+            for s in sids:
+                enc = server.WireEncoder(wire, wire_upsample=up)
+                x = audio[s] / np.abs(audio[s]).max() * 0.98
+                sent[s] = [enc.encode(x) for _ in range(n_chunks)]
+        with server.LocalizationServer(demo, max_streams=B, chunk_sec=Tc / demo.fs,
+                                       wire_dtype=wire, wire_upsample=up) as srv:
+            srv.start()
+            clients = {s: server.StreamClient(srv.port, s) for s in sids}
+            _build.launch_counts.clear()
+            answers = {s: [] for s in sids}
+            for k in range(n_chunks):
+                for s, c in clients.items():
+                    c.send(sent[s][k])
+                for s, c in clients.items():
+                    rid, doa = c.recv_doa(timeout=120.0)
+                    if rid != s:
+                        fail(f"serving {wire}: stream {s} got an answer for stream {rid}")
+                    answers[s].append(doa)
+                if k == 0:
+                    time.sleep(0.2)  # the server books a step's times just after it answers
+                    first = dict(srv.stage_times)
+            time.sleep(0.2)
+            launches = dict(_build.launch_counts)
+            stage = {k: v - first[k] for k, v in srv.stage_times.items()}
+            for c in clients.values():
+                c.close()
+        for name in ("rzcc_k1", "lif_k4"):
+            if launches.get(name, 0) < 1:
+                fail(f"serving {wire}: the daemon never launched {name} (launch counts {launches})")
+
+        # the direct streaming step on the same chunks, all B lanes advanced
+        sl = StreamingLocalizer(demo)
+        state = sl.init_state(B)
+        carry = torch.zeros((B, resample.TAPS_PER_PHASE - 1, M), device=demo.device)
+        hp = resample.phase_table(resample.design_upsample_fir(up), up) if up > 1 else None
+        for k in range(n_chunks):
+            if wire == "f32":
+                x = np.zeros((B, Tc, M), np.float32)
+                for s in sids:
+                    x[s] = sent[s][k]
+                chunks = torch.as_tensor(x, device=demo.device)
+            else:
+                xw = np.zeros((B, Tc // up, M), np.float32)
+                for s in sids:
+                    xw[s] = mulaw.mulaw4_decode(mulaw.unpack4(sent[s][k]))
+                chunks, carry = resample.upsample_poly_stream(torch.as_tensor(xw, device=demo.device), carry, hp, up)
+            state = sl.process_chunk(state, chunks, return_spikes=False)
+            direct = sl.estimate_doa(state, srv.method).to(torch.float32).cpu().numpy()
+            bad = [s for s in sids if np.float32(answers[s][k]) != direct[s]]
+            if bad:
+                fail(f"serving {wire}: chunk {k}: streams {bad} answered "
+                     f"{[answers[s][k] for s in bad]}, the direct step gives {[float(direct[s]) for s in bad]}")
+        steps = max(stage["steps"], 1)
+        out[wire] = dict(steps=stage["steps"],
+                         **{f"{k}_ms": stage[k] / steps * 1e3 for k in ("wait", "device", "route")})
+        print(f"[serve] wire {wire} x{up}: {len(sids)} clients x {n_chunks} chunks answered, every DoA equal "
+              f"to the direct streaming step; launches {launches}", flush=True)
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -265,7 +500,9 @@ def main() -> int:
     from haghighatshoarmuir2024_tpu_torch.ops import peaks
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import suppress_kernel as sk
+    from haghighatshoarmuir2024_tpu_torch.ops import mulaw, resample
     from haghighatshoarmuir2024_tpu_torch.ops.interp import signal_from_template
+    from haghighatshoarmuir2024_tpu_torch.runtime import StreamingLocalizer, server
 
     # the flagship: bench.py's config and frames
     fs, frame, B, G = 48_000, 0.25, 96, 64 * 7 + 1
@@ -321,18 +558,19 @@ def main() -> int:
     if not torch.equal(doa, p_doa) or not torch.equal(rate, p_rate):
         fail("slice DoAs/rates differ from the plain path's")
 
-    def ok_frac(est, tol_deg):
-        err = np.abs(np.arcsin(np.abs(np.sin(np.asarray(est) - doas))))
-        return float(np.mean(np.rad2deg(err) < tol_deg))
-
     doa_np = doa.cpu().numpy()
     peak_np = demo.doa_list[rate.argmax(dim=-1).cpu().numpy()]
-    ok_matched, ok_peak = ok_frac(doa_np, 5.0), ok_frac(peak_np, 25.0)
+    ok_matched, ok_peak = ok_frac(doa_np, doas, 5.0), ok_frac(peak_np, doas, 25.0)
     print(f"[slice] B={B} T={T}: launches {launches}; DoAs identical to the plain path; "
           f"doa-ok-frac {ok_matched:.2f} @5deg (matched), {ok_peak:.2f} @25deg (reference-parity peak)",
           flush=True)
     if ok_matched < 1.0:
         fail(f"matched accuracy gate failed: doa-ok-frac {ok_matched:.2f} @5deg")
+
+    # ---- phases 6-8: K4, the streaming runtime, the serving daemon
+    lif4 = check_lif_stateful(torch, lk, XyloConfig, dev, demo.xylo_config, (kp, kn))
+    stream_launches, stream = check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doas)
+    serve = check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=8)
 
     # stage and end-to-end times
     stage_ms = {
@@ -349,14 +587,21 @@ def main() -> int:
         demo.forward_batch(frames, method="matched")
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t1) / n_rep * 1e3
-    print(f"[times] card: {card}", flush=True)
+    tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
-        print(f"[times] stage {name}: {ms:.3f} ms")
-    print(f"[times] rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
-    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif)):
-        print(f"[times] kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms")
-    print(f"[times] forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
+        print(f"{tag} stage {name}: {ms:.3f} ms")
+    print(f"{tag} rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
+    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif), ("K4", lif4)):
+        print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms")
+    print(f"{tag} forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
           f"{B * frame / (batch_ms / 1e3):.1f} audio-sec/sec", flush=True)
+    print(f"{tag} streaming step {stream['step_ms']:.3f} ms per {B} streams x {frame} s chunk = "
+          f"{B * frame / (stream['step_ms'] / 1e3):.1f} serving audio-sec/sec; single-stream latency "
+          f"{stream['latency_ms']:.3f} ms (median of 10, max {stream['latency_max_ms']:.3f} ms)")
+    for wire, r in serve.items():
+        print(f"{tag} serve step ({wire} wire, {r['steps']} steps after the first round): "
+              f"device {r['device_ms']:.3f} ms, "
+              f"wait {r['wait_ms']:.3f} ms, route {r['route_ms']:.3f} ms per step", flush=True)
 
     kernels = []
     for name, src, repl, key, res in (
@@ -366,9 +611,13 @@ def main() -> int:
          "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:248", "rzcc_k2", sup["k2"]),
         ("lif_k3", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:275", "lif_k3", lif),
+        ("lif_k4", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:468", "lif_k4", lif4),
     ):
+        # launches: K1-K3 from the forward_batch run, K4 from the streaming run
+        path = stream_launches if key == "lif_k4" else launches
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                        "launches": launches[key], "max_abs_err": res["max_abs_err"],
+                        "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

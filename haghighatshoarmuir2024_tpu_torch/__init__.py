@@ -8,9 +8,15 @@ Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
 (``ops/cuda/_build.py``).  On CPU tensors each kernel wrapper runs its plain
 PyTorch version; on CUDA tensors it launches its kernel or raises.
 
-Ported so far (slice 1): the flagship quantized SNN localizer
-``models.xylo.Demo.forward_batch`` — encode → fused bipolar RZCC (kernels K1,
-K2) → integer LIF spike counts (kernel K3) → fold + matched/peak DoA.
+Ported so far:
+
+- the flagship quantized SNN localizer ``models.xylo.Demo.forward_batch`` —
+  encode → fused bipolar RZCC (kernels K1, K2) → integer LIF spike counts
+  (kernel K3) → fold + matched/peak DoA;
+- the streaming runtime ``runtime.StreamingLocalizer`` (carried-state chunks
+  of B streams: K1, K2 and the stateful LIF kernel K4) and the serving daemon
+  ``runtime.LocalizationServer`` over the native ingestion daemon
+  ``native/streamd.cpp``.
 """
 
 __version__ = "0.1.0"

@@ -1,66 +1,92 @@
 // Integer-LIF spike counts from the two RZCC polarity masks, for Hopper
-// (sm_90a): kernel K3.
+// (sm_90a): kernels K3 (from a zero state) and K4 (stateful).
 //
-// Replaces the Pallas kernel _lif_kernel_bipolar of
+// K3 replaces the Pallas kernel _lif_kernel_bipolar of
 // haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:275 (public entry
-// lif_count_rates_bipolar, :407).  Per step and neuron, with all state int32:
+// lif_count_rates_bipolar, :407).  K4 replaces _lif_kernel_bipolar_stateful
+// (:468, public entry lif_count_stateful_bipolar, :605), the serving
+// runtime's per-chunk LIF: K3 with the (B, N) isyn/vmem/spk state loaded at
+// the start and stored at the end.  Per step and neuron, all state int32:
 //
-//   pos  = kp & ~kn                         (-1 wins on collision)
-//   cur  = [pos | kn] @ w_in                 (2C input channels)
-//   isyn = isyn - (isyn >> dash_syn) + cur   (arithmetic shift; clip to int16
-//   vmem = vmem - (vmem >> dash_mem) + isyn   range unless proven dead)
+//   pos  = kp & ~kn                          (-1 wins on collision)
+//   cur  = [pos | kn] @ w_in + rec * sum_n spk_prev[b, n]
+//   isyn = isyn - (isyn >> dash_syn) + cur    (arithmetic shift; clip to int16
+//   vmem = vmem - (vmem >> dash_mem) + isyn    range unless proven dead)
 //   spk  = vmem >= thr;  vmem -= spk * thr;  count += spk
 //
-// which is models/xylo/sim._sim_hidden with decay_first / subtract.  The
-// uniform recurrence (w_rec = c * ones, c != 0) is not implemented here: the
-// wrapper raises for it.
+// which is models/xylo/sim._sim_hidden with decay_first / subtract.  The T
+// steps run to T and stop: there is no time padding, so nothing past T needs
+// freezing (the Pallas kernels' has_tail masks).
 //
-// Design: one thread per (b, n) chain; the B*N chains are independent when
-// the recurrence is zero, and the T steps of a chain are sequential.  A block
-// holds NT neurons of one batch row b, so every thread of a block sees the
-// same input spikes: the block packs each step's 2C input bits into one
-// 64-bit word in shared memory, and each thread adds the weights of the set
-// bits (RZCC spikes are sparse: about one set bit per step at the flagship
-// size).  The weight columns sit in shared memory, one column per thread.
+// Design: one thread per (b, n) chain; the T steps of a chain are
+// sequential.  A block holds neurons of one batch row b, so every thread of a
+// block sees the same input spikes: the block packs each step's 2C input bits
+// into one 64-bit word in shared memory, and each thread adds the weights of
+// the set bits (RZCC spikes are sparse: about one set bit per step at the
+// flagship size).  Two layouts, by the uniform recurrence rec:
+//
+//   rec == 0  the B*N chains are independent.  Blocks of NT = 64 neurons; the
+//             block's weight columns sit in shared memory, one per thread.
+//   rec != 0  the chains of a row are coupled through sum_n spk_prev.  One
+//             block holds all N <= 1024 neurons of a row, and the sum is one
+//             __syncthreads_count per step.  The (2C, N) weights are read
+//             through the read-only cache: at N = 1024 they would not fit in
+//             shared memory.
 //
 // What bounds it on the card: the dependent integer chain of each step
 // (about ten operations through isyn -> vmem -> spike), not memory: the
-// masks are read once per block and the only output is the (B, N) counts.
+// masks are read once per block and the only outputs are (B, N) arrays.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 64;     // neurons per block
-constexpr int TCH = 1024;  // time steps staged per chunk
+constexpr int NT = 64;        // neurons per block when rec == 0
+constexpr int NT_MAX = 1024;  // neurons per block (one whole row) when rec != 0
+constexpr int TCH = 1024;     // time steps staged per chunk
 constexpr int STATE_MIN = -(1 << 15);
 constexpr int STATE_MAX = (1 << 15) - 1;
 
-template <bool CLIP>
-__global__ void lif_count_bipolar_kernel(const uint8_t* __restrict__ kp,
-                                         const uint8_t* __restrict__ kn,
-                                         const int* __restrict__ w_in,  // (2C, N)
-                                         const int* __restrict__ dash_syn,
-                                         const int* __restrict__ dash_mem,
-                                         const int* __restrict__ thr, int* __restrict__ counts,
-                                         int T, int B, int C, int N) {
-  extern __shared__ int s_w[];  // (2C, NT) weight columns of this block
+// The shared body of K3 and K4.  isyn0 == nullptr starts from zeros; the
+// outputs isyn_out/vmem_out/spk_out are written only when non-null.  spk0
+// holds 0/1 values, as the dynamics leave it.
+template <bool CLIP, bool REC>
+__device__ __forceinline__ void lif_bipolar_body(
+    const uint8_t* __restrict__ kp, const uint8_t* __restrict__ kn,
+    const int* __restrict__ w_in,  // (2C, N)
+    const int* __restrict__ dash_syn, const int* __restrict__ dash_mem,
+    const int* __restrict__ thr, int rec, const int* __restrict__ isyn0,
+    const int* __restrict__ vmem0, const int* __restrict__ spk0, int* __restrict__ counts,
+    int* __restrict__ isyn_out, int* __restrict__ vmem_out, int* __restrict__ spk_out, int T,
+    int B, int C, int N) {
+  extern __shared__ int s_w[];  // rec == 0: (2C, NT) weight columns of this block
   __shared__ unsigned long long s_mask[TCH];
+  const int nt = blockDim.x;
   const int tx = threadIdx.x;
   const int b = blockIdx.y;
-  const int n = blockIdx.x * NT + tx;
+  const int n = blockIdx.x * nt + tx;
   const bool live = n < N;
+  const size_t at = (size_t)b * N + n;
 
-  for (int c = 0; c < 2 * C; ++c) s_w[c * NT + tx] = live ? w_in[(size_t)c * N + n] : 0;
+  if (!REC)
+    for (int c = 0; c < 2 * C; ++c) s_w[c * nt + tx] = live ? w_in[(size_t)c * N + n] : 0;
   const int ds = live ? dash_syn[n] : 0;
   const int dm = live ? dash_mem[n] : 0;
   const int th = live ? thr[n] : 0;
-  int isyn = 0, vmem = 0, cnt = 0;
+  int isyn = 0, vmem = 0, spk = 0, cnt = 0;
+  if (isyn0 != nullptr && live) {
+    isyn = isyn0[at];
+    vmem = vmem0[at];
+    spk = spk0[at];
+  }
+  // the row's spike count of the previous step; every thread of the block
+  // takes part in each __syncthreads_count
+  int row_spikes = REC ? __syncthreads_count(spk != 0) : 0;
 
   for (int t0 = 0; t0 < T; t0 += TCH) {
     const int len = min(TCH, T - t0);
     __syncthreads();  // the previous chunk's masks are consumed
-    for (int i = tx; i < len; i += NT) {
+    for (int i = tx; i < len; i += nt) {
       const size_t base = ((size_t)(t0 + i) * B + b) * C;
       unsigned long long m = 0;
       for (int c = 0; c < C; ++c) {
@@ -71,25 +97,77 @@ __global__ void lif_count_bipolar_kernel(const uint8_t* __restrict__ kp,
       s_mask[i] = m;
     }
     __syncthreads();
-    if (!live) continue;
+    if (!REC && !live) continue;
     for (int i = 0; i < len; ++i) {
       unsigned long long m = s_mask[i];
-      int cur = 0;
+      int cur = REC ? rec * row_spikes : 0;
       while (m) {
-        cur += s_w[(__ffsll((long long)m) - 1) * NT + tx];
+        const int c = __ffsll((long long)m) - 1;
+        if (REC)
+          cur += live ? __ldg(&w_in[(size_t)c * N + n]) : 0;
+        else
+          cur += s_w[c * nt + tx];
         m &= m - 1;
       }
       isyn = isyn - (isyn >> ds) + cur;
       if (CLIP) isyn = min(max(isyn, STATE_MIN), STATE_MAX);
       vmem = vmem - (vmem >> dm) + isyn;
       if (CLIP) vmem = min(max(vmem, STATE_MIN), STATE_MAX);
-      if (vmem >= th) {
+      const bool fired = live && vmem >= th;
+      if (fired) {
         vmem -= th;
         ++cnt;
       }
+      spk = fired ? 1 : 0;
+      if (REC) row_spikes = __syncthreads_count(fired);
     }
   }
-  if (live) counts[(size_t)b * N + n] = cnt;
+  if (live) {
+    counts[at] = cnt;
+    if (isyn_out != nullptr) {
+      isyn_out[at] = isyn;
+      vmem_out[at] = vmem;
+      spk_out[at] = spk;
+    }
+  }
+}
+
+// K3: counts from a zero state.
+template <bool CLIP, bool REC>
+__global__ void lif_count_bipolar_kernel(const uint8_t* __restrict__ kp,
+                                         const uint8_t* __restrict__ kn,
+                                         const int* __restrict__ w_in,
+                                         const int* __restrict__ dash_syn,
+                                         const int* __restrict__ dash_mem,
+                                         const int* __restrict__ thr, int rec,
+                                         int* __restrict__ counts, int T, int B, int C, int N) {
+  lif_bipolar_body<CLIP, REC>(kp, kn, w_in, dash_syn, dash_mem, thr, rec, nullptr, nullptr,
+                              nullptr, counts, nullptr, nullptr, nullptr, T, B, C, N);
+}
+
+// K4: counts and the final state from a given state.
+template <bool CLIP, bool REC>
+__global__ void lif_count_stateful_bipolar_kernel(
+    const uint8_t* __restrict__ kp, const uint8_t* __restrict__ kn,
+    const int* __restrict__ w_in, const int* __restrict__ dash_syn,
+    const int* __restrict__ dash_mem, const int* __restrict__ thr, int rec,
+    const int* __restrict__ isyn0, const int* __restrict__ vmem0, const int* __restrict__ spk0,
+    int* __restrict__ counts, int* __restrict__ isyn_out, int* __restrict__ vmem_out,
+    int* __restrict__ spk_out, int T, int B, int C, int N) {
+  lif_bipolar_body<CLIP, REC>(kp, kn, w_in, dash_syn, dash_mem, thr, rec, isyn0, vmem0, spk0,
+                              counts, isyn_out, vmem_out, spk_out, T, B, C, N);
+}
+
+// Block shape of both layouts: threads per block, grid, dynamic shared bytes.
+struct Shape {
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+Shape shape_for(int B, int C, int N, int rec) {
+  if (rec != 0) return {dim3(1, B), (N + 31) / 32 * 32, 0};
+  return {dim3((N + NT - 1) / NT, B), NT, (size_t)2 * C * NT * sizeof(int)};
 }
 
 }  // namespace
@@ -98,17 +176,51 @@ extern "C" {
 
 int hm_lif_max_channels() { return 32; }
 
+int hm_lif_max_rec_neurons() { return NT_MAX; }
+
 int hm_lif_count_bipolar(const uint8_t* kp, const uint8_t* kn, const int* w_in, const int* dash_syn,
                          const int* dash_mem, const int* thr, int* counts, int T, int B, int C,
-                         int N, int clip, void* stream) {
-  const dim3 grid((N + NT - 1) / NT, B);
-  const size_t smem = (size_t)2 * C * NT * sizeof(int);
-  if (clip)
-    lif_count_bipolar_kernel<true><<<grid, NT, smem, (cudaStream_t)stream>>>(
-        kp, kn, w_in, dash_syn, dash_mem, thr, counts, T, B, C, N);
+                         int N, int rec, int clip, void* stream) {
+  const Shape s = shape_for(B, C, N, rec);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (clip && rec)
+    lif_count_bipolar_kernel<true, true><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, counts, T, B, C, N);
+  else if (clip)
+    lif_count_bipolar_kernel<true, false><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, counts, T, B, C, N);
+  else if (rec)
+    lif_count_bipolar_kernel<false, true><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, counts, T, B, C, N);
   else
-    lif_count_bipolar_kernel<false><<<grid, NT, smem, (cudaStream_t)stream>>>(
-        kp, kn, w_in, dash_syn, dash_mem, thr, counts, T, B, C, N);
+    lif_count_bipolar_kernel<false, false><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, counts, T, B, C, N);
+  return (int)cudaGetLastError();
+}
+
+int hm_lif_count_stateful_bipolar(const uint8_t* kp, const uint8_t* kn, const int* w_in,
+                                  const int* dash_syn, const int* dash_mem, const int* thr,
+                                  const int* isyn0, const int* vmem0, const int* spk0,
+                                  int* counts, int* isyn_out, int* vmem_out, int* spk_out, int T,
+                                  int B, int C, int N, int rec, int clip, void* stream) {
+  const Shape s = shape_for(B, C, N, rec);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (clip && rec)
+    lif_count_stateful_bipolar_kernel<true, true><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, isyn0, vmem0, spk0, counts, isyn_out,
+        vmem_out, spk_out, T, B, C, N);
+  else if (clip)
+    lif_count_stateful_bipolar_kernel<true, false><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, isyn0, vmem0, spk0, counts, isyn_out,
+        vmem_out, spk_out, T, B, C, N);
+  else if (rec)
+    lif_count_stateful_bipolar_kernel<false, true><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, isyn0, vmem0, spk0, counts, isyn_out,
+        vmem_out, spk_out, T, B, C, N);
+  else
+    lif_count_stateful_bipolar_kernel<false, false><<<s.grid, s.threads, s.smem, st>>>(
+        kp, kn, w_in, dash_syn, dash_mem, thr, rec, isyn0, vmem0, spk0, counts, isyn_out,
+        vmem_out, spk_out, T, B, C, N);
   return (int)cudaGetLastError();
 }
 

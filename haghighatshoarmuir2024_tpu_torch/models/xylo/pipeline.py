@@ -26,7 +26,7 @@ import torch
 
 from ...config import FS
 from ...geometry import ArrayGeometry, resolve_device
-from ...ops.cuda.lif_kernel import lif_count_rates_bipolar
+from ...ops.cuda import lif_kernel
 from ...ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
 from ...ops.filterbank import ButterworthFilterbank
 from ...ops.fir import full_fp32
@@ -243,7 +243,7 @@ class Demo:
     def lif_counts(self, kp: torch.Tensor, kn: torch.Tensor) -> torch.Tensor:
         """Polarity masks → hidden spike counts (B, N) int32; spike_bound=1
         (RZCC masks are binary) lets the kernel drop provably dead clips."""
-        return lif_count_rates_bipolar(self.xylo_config, kp, kn, spike_bound=1)
+        return lif_kernel.lif_count_rates_bipolar(self.xylo_config, kp, kn, spike_bound=1)
 
     def estimate(self, counts: torch.Tensor, T: int, method: str = "peak"):
         """Counts → (doa (B,), folded rate (B, G)) (JAX ``pipeline.py:776-786,
@@ -251,17 +251,27 @@ class Demo:
         G = len(self.doa_list)
         rate = counts.to(torch.float32) / T * self.fs
         rate_doa = rate.reshape(rate.shape[0], -1, G).mean(dim=1)
+        return self.estimate_doa_from_rate(rate_doa, method), rate_doa
+
+    def estimate_doa_from_rate(self, rate_doa: torch.Tensor, method: str = "peak") -> torch.Tensor:
+        """Folded rates (B, G) → DoAs (B,) (JAX ``estimate_doa_from_rate``,
+        ``pipeline.py:396-442``, row by row): ``"peak"`` is the
+        reference-parity argmax, ``"matched"`` the argmax of the correlation
+        with the calibrated profiles.  The multiband ``matched_stacked`` and
+        ``matched_auto`` estimators are not ported (ROADMAP queue 1 item 9)."""
         if method == "matched":
             if self._profiles_t is None:
-                raise ValueError("call calibrate_profiles() before the matched forward")
+                raise ValueError("call calibrate_profiles() before the matched estimator")
             full_fp32()  # f32-exact: a TF32 product can flip near-tie argmaxes
             r = rate_doa - rate_doa.mean(dim=-1, keepdim=True)
             idx = torch.argmax(torch.matmul(r, self._profiles_t.T), dim=-1)
         elif method == "peak":
             idx = torch.argmax(rate_doa, dim=-1)
+        elif method in ("matched_stacked", "matched_auto"):
+            raise NotImplementedError(f"method={method!r} is multiband, not ported yet (ROADMAP queue 1 item 9)")
         else:
             raise ValueError(f"method must be 'peak' or 'matched' (got {method!r})")
-        return self._doa_t[idx], rate_doa
+        return self._doa_t[idx]
 
     def forward_batch(self, sig_batch, method: str = "peak"):
         """Batched flagship chain: (B, T, M) audio → (doa (B,), rate (B, G)).

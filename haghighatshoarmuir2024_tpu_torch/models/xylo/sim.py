@@ -10,7 +10,7 @@ Per step, per hidden neuron, all int32:
     spk  ← vmem ≥ threshold;  vmem ← vmem − spk·threshold
 
 with ``>>`` arithmetic and ``sat`` the 16-bit state range.  This is the plain
-version of kernel K3 (``ops/cuda/lif_kernel.py``).
+version of kernels K3 and K4 (``ops/cuda/lif_kernel.py``).
 """
 from __future__ import annotations
 
@@ -40,27 +40,34 @@ def project_input(config: XyloConfig, spikes: torch.Tensor) -> torch.Tensor:
 
 
 def sim_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, rec_coef: int = 0,
-               record: bool = True):
-    """Scan the hidden-layer integer LIF over time from a zero state.
+               record: bool = True, state0=None):
+    """Scan the hidden-layer integer LIF over time.
 
     Args:
         inp: (T, ..., N) int32 input current per step (time leading, any
             batch dims between).
         dash_syn, dash_mem, threshold: (N,) integers.
-        rec_coef: uniform recurrence coefficient (feedback ``c·Σ_n spk``).
+        rec_coef: uniform recurrence coefficient (feedback ``c·Σ_n spk``,
+            summed over the N neurons of the same batch row).
         record: also return the (T, ..., N) int32 spike raster.
+        state0: initial ``(isyn, vmem, spk)``, each (..., N) int32; zeros
+            when None (the ``state0`` of JAX ``_sim_hidden``).
 
     Returns:
-        ``(spikes or None, counts)`` with counts (..., N) int32.
+        ``(spikes or None, counts, (isyn, vmem, spk))``: counts (..., N)
+        int32 and the final state.  With T = 0 the final state is ``state0``.
     """
     dev = inp.device
     ds = torch.as_tensor(np.asarray(dash_syn), dtype=torch.int32, device=dev)
     dm = torch.as_tensor(np.asarray(dash_mem), dtype=torch.int32, device=dev)
     th = torch.as_tensor(np.asarray(threshold), dtype=torch.int32, device=dev)
-    isyn = torch.zeros(inp.shape[1:], dtype=torch.int32, device=dev)
-    vmem = torch.zeros_like(isyn)
-    spk = torch.zeros_like(isyn)
-    counts = torch.zeros_like(isyn)
+    if state0 is None:
+        isyn = torch.zeros(inp.shape[1:], dtype=torch.int32, device=dev)
+        vmem = torch.zeros_like(isyn)
+        spk = torch.zeros_like(isyn)
+    else:
+        isyn, vmem, spk = (torch.as_tensor(s, device=dev).to(torch.int32) for s in state0)
+    counts = torch.zeros(inp.shape[1:], dtype=torch.int32, device=dev)
     raster = [] if record else None
     for t in range(inp.shape[0]):
         cur = inp[t]
@@ -74,13 +81,13 @@ def sim_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, rec_coef: int =
         if record:
             raster.append(spk)
     spikes = torch.stack(raster) if record else None
-    return spikes, counts
+    return spikes, counts, (isyn, vmem, spk)
 
 
 def sim_hidden_batch(config: XyloConfig, spikes_in_batch: torch.Tensor) -> torch.Tensor:
     """Stateless batched evolve: (B, T, N_in) → hidden spikes (B, T, N_hid)
     (counterpart of ``sim_hidden_batch``, ``sim.py:365``)."""
     inp = project_input(config, spikes_in_batch.transpose(0, 1))  # (T, B, N)
-    spikes, _ = sim_hidden(inp, config.dash_syn, config.dash_mem, config.threshold,
+    spikes, _, _ = sim_hidden(inp, config.dash_syn, config.dash_mem, config.threshold,
                            uniform_rec_coef(config))
     return spikes.transpose(0, 1)

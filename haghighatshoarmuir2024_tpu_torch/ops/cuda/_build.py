@@ -46,7 +46,9 @@ _SIGNATURES = {
     "hm_rzcc_k1": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "hm_rzcc_k2": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "hm_lif_max_channels": ([], _I),
-    "hm_lif_count_bipolar": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "hm_lif_max_rec_neurons": ([], _I),
+    "hm_lif_count_bipolar": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "hm_lif_count_stateful_bipolar": ([_P] * 13 + [_I] * 6 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 

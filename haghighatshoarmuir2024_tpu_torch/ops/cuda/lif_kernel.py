@@ -1,12 +1,23 @@
-"""Integer-LIF spike counts from the RZCC polarity masks: wrapper of kernel
-K3 (``csrc/lif.cu``), counterpart of ``lif_count_rates_bipolar`` in
-``haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:407`` (Pallas kernel
-``_lif_kernel_bipolar``, ``:275``).
+"""Integer-LIF spike counts from the RZCC polarity masks: wrappers of kernels
+K3 and K4 (``csrc/lif.cu``).
 
-On CPU tensors the wrapper runs the plain simulator
-(``models/xylo/sim.sim_hidden``); on CUDA tensors it launches K3 or raises.
+- K3, :func:`lif_count_rates_bipolar`: counterpart of
+  ``lif_count_rates_bipolar`` in
+  ``haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:407`` (Pallas kernel
+  ``_lif_kernel_bipolar``, ``:275``), counts from a zero state.
+- K4, :func:`lif_count_stateful_bipolar`: counterpart of
+  ``lif_count_stateful_bipolar`` (``:605``, Pallas kernel
+  ``_lif_kernel_bipolar_stateful``, ``:468``), the streaming runtime's
+  per-chunk LIF with the (B, N) state carried in and out.
+
+Both take the uniform recurrence ``w_rec = c·ones``; a dense ``w_rec``
+raises.  On CPU tensors a wrapper runs the plain simulator
+(``models/xylo/sim.sim_hidden``); on CUDA tensors it launches its kernel or
+raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -15,6 +26,19 @@ from ...models.xylo.sim import STATE_MAX, project_input, sim_hidden, uniform_rec
 from ._build import check, launch_counts, library, require_cuda, stream_handle
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
+
+
+class LifParams(NamedTuple):
+    """A config's LIF integers as tensors on one device, made once by
+    :func:`lif_params` so that a caller launching every step uploads
+    nothing per launch."""
+
+    w_in: torch.Tensor  # (2C, N) int32
+    dash_syn: torch.Tensor  # (N,) int32
+    dash_mem: torch.Tensor  # (N,) int32
+    threshold: torch.Tensor  # (N,) int32
+    rec_coef: int
+    no_sat: bool  # the 16-bit clips are proven dead for the spike bound given
 
 
 def _no_saturation_possible(config, spike_bound: int, rec_coef: int) -> bool:
@@ -39,60 +63,128 @@ def _no_saturation_possible(config, spike_bound: int, rec_coef: int) -> bool:
     return b_isyn <= STATE_MAX and b_vmem <= STATE_MAX
 
 
+def lif_params(config, device, spike_bound: int | None = 1) -> LifParams:
+    """``config``'s LIF integers on ``device``.  ``spike_bound`` is a
+    caller-guaranteed bound on the per-step input spike values (1 for RZCC
+    masks); with it the static proof may drop the 16-bit clips in the kernel
+    (identical integers).  None keeps the clips.  A ``LifParams`` passes
+    through as it is: its proof was made when it was."""
+    if isinstance(config, LifParams):
+        return config
+    rec_coef = uniform_rec_coef(config)
+    as_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32, device=device).contiguous()
+    return LifParams(
+        w_in=as_dev(config.w_in), dash_syn=as_dev(config.dash_syn),
+        dash_mem=as_dev(config.dash_mem), threshold=as_dev(config.threshold),
+        rec_coef=rec_coef,
+        no_sat=spike_bound is not None and _no_saturation_possible(config, spike_bound, rec_coef),
+    )
+
+
+def _rec_coef(config) -> int:
+    return config.rec_coef if isinstance(config, LifParams) else uniform_rec_coef(config)
+
+
+# ------------------------------------------------------------- plain versions
 def lif_count_plain(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> torch.Tensor:
     """What K3 computes, by the plain simulator: (B, N) int32 counts of the
     (T, B, 2C) raster ``[kp & ~kn, kn]`` (the reference's overwrite: −1 wins
     on collision, micloc/xylo_snn_localization.py:344-355)."""
+    return lif_count_stateful_bipolar_plain(config, kp_tbc, kn_tbc, None, None, None)[0]
+
+
+def lif_count_stateful_bipolar_plain(config, kp_tbc, kn_tbc, isyn0, vmem0, spk0):
+    """What K4 computes, by the plain simulator: the stateful ``sim_hidden``
+    on ``project_input([kp & ~kn, kn])`` from ``(isyn0, vmem0, spk0)``
+    ((B, N) each; None for zeros).  Returns ``(counts, isyn, vmem, spk)``,
+    all (B, N) int32."""
     kp, kn = kp_tbc != 0, kn_tbc != 0
     inp = project_input(config, torch.cat([kp & ~kn, kn], dim=-1))  # (T, B, N)
-    _, counts = sim_hidden(inp, config.dash_syn, config.dash_mem, config.threshold,
-                           uniform_rec_coef(config), record=False)
-    return counts
+    state0 = None if isyn0 is None else (isyn0, vmem0, spk0)
+    _, counts, (isyn, vmem, spk) = sim_hidden(
+        inp, config.dash_syn, config.dash_mem, config.threshold, _rec_coef(config),
+        record=False, state0=state0,
+    )
+    return counts, isyn, vmem, spk
+
+
+# ------------------------------------------------------------------ kernels
+def _check_masks(params: LifParams, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor):
+    """Validate the masks against the params; returns (T, B, C, N)."""
+    require_cuda(kp_tbc, "kp_tbc", _MASK_DTYPES, 3)
+    require_cuda(kn_tbc, "kn_tbc", _MASK_DTYPES, 3)
+    if kn_tbc.shape != kp_tbc.shape or kn_tbc.dtype != kp_tbc.dtype or kn_tbc.device != kp_tbc.device:
+        raise ValueError("kp_tbc and kn_tbc must have the same shape, dtype and device")
+    if params.w_in.device != kp_tbc.device:
+        raise ValueError(f"the LIF params live on {params.w_in.device}, the masks on {kp_tbc.device}")
+    T, B, C = kp_tbc.shape
+    N = params.w_in.shape[1]
+    if params.w_in.shape[0] != 2 * C:
+        raise ValueError(f"w_in has {params.w_in.shape[0]} rows; the masks need 2C = {2 * C}")
+    lib = library()
+    if C > lib.hm_lif_max_channels():
+        raise ValueError(f"{C} channels per polarity exceed the kernel's {lib.hm_lif_max_channels()}")
+    if params.rec_coef != 0 and N > lib.hm_lif_max_rec_neurons():
+        raise ValueError(
+            f"the uniform recurrence (rec_coef = {params.rec_coef}) couples the {N} neurons of a "
+            f"row, and one block holds at most {lib.hm_lif_max_rec_neurons()}"
+        )
+    return T, B, C, N
 
 
 def lif_count_rates_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor,
                             spike_bound: int | None = 1) -> torch.Tensor:
     """Hidden-layer spike counts (B, N_hid) int32 straight from the two
-    time-major (T, B, C) RZCC polarity masks; ``config.w_in`` has 2C rows
-    ([:C] positive, [C:] negative).
-
-    ``spike_bound``: a caller-guaranteed bound on the per-step input spike
-    values (1 for RZCC masks); with it the static proof may drop the 16-bit
-    clips in the kernel (identical integers).
-    """
-    rec_coef = uniform_rec_coef(config)
+    time-major (T, B, C) RZCC polarity masks; ``config`` (a ``XyloConfig``
+    or its :class:`LifParams`) has a ``w_in`` of 2C rows ([:C] positive,
+    [C:] negative).  ``spike_bound``: see :func:`lif_params`."""
     if kp_tbc.device.type == "cpu":
         return lif_count_plain(config, kp_tbc, kn_tbc)
-    if rec_coef != 0:
-        raise ValueError(
-            "the CUDA LIF kernel does not implement the uniform recurrence "
-            f"(w_rec = {rec_coef}·ones); run this config on CPU tensors"
-        )
-    require_cuda(kp_tbc, "kp_tbc", _MASK_DTYPES, 3)
-    require_cuda(kn_tbc, "kn_tbc", _MASK_DTYPES, 3)
-    if kn_tbc.shape != kp_tbc.shape or kn_tbc.dtype != kp_tbc.dtype or kn_tbc.device != kp_tbc.device:
-        raise ValueError("kp_tbc and kn_tbc must have the same shape, dtype and device")
-    T, B, C = kp_tbc.shape
-    w_in = np.asarray(config.w_in)
-    if w_in.shape[0] != 2 * C:
-        raise ValueError(f"w_in has {w_in.shape[0]} rows; the masks need 2C = {2 * C}")
-    lib = library()
-    if C > lib.hm_lif_max_channels():
-        raise ValueError(f"{C} channels per polarity exceed the kernel's {lib.hm_lif_max_channels()}")
-    no_sat = spike_bound is not None and _no_saturation_possible(config, spike_bound, rec_coef)
-
-    dev = kp_tbc.device
-    N = w_in.shape[1]
-    w = torch.as_tensor(w_in, dtype=torch.int32, device=dev).contiguous()
-    ds = torch.as_tensor(np.asarray(config.dash_syn), dtype=torch.int32, device=dev)
-    dm = torch.as_tensor(np.asarray(config.dash_mem), dtype=torch.int32, device=dev)
-    th = torch.as_tensor(np.asarray(config.threshold), dtype=torch.int32, device=dev)
-    counts = torch.empty((B, N), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.hm_lif_count_bipolar(
-            kp_tbc.data_ptr(), kn_tbc.data_ptr(), w.data_ptr(), ds.data_ptr(), dm.data_ptr(),
-            th.data_ptr(), counts.data_ptr(), T, B, C, N, int(not no_sat), stream_handle(dev),
+    params = lif_params(config, kp_tbc.device, spike_bound)
+    T, B, C, N = _check_masks(params, kp_tbc, kn_tbc)
+    counts = torch.empty((B, N), dtype=torch.int32, device=kp_tbc.device)
+    with torch.cuda.device(kp_tbc.device):
+        rc = library().hm_lif_count_bipolar(
+            kp_tbc.data_ptr(), kn_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            params.dash_mem.data_ptr(), params.threshold.data_ptr(), counts.data_ptr(),
+            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(kp_tbc.device),
         )
     check(rc, "lif_k3")
     launch_counts["lif_k3"] += 1
     return counts
+
+
+def lif_count_stateful_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor,
+                               isyn0: torch.Tensor, vmem0: torch.Tensor, spk0: torch.Tensor,
+                               spike_bound: int | None = 1):
+    """Stateful bipolar LIF: time-major (T, B, C) polarity masks and the
+    (B, N) int32 initial state → ``(counts, isyn, vmem, spk)``, all (B, N)
+    int32 — the streaming form of :func:`lif_count_rates_bipolar`: the
+    state carries across chunk calls.  ``spk0`` holds 0/1 values.
+
+    ``spike_bound`` (see :func:`lif_params`): the caller additionally
+    guarantees that the initial state was produced by the same bounded
+    dynamics (zeros plus earlier chunks of the same stream), so the
+    no-saturation invariant carries across chunk boundaries and the clips
+    stay provably dead (``lif_kernel.py:810-813``).  A state from elsewhere
+    needs ``spike_bound=None``.
+    """
+    if kp_tbc.device.type == "cpu":
+        return lif_count_stateful_bipolar_plain(config, kp_tbc, kn_tbc, isyn0, vmem0, spk0)
+    params = lif_params(config, kp_tbc.device, spike_bound)
+    T, B, C, N = _check_masks(params, kp_tbc, kn_tbc)
+    for name, s in (("isyn0", isyn0), ("vmem0", vmem0), ("spk0", spk0)):
+        require_cuda(s, name, (torch.int32,), 2)
+        if s.shape != (B, N) or s.device != kp_tbc.device:
+            raise ValueError(f"{name} must be ({B}, {N}) on {kp_tbc.device} (got {tuple(s.shape)} on {s.device})")
+    out = tuple(torch.empty((B, N), dtype=torch.int32, device=kp_tbc.device) for _ in range(4))
+    with torch.cuda.device(kp_tbc.device):
+        rc = library().hm_lif_count_stateful_bipolar(
+            kp_tbc.data_ptr(), kn_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            params.dash_mem.data_ptr(), params.threshold.data_ptr(), isyn0.data_ptr(),
+            vmem0.data_ptr(), spk0.data_ptr(), *(o.data_ptr() for o in out),
+            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(kp_tbc.device),
+        )
+    check(rc, "lif_k4")
+    launch_counts["lif_k4"] += 1
+    return out

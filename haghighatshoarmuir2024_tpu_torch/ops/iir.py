@@ -4,7 +4,8 @@
 The float64 host builders are copied from the JAX package
 (``iir.py:34-205``); :func:`iir_cumsum_blocked` is the torch form of
 ``_iir_cumsum_blocked_impl`` (``iir.py:375-517``), with the level-2 modal
-lifting and the exactly-carried integrator offset.
+lifting, the exactly-carried integrator offset and the streaming state carry;
+:func:`iir_scan` is the sequential form the streaming encode falls back to.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from .fir import full_fp32
 
-SB = 32  # lifted block size: the TPU form's default (``iir.py:375-396``)
+SB = 32  # default lifted block size: the TPU form's (``iir.py:375-396``)
 
 
 def butter_bandpass(order: int, freq_range, fs: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -181,19 +182,58 @@ def _device_matrices(b_key, a_key, SB: int, Q: int, device: torch.device):
     return {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in out.items()}
 
 
-def iir_cumsum_blocked(b, a, x: torch.Tensor) -> torch.Tensor:
-    """``cumsum(lfilter(b, a, x), dim 0)`` as one lifted blocked pass, zero
-    initial state; ``x`` is time-major (T, ...) float32.
+def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
+    """``lfilter(b, a, x)`` along dim 0 of ``x`` (T, ...) as the sequential
+    transposed-DF2 recurrence (JAX ``iir_filter(method="scan")``,
+    ``iir.py:256-281``): ``y = b0 x + s_1``, ``s_i = b_i x − a_i y + s_{i+1}``.
+
+    ``zi``: initial state, ``x.shape[1:] + (N,)`` (zeros when None).
+    Returns ``(y, final state)``.  One step of tensor ops per sample: the
+    fallback of the streaming encode for chunk lengths no lifted block size
+    divides.
+    """
+    b64 = np.asarray(b, np.float64)
+    a64 = np.asarray(a, np.float64)
+    N = len(a64) - 1
+    bp = np.zeros(N + 1)
+    bp[: len(b64)] = b64 / a64[0]
+    b_tail = torch.as_tensor(bp[1:], dtype=x.dtype, device=x.device)
+    a_tail = torch.as_tensor(a64[1:] / a64[0], dtype=x.dtype, device=x.device)
+    s = x.new_zeros(x.shape[1:] + (N,)) if zi is None else zi.to(x.dtype)
+    ys = []
+    for x_t in x:
+        y_t = float(bp[0]) * x_t + s[..., 0]
+        s_shift = torch.cat([s[..., 1:], torch.zeros_like(s[..., :1])], dim=-1)
+        s = b_tail * x_t[..., None] - a_tail * y_t[..., None] + s_shift
+        ys.append(y_t)
+    y = torch.stack(ys) if ys else x.new_zeros(x.shape)
+    return y, s
+
+
+def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
+                       return_state: bool = False, sb: int = SB):
+    """``cumsum(lfilter(b, a, x), dim 0)`` as one lifted blocked pass;
+    ``x`` is time-major (T, ...) float32 (JAX ``iir_filter(method=
+    "blocked_cumsum")``, ``iir.py:375-517``).
 
     The integrator is part of the lifted block form of the stable filter:
     within-block prefix sums are ``z_blk = (LT·G) x_blk + (LT·H) s_in + c_in``
     and the carried offset updates like a blocked cumsum — all instability
     confined to the float addition of per-block sums.  Q level-1 block steps
     collapse into matmuls in the modal basis (level 2); with Q ≤ 2 or no
-    well-conditioned modal basis the plain level-1 recurrence runs.  T that is
-    not a multiple of ``SB`` is zero-padded.
+    well-conditioned modal basis the plain level-1 recurrence runs.
+
+    Args:
+        zi: initial state, ``x.shape[1:] + (N+1,)``: the TDF2 filter state
+            with the running integrator total appended (zeros when None).
+        return_state: also return the final state in the same layout; T must
+            then be a multiple of ``sb``.  Otherwise a ragged T is
+            zero-padded.
+        sb: the lifted block size (32, the tuned default; a streaming caller
+            passes a divisor of its chunk length).
     """
     full_fp32()
+    SB = int(sb)
     b_key = tuple(np.asarray(b, np.float64).tolist())
     a_key = tuple(np.asarray(a, np.float64).tolist())
     N = len(a_key) - 1
@@ -203,6 +243,11 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor) -> torch.Tensor:
     xf = x.reshape(T, -1).to(torch.float32)
     L = xf.shape[1]
     pad = (-T) % SB
+    if pad and return_state:
+        raise ValueError(
+            "return_state requires the time axis to be a multiple of the block "
+            f"size {SB} (got T={T})"
+        )
     if pad:
         xf = torch.cat([xf, xf.new_zeros((pad, L))], dim=0)
     nb = xf.shape[0] // SB
@@ -214,12 +259,18 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor) -> torch.Tensor:
 
     zP = torch.einsum("ji,bil->bjl", m["G2"], xb)  # within-block prefix sums of y
     cP = torch.einsum("i,bil->bl", m["g1"], xb)  # per-block sums of y
-    s = xf.new_zeros((N, L))
-    c = xf.new_zeros((L,))
+    if zi is None:
+        s = xf.new_zeros((N, L))
+        c = xf.new_zeros((L,))
+    else:
+        zif = zi.to(torch.float32).reshape(L, N + 1)
+        s = zif[:, :N].T
+        c = zif[:, N]
 
     if "Ws" in m:
         nb2 = nb // Q
         sP = torch.einsum("ni,bil->bnl", m["Bmm"], xb)  # modal-basis increments
+        s = m["Tinv"] @ s  # the carried state enters the modal basis
         sP2 = sP.reshape(nb2, Q * N, L)
         cP2 = cP.reshape(nb2, Q, L)
         U = torch.einsum("ab,ibl->ial", m["Ws"], sP2)  # (nb2, Q·N, L)
@@ -234,6 +285,7 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor) -> torch.Tensor:
             s, c = m["ASBQ"] @ s + V[i], c + sumE[i] + m["sum_h"] @ s
         s_prev = torch.stack(s_prev).reshape(nb, N, L)
         c_prev = torch.stack(c_prev).reshape(nb, L)
+        s = m["Tm"] @ s  # and leaves it, back in the TDF2 basis
         Hout = m["H2m"]
     else:
         sP = torch.einsum("ni,bil->bnl", m["Bm"], xb)
@@ -246,4 +298,7 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor) -> torch.Tensor:
         c_prev = torch.stack(c_prev)
         Hout = m["H2"]
     z = zP + torch.einsum("jn,bnl->bjl", Hout, s_prev) + c_prev[:, None, :]
-    return z.reshape(nb * SB, L)[:T].reshape((T,) + rest)
+    z = z.reshape(nb * SB, L)[:T].reshape((T,) + rest)
+    if return_state:
+        return z, torch.cat([s.T, c[:, None]], dim=1).reshape(rest + (N + 1,))
+    return z

@@ -132,7 +132,8 @@ def test_torch_slice_end_to_end_counts_within_2(slice_run):
 
 def test_torch_port_runs_without_jax(tmp_path):
     """The port imports nothing of JAX: with ``jax`` unimportable the flagship
-    forward still runs (one frame, CPU tensors)."""
+    forward still runs (one frame, CPU tensors), and so do the streaming
+    runtime (one chunk) and the serving module's import."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -148,7 +149,13 @@ def test_torch_port_runs_without_jax(tmp_path):
         t = torch.arange(0, 0.25, 1 / 48_000, dtype=torch.float64)
         frame = signal_from_template(demo.geometry, t, torch.sin(2 * np.pi * 1750 * t), 1.0, fs=48_000)
         doa, rate = demo.forward_batch(frame[None].float(), method="matched")
+        from haghighatshoarmuir2024_tpu_torch.runtime import server, streaming
+        sl = streaming.StreamingLocalizer(demo)
+        state, spikes = sl.process_chunk(sl.init_state(), frame[:2400].float())
+        assert spikes.shape == (2400, 28) and int(state.steps[0]) == 2400 and int(spikes.abs().sum()) > 0
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
+        assert not any(m.startswith("haghighatshoarmuir2024_tpu.") or m == "haghighatshoarmuir2024_tpu"
+                       for m in sys.modules)
         print(float(doa[0]))
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
