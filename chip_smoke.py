@@ -31,7 +31,28 @@ Phases, each failing the run with a non-zero exit:
 8. serving: ``LocalizationServer`` (96 slots, 0.25 s chunks) with 8 TCP
    clients of 8 chunks each, on the f32 wire and on the u4 wire at fs/4:
    every answer must arrive and equal the DoA of the direct streaming step
-   on the same chunks; prints ms per serve step.
+   on the same chunks; prints ms per serve step;
+9. design: the bipolar flagship designed on the card (``use_cache=False``)
+   must match the bundled ``bf_0`` per column up to a unit phase to within
+   1e-4; the calibration profiles computed on the card from the bundled
+   design are held against the bundled table, and the slice's matched gate
+   must pass with them;
+10. unipolar: the unipolar flagship designs and calibrates itself on the
+    card; ``forward_batch(method="matched")`` on the 96 frames must launch
+    K1, K2 and K5 (once), give the plain path's DoAs and a doa-ok-frac @5°
+    not below the JAX package's on the same frames less one frame;
+11. K5 (integer LIF counts from one int8 raster) against the plain simulator
+    on the card, bit-exact: the unipolar flagship masks, the bipolar
+    combined raster, multi-count values on the clip path, negative values,
+    C = 84 and C = 128, ragged T, rec_coef = -1, B = 3;
+12. forward: ``Demo.forward`` on single frames, bipolar and unipolar: one K5
+    launch per frame, the rate equal to ``forward_batch``'s row; prints the
+    single-frame latency;
+13. K6 (stateful K5) bit-exact on counts and final state: flagship from zero
+    and carried, two chunks carried = one pass, ragged T, the clip path from
+    a saturated state, rec_coef = -1;
+14. unipolar streaming: 96 streams x 4 chunks: K6 launches once per chunk,
+    spikes and counts equal the plain RZCC + plain K6 steps.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -50,6 +71,11 @@ from pathlib import Path
 import numpy as np
 
 SEED = 0
+# doa-ok-frac @5 deg (matched) of the JAX package on the unipolar flagship
+# and bench.py's 96 frames: 96 of 96, measured on the CPU (float32; design
+# and calibration with use_cache=False).  The card's design and JAX's differ
+# in float rounding, so the gate allows one frame less.
+JAX_UNIPOLAR_OK = 96
 
 
 def fail(msg: str):
@@ -192,10 +218,12 @@ def check_suppress(torch, sk, peaks, dev, flagship_cs):
 
 
 # ------------------------------------------------------------------ phase 4
-def make_config(XyloConfig, seed, C=6, N=20, w_scale=20, rec=0):
+def make_config(XyloConfig, seed, C=6, N=20, w_scale=20, rec=0, rows=None):
+    """A random config of ``rows`` input channels (2C by default: both
+    polarities of C channels)."""
     r = np.random.default_rng(seed)
     return XyloConfig(
-        w_in=r.integers(-w_scale, w_scale + 1, size=(2 * C, N)).astype(np.int32),
+        w_in=r.integers(-w_scale, w_scale + 1, size=(rows or 2 * C, N)).astype(np.int32),
         w_rec=np.full((N, N), rec, np.int32),
         w_out=np.ones((N, 1), np.int32),
         dash_syn=r.integers(1, 7, size=N).astype(np.int32),
@@ -317,20 +345,27 @@ def ok_frac(est, doas, tol_deg):
 
 def plain_step(torch, sk, lk, sl, state, chunks):
     """``StreamingLocalizer._step`` with the plain RZCC and the plain LIF:
-    what the kernels' step is held to."""
+    what the kernels' step is held to.  Returns the new state and the int8
+    raster ``process_chunk`` returns."""
     B, Tc, _ = chunks.shape
     fir_tail, delay_line, iir_state, int_carry, integrated = sl._encode(state, chunks.transpose(0, 1))
     analysis = torch.cat([state.pending, integrated], dim=0)
     kp, kn = sk.rzcc_encode_bipolar_tm_plain(analysis.reshape(analysis.shape[0], B * sl.C), sl.rw, 2 * sl.rw)
     kp = kp[sl.guard:sl.guard + Tc].reshape(Tc, B, sl.C)
     kn = kn[sl.guard:sl.guard + Tc].reshape(Tc, B, sl.C)
-    counts, isyn, vmem, spk = lk.lif_count_stateful_bipolar_plain(
-        sl.demo.xylo_config, kp, kn, state.isyn, state.vmem, state.spk)
+    cfg = sl.demo.xylo_config
+    if sl.bipolar:
+        counts, isyn, vmem, spk = lk.lif_count_stateful_bipolar_plain(
+            cfg, kp, kn, state.isyn, state.vmem, state.spk)
+        spikes = torch.cat([kp & ~kn, kn], dim=-1).to(torch.int8)
+    else:
+        spikes = kp.to(torch.int8)
+        counts, isyn, vmem, spk = lk.lif_count_stateful_plain(cfg, spikes, state.isyn, state.vmem, state.spk)
     new = dataclasses.replace(
         state, fir_tail=fir_tail, delay_line=delay_line, iir_state=iir_state, int_carry=int_carry,
         pending=analysis[Tc:], isyn=isyn, vmem=vmem, spk=spk, counts=state.counts + counts,
         steps=state.steps + Tc)
-    return new, torch.cat([kp & ~kn, kn], dim=-1).to(torch.int8)
+    return new, spikes
 
 
 def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doas, n_chunks=4):
@@ -459,6 +494,258 @@ def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, de
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+def complex_cols(bf):
+    m = bf.shape[0] // 2
+    return bf[:m].astype(np.float64) + 1j * bf[m:].astype(np.float64)
+
+
+def check_design(torch, Demo, flagship, demo, frames, doas):
+    """The bipolar flagship designed on the card against the bundled design;
+    the profiles computed from the bundled design against the bundled
+    table."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    designed = Demo(**flagship, use_cache=False)
+    torch.cuda.synchronize()
+    design_s = time.perf_counter() - t0
+    ref, got = complex_cols(demo.bf_mats[0]), complex_cols(designed.bf_mats[0])
+    cos = np.abs(np.sum(ref.conj() * got, axis=0)) / (np.linalg.norm(ref, axis=0) * np.linalg.norm(got, axis=0))
+    min_cos = float(cos.min())
+    print(f"[design] bipolar flagship designed on the card in {design_s:.3f} s; smallest per-column "
+          f"|<bundled bf_0, card bf_0>| up to a unit phase = {min_cos:.9f} (1 - {1 - min_cos:.3e}; "
+          f"1e-5 target {'met' if min_cos >= 1 - 1e-5 else 'missed'})", flush=True)
+    if min_cos < 1 - 1e-4:
+        fail(f"the card's bipolar design differs from the bundled one: smallest column cosine {min_cos}")
+
+    calib = Demo(**flagship)  # the bundled design
+    t0 = time.perf_counter()
+    prof = calib.calibrate_profiles(use_cache=False)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    row_cos = np.sum(prof.astype(np.float64) * demo._profiles.astype(np.float64), axis=1)
+    doa, _ = calib.forward_batch(frames, method="matched")
+    ok = ok_frac(doa.cpu().numpy(), doas, 5.0)
+    print(f"[design] profiles computed on the card from the bundled design in {calib_s:.3f} s: smallest "
+          f"row cosine against the bundled table {row_cos.min():.6f}; slice doa-ok-frac {ok:.2f} @5deg "
+          "(matched, computed table)", flush=True)
+    if ok < 1.0:
+        fail(f"matched gate with the computed profiles failed: doa-ok-frac {ok:.2f} @5deg")
+    return dict(design_s=design_s, min_cos=min_cos, calib_s=calib_s, min_row_cos=float(row_cos.min()))
+
+
+# ------------------------------------------------------------------ phase 10
+def check_unipolar(torch, sk, lk, _build, Demo, flagship, frames, doas):
+    """Design and calibrate the unipolar flagship on the card, then the
+    matched batch forward against the plain path and the JAX package's
+    accuracy."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    udemo = Demo(**{**flagship, "bipolar_spikes": False})
+    torch.cuda.synchronize()
+    design_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    udemo.calibrate_profiles()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    cfg = udemo.xylo_config
+    print(f"[unipolar] designed in {design_s:.3f} s, calibrated in {calib_s:.3f} s on the card: w_in "
+          f"{tuple(cfg.w_in.shape)} in [{cfg.w_in.min()}, {cfg.w_in.max()}], w_rec {np.unique(cfg.w_rec)}, "
+          f"dash_syn {np.unique(cfg.dash_syn)}, dash_mem {np.unique(cfg.dash_mem)}, threshold "
+          f"{np.unique(cfg.threshold)}; clips proven dead: {lk._no_saturation_possible(cfg, 1, 0)}",
+          flush=True)
+    udemo.forward_batch(frames, method="matched")  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    doa, rate = udemo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches.get("rzcc_k1") != 1 or launches.get("rzcc_k2", 0) < 1 or launches.get("lif_k5") != 1 \
+            or "lif_k3" in launches:
+        fail(f"the unipolar batch run launched {launches}; expected K1 once, K2, K5 once")
+    B, T, _ = frames.shape
+    cs = udemo.encode(frames)
+    p_kp, _ = sk.rzcc_encode_bipolar_tm_plain(cs.reshape(T, B * cs.shape[-1]), udemo.robust_width,
+                                              2 * udemo.robust_width)
+    p_counts = lk.lif_count_stateful_plain(cfg, p_kp.reshape(T, B, -1).to(torch.int8))[0]
+    p_doa, p_rate = udemo.estimate(p_counts, T, "matched")
+    if not torch.equal(doa, p_doa) or not torch.equal(rate, p_rate):
+        fail("unipolar DoAs/rates differ from the plain path's")
+    est = doa.cpu().numpy()
+    n_ok = int(round(ok_frac(est, doas, 5.0) * B))
+    print(f"[unipolar] B={B} T={T}: launches {launches}; DoAs identical to the plain path; doa-ok-frac "
+          f"{n_ok / B:.4f} @5deg (matched; {n_ok}/{B}; the JAX package: {JAX_UNIPOLAR_OK}/{B})", flush=True)
+    if n_ok < JAX_UNIPOLAR_OK - 1:
+        fail(f"unipolar accuracy gate failed: {n_ok}/{B} within 5deg, JAX {JAX_UNIPOLAR_OK}/{B}")
+    return udemo, dict(design_s=design_s, calib_s=calib_s, launches=launches, ok=n_ok / B)
+
+
+# ------------------------------------------------------------------ phase 11
+def raster(torch, dev, seed, T, B, C, p, lo=1, hi=2):
+    """(T, B, C) int8 raster: nonzero with probability p, values in [lo, hi)."""
+    r = np.random.default_rng(seed + 2000)
+    v = np.where(r.random((T, B, C)) < p, r.integers(lo, hi, size=(T, B, C)), 0)
+    return torch.as_tensor(v.astype(np.int8), device=dev)
+
+
+def check_k5(torch, lk, XyloConfig, dev, ucfg, u_spikes, bcfg, b_spikes):
+    make = functools.partial(make_config, XyloConfig)
+    ras = functools.partial(raster, torch, dev)
+    big = make(21, N=70, w_scale=400, rows=14)
+    cases = [
+        ("unipolar flagship masks", ucfg, u_spikes, 1),
+        ("bipolar flagship combined raster, B=1", bcfg, b_spikes, 1),
+        ("values 0..15, clip path", big, ras(21, 500, 3, 14, 0.5, 0, 16), None),
+        ("negative values -20..19", make(22, N=100, rows=20), ras(22, 400, 2, 20, 0.3, -20, 20), 20),
+        ("C=84", make(23, N=130, rows=84), ras(23, 600, 2, 84, 0.05, -3, 4), 3),
+        ("C=128", make(24, N=200, rows=128), ras(24, 600, 2, 128, 0.05, -3, 4), 3),
+        ("ragged T=12001", make(25, N=449, w_scale=49, rows=14), ras(25, 12001, 2, 14, 0.05), 1),
+        ("rec_coef=-1", make(26, N=200, rec=-1, rows=14), ras(26, 1500, 4, 14, 0.2), 1),
+        ("rec_coef=-1, C=128", make(27, N=300, rec=-1, rows=128), ras(27, 800, 2, 128, 0.05, -3, 4), 3),
+        ("rec_coef=-1, unipolar flagship width", with_rec(ucfg, -1), u_spikes[:3000].contiguous(), 1),
+        ("B=3", make(28, N=449, w_scale=49, rows=14), ras(28, 3000, 3, 14, 0.1), 1),
+    ]
+    if lk._no_saturation_possible(big, 15, 0):
+        fail("K5 clip case: the config was meant to saturate")
+    worst = 0
+    for label, cfg, spikes, bound in cases:
+        got = lk.lif_count_rates(cfg, spikes, time_major=True, spike_bound=bound)
+        ref = lk.lif_count_stateful_plain(cfg, spikes)[0]
+        torch.cuda.synchronize()
+        bad = mismatches(got, ref)
+        if bad:
+            fail(f"K5 {label}: {bad} counts differ from the plain simulator")
+        if int(ref.sum()) == 0:
+            fail(f"K5 {label}: no neuron fired, the case checks nothing")
+        worst = max(worst, int((got.long() - ref.long()).abs().max()))
+    print(f"[K5] {len(cases)} cases bit-exact vs plain sim_hidden (unipolar flagship masks, bipolar "
+          "combined raster, multi-count clip path, negative values, C = 84 and 128, ragged T, "
+          "rec_coef = -1, B = 3)", flush=True)
+    ms = timed_ms(torch, lambda: lk.lif_count_rates(ucfg, u_spikes, time_major=True, spike_bound=1), 20)
+    plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_plain(ucfg, u_spikes), 1)
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+
+
+# ------------------------------------------------------------------ phase 12
+def check_forward(torch, _build, demos, frames, n=10):
+    """``Demo.forward`` frame by frame: one K5 launch each, the rate equal to
+    the batch forward's row; blocking single-frame latency."""
+    out = {}
+    for name, d in demos.items():
+        d.forward(frames[0])  # warm-up
+        lat = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            t1 = time.perf_counter()
+            doa, rate = d.forward(frames[i])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+            launches = dict(_build.launch_counts)
+            if launches.get("lif_k5") != 1 or "lif_k3" in launches:
+                fail(f"forward ({name}) frame {i} launched {launches}; expected one K5 launch")
+            _, rate_b = d.forward_batch(frames[i:i + 1])
+            if rate.shape != rate_b[0].shape or not torch.equal(rate, rate_b[0]):
+                fail(f"forward ({name}) frame {i}: the rate differs from forward_batch's row")
+            if not bool(torch.isfinite(rate).all()) or doa.dim() != 0:
+                fail(f"forward ({name}) frame {i}: malformed output")
+        out[name] = dict(latency_ms=float(np.median(lat)), latency_max_ms=max(lat))
+        print(f"[forward] {name}: {n} single frames, one K5 launch each ({launches}), rate == "
+              f"forward_batch's row", flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ phase 13
+def check_k6(torch, lk, XyloConfig, dev, ucfg, u_spikes):
+    make = functools.partial(make_config, XyloConfig)
+    ras = functools.partial(raster, torch, dev)
+    n_cases, worst = 0, 0
+
+    def zeros(B, N):
+        return tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))
+
+    def case(label, cfg, spikes, state0, bound=1):
+        nonlocal n_cases, worst
+        got = lk.lif_count_stateful(cfg, spikes, *state0, spike_bound=bound, time_major=True)
+        ref = lk.lif_count_stateful_plain(cfg, spikes, *state0)
+        torch.cuda.synchronize()
+        bad = sum(mismatches(a, b) for a, b in zip(got, ref))
+        if bad:
+            fail(f"K6 {label}: {bad} elements of counts/isyn/vmem/spk differ from the plain simulator")
+        if int(ref[0].sum()) == 0:
+            fail(f"K6 {label}: no neuron fired, the case checks nothing")
+        worst = max([worst] + [int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref)])
+        n_cases += 1
+        return got
+
+    T, B, _ = u_spikes.shape
+    N = np.asarray(ucfg.w_in).shape[1]
+    first = case("unipolar flagship chunk 1", ucfg, u_spikes, zeros(B, N))
+    second_in = u_spikes.flip(0).contiguous()
+    second = case("unipolar flagship chunk 2, carried", ucfg, second_in, first[1:])
+    whole = lk.lif_count_stateful(ucfg, torch.cat([u_spikes, second_in]), *zeros(B, N), spike_bound=1,
+                                  time_major=True)
+    bad = mismatches(whole[0], first[0] + second[0]) + sum(
+        mismatches(a, b) for a, b in zip(whole[1:], second[1:]))
+    if bad:
+        fail(f"K6: two chunks carried differ from one pass of {2 * T} steps in {bad} elements")
+    cfg = make(31, N=200, rows=14)
+    mid = lk.lif_count_stateful_plain(cfg, ras(32, 300, 5, 14, 0.2))
+    case("ragged T=777, mid-stream state", cfg, ras(31, 777, 5, 14, 0.2), mid[1:])
+    sat = make(33, w_scale=5000, rows=14)
+    sat.threshold[:] = 25_000
+    if lk._no_saturation_possible(sat, 1, 0):
+        fail("K6 saturating: the case was meant to exercise the clip path")
+    mid = lk.lif_count_stateful_plain(sat, ras(34, 200, 3, 14, 0.9))
+    case("saturating clip path", sat, ras(33, 301, 3, 14, 0.9), mid[1:], bound=None)
+    rec = with_rec(ucfg, -1)
+    head = case("rec_coef=-1, flagship width", rec, u_spikes[:3000].contiguous(), zeros(B, N))
+    case("rec_coef=-1, carried", rec, u_spikes[3000:6001].contiguous(), head[1:])
+    print(f"[K6] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk (unipolar "
+          f"flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, ragged T, clip path, "
+          "rec_coef = -1)", flush=True)
+    ms = timed_ms(torch, lambda: lk.lif_count_stateful(ucfg, second_in, *first[1:], spike_bound=1,
+                                                       time_major=True), 20)
+    plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_plain(ucfg, second_in, *first[1:]), 1)
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+
+
+# ------------------------------------------------------------------ phase 14
+def check_streaming_unipolar(torch, sk, lk, _build, StreamingLocalizer, udemo, frames, doas, n_chunks=4):
+    sl = StreamingLocalizer(udemo)
+    B, Tc, _ = frames.shape
+    sl.process_chunk(sl.init_state(B), frames, return_spikes=False)  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    state, spikes = sl.init_state(B), []
+    for _ in range(n_chunks):
+        state, sp = sl.process_chunk(state, frames)
+        spikes.append(sp)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches.get("lif_k6") != n_chunks or launches.get("rzcc_k1") != n_chunks or "lif_k4" in launches:
+        fail(f"the unipolar streaming run launched {launches}; expected K1 and K6 once per chunk")
+    pstate = sl.init_state(B)
+    for k in range(n_chunks):
+        pstate, psp = plain_step(torch, sk, lk, sl, pstate, frames)
+        bad = mismatches(spikes[k], psp)
+        if bad:
+            fail(f"unipolar streaming chunk {k}: {bad} spikes differ from the plain RZCC")
+    bad = sum(mismatches(getattr(state, f), getattr(pstate, f)) for f in ("counts", "isyn", "vmem", "spk"))
+    if bad:
+        fail(f"unipolar streaming: {bad} elements of the LIF counts/state differ from the plain path")
+    ok = ok_frac(sl.estimate_doa(state, "matched").cpu().numpy(), doas, 5.0)
+    print(f"[stream-unipolar] B={B} {n_chunks} x Tc={Tc}: launches {launches}; spikes and counts identical "
+          f"to the plain RZCC + plain K6; doa-ok-frac {ok:.4f} @5deg (matched)", flush=True)
+    st = sl.process_chunk(sl.init_state(B), frames, return_spikes=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        st = sl.process_chunk(st, frames, return_spikes=False)
+    torch.cuda.synchronize()
+    return launches, dict(step_ms=(time.perf_counter() - t1) / 20 * 1e3, ok=ok)
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     try:
@@ -506,7 +793,7 @@ def main() -> int:
 
     # the flagship: bench.py's config and frames
     fs, frame, B, G = 48_000, 0.25, 96, 64 * 7 + 1
-    demo = Demo(
+    flagship = dict(
         geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
         freq_bands=[[1600, 1900]],
         doa_list=np.linspace(-np.pi, np.pi, G),
@@ -516,7 +803,8 @@ def main() -> int:
         fs=fs,
         device=dev,
     )
-    demo.calibrate_profiles()
+    demo = Demo(**flagship)  # the bundled design
+    demo.calibrate_profiles()  # the bundled table
     t = torch.arange(0, frame, 1 / fs, dtype=torch.float64, device=dev)
     sig = torch.sin(2 * np.pi * 1750 * t)
     doas = np.linspace(-np.pi, np.pi, B, endpoint=False)
@@ -572,6 +860,19 @@ def main() -> int:
     stream_launches, stream = check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doas)
     serve = check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=8)
 
+    # ---- phases 9-14: the design path, the unipolar model, K5 and K6
+    design = check_design(torch, Demo, flagship, demo, frames, doas)
+    udemo, uni = check_unipolar(torch, sk, lk, _build, Demo, flagship, frames, doas)
+    u_kp, _ = udemo.rzcc(udemo.encode(frames))
+    u_spikes = u_kp.to(torch.int8)
+    b_kp, b_kn = kp[:, :1], kn[:, :1]
+    b_spikes = torch.cat([b_kp & ~b_kn, b_kn], dim=-1).to(torch.int8)  # (T, 1, 2C)
+    k5 = check_k5(torch, lk, XyloConfig, dev, udemo.xylo_config, u_spikes, demo.xylo_config, b_spikes)
+    fwd = check_forward(torch, _build, {"bipolar": demo, "unipolar": udemo}, frames)
+    k6 = check_k6(torch, lk, XyloConfig, dev, udemo.xylo_config, u_spikes)
+    ustream_launches, ustream = check_streaming_unipolar(torch, sk, lk, _build, StreamingLocalizer, udemo,
+                                                         frames, doas)
+
     # stage and end-to-end times
     stage_ms = {
         "encode": timed_ms(torch, lambda: demo.encode(frames), 10),
@@ -587,17 +888,33 @@ def main() -> int:
         demo.forward_batch(frames, method="matched")
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t1) / n_rep * 1e3
+    udemo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_rep):
+        udemo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    ubatch_ms = (time.perf_counter() - t1) / n_rep * 1e3
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
     print(f"{tag} rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
-    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif), ("K4", lif4)):
+    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif), ("K4", lif4), ("K5", k5), ("K6", k6)):
         print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms")
     print(f"{tag} forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
           f"{B * frame / (batch_ms / 1e3):.1f} audio-sec/sec", flush=True)
     print(f"{tag} streaming step {stream['step_ms']:.3f} ms per {B} streams x {frame} s chunk = "
           f"{B * frame / (stream['step_ms'] / 1e3):.1f} serving audio-sec/sec; single-stream latency "
           f"{stream['latency_ms']:.3f} ms (median of 10, max {stream['latency_max_ms']:.3f} ms)")
+    print(f"{tag} design on the card: bipolar flagship {design['design_s']:.3f} s, unipolar flagship "
+          f"{uni['design_s']:.3f} s; calibration (449 DoAs through forward_batch): bipolar "
+          f"{design['calib_s']:.3f} s, unipolar {uni['calib_s']:.3f} s")
+    print(f"{tag} unipolar forward_batch(matched) {ubatch_ms:.3f} ms per {B} x {frame} s batch = "
+          f"{B * frame / (ubatch_ms / 1e3):.1f} audio-sec/sec; unipolar streaming step "
+          f"{ustream['step_ms']:.3f} ms per {B} streams")
+    for name, r in fwd.items():
+        print(f"{tag} Demo.forward ({name}) single-frame latency {r['latency_ms']:.3f} ms "
+              f"(median of 10, max {r['latency_max_ms']:.3f} ms)")
     for wire, r in serve.items():
         print(f"{tag} serve step ({wire} wire, {r['steps']} steps after the first round): "
               f"device {r['device_ms']:.3f} ms, "
@@ -613,9 +930,15 @@ def main() -> int:
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:275", "lif_k3", lif),
         ("lif_k4", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:468", "lif_k4", lif4),
+        ("lif_k5", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:76", "lif_k5", k5),
+        ("lif_k6", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:666", "lif_k6", k6),
     ):
-        # launches: K1-K3 from the forward_batch run, K4 from the streaming run
-        path = stream_launches if key == "lif_k4" else launches
+        # launches: K1-K3 from the bipolar forward_batch run, K4 from the
+        # bipolar streaming run, K5 from the unipolar forward_batch run, K6
+        # from the unipolar streaming run
+        path = {"lif_k4": stream_launches, "lif_k5": uni["launches"], "lif_k6": ustream_launches}.get(key, launches)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"]})

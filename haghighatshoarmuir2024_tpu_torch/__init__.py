@@ -10,13 +10,16 @@ PyTorch version; on CUDA tensors it launches its kernel or raises.
 
 Ported so far:
 
-- the flagship quantized SNN localizer ``models.xylo.Demo.forward_batch`` —
-  encode → fused bipolar RZCC (kernels K1, K2) → integer LIF spike counts
-  (kernel K3) → fold + matched/peak DoA;
+- the quantized SNN localizer ``models.xylo.Demo`` with bipolar or unipolar
+  RZCC spikes: its design on the demo's device (``models.snn_beamformer``)
+  and calibration, ``forward`` (one frame: kernel K5) and ``forward_batch``
+  — encode → fused RZCC (kernels K1, K2) → integer LIF spike counts (K3
+  from the two polarity masks, or K5 from the unipolar raster) → fold +
+  matched/peak DoA;
 - the streaming runtime ``runtime.StreamingLocalizer`` (carried-state chunks
-  of B streams: K1, K2 and the stateful LIF kernel K4) and the serving daemon
-  ``runtime.LocalizationServer`` over the native ingestion daemon
-  ``native/streamd.cpp``.
+  of B streams: K1, K2 and the stateful LIF kernel K4, or K6 for a unipolar
+  model) and the serving daemon ``runtime.LocalizationServer`` over the
+  native ingestion daemon ``native/streamd.cpp``.
 """
 
 __version__ = "0.1.0"

@@ -44,6 +44,15 @@ class ArrayGeometry:
         tv = torch.as_tensor(self.theta_vec, dtype=dtype, device=theta.device)
         return -r * torch.cos(tv - theta.to(dtype)[..., None]) / self.speed
 
+    def delays_np(self, theta, normalized: bool = True) -> np.ndarray:
+        """Host float64 delays of shape ``theta.shape + (M,)``, min-shifted to
+        0 per DoA when ``normalized`` (JAX ``geometry.py:59-66``)."""
+        theta = np.asarray(theta, dtype=np.float64)
+        d = -self.r_vec * np.cos(self.theta_vec - theta[..., None]) / self.speed
+        if normalized:
+            d = d - np.min(d, axis=-1, keepdims=True)
+        return d
+
     def __len__(self) -> int:
         return len(self.r_vec)
 

@@ -2,22 +2,27 @@
 of ``haghighatshoarmuir2024_tpu/models/xylo/pipeline.py``; reference:
 micloc/xylo_snn_localization.py:74-542).
 
-Slice 1 ports the flagship batched forward, ``forward_batch`` with
-``method="matched"`` or ``"peak"`` (JAX ``pipeline.py:747-859``):
+Construction (JAX ``pipeline.py:216-331``): per frequency band an
+:class:`~..snn_beamformer.SNNBeamformer` designed from a sinusoid template at
+the band centre, on ``device`` — or the design bundled with the JAX package
+for this configuration — becomes the input weights of a 2-layer SNN,
+quantized to Xylo-A2 integers.  :meth:`calibrate_profiles` reads the bundled
+matched-profile table or computes it through :meth:`forward_batch`.
+
+Inference, time-major on ``device``:
 
 1. encode: STHT (blocked-Toeplitz FIR) → order-1 Butterworth bandpass with
    its integrator folded into a lifted blocked cumsum → ``cs`` (T, B, C);
 2. fused bipolar RZCC on (T, B·C): kernels K1/K2
-   (``ops/cuda/suppress_kernel.py``);
-3. integer-LIF spike counts from the two polarity masks: kernel K3
-   (``ops/cuda/lif_kernel.py``);
+   (``ops/cuda/suppress_kernel.py``); a unipolar model keeps the positive
+   plane;
+3. integer-LIF spike counts (``ops/cuda/lif_kernel.py``): kernel K3 from the
+   two polarity masks (bipolar :meth:`forward_batch`), kernel K5 from one
+   int8 raster (unipolar :meth:`forward_batch`, and :meth:`forward` for both
+   polarities);
 4. rate, fold over bands, matched-profile (or peak) argmax on the DoA grid.
 
-The beamforming design and the calibration profiles are read from the
-bundled designs of the JAX package (``utils/cache.py``) or from a checkpoint
-the JAX ``Demo.save`` wrote (:meth:`Demo.load`); the design path itself is
-not ported yet.  Tensors live on ``device``; CPU tensors run the kernels'
-plain versions.
+CPU tensors run the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -31,24 +36,24 @@ from ...ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
 from ...ops.filterbank import ButterworthFilterbank
 from ...ops.fir import full_fp32
 from ...ops.iir import iir_cumsum_blocked
-from ...ops.stht import stht, stht_kernel
+from ...ops.interp import signal_from_template
+from ...ops.stht import stht
 from ...utils.cache import design_cache_key, load_bundled
+from ..snn_beamformer import SNNBeamformer
 from .quantize import XyloConfig, global_quantize, validate_config
 from .spec import build_localization_spec
 
-_NO_DESIGN = (
-    "the beamforming design / calibration path is not ported yet (ROADMAP "
-    "queue 1 item 6): use a configuration bundled with the JAX package, or "
-    "Demo.load() a checkpoint written by the JAX Demo.save()"
-)
+_MULTIBAND = "is multiband, not ported yet (ROADMAP queue 1 item 9)"
 
 
 class Demo:
-    """Quantized Xylo-style SNN localization, bipolar RZCC spikes.
+    """Quantized Xylo-style SNN localization with RZCC spikes, bipolar or
+    unipolar.
 
-    The constructor has the JAX signature plus ``device``.  ``design_chunk``
-    is accepted for parity and unused (there is no design run);
-    ``use_cache=False`` would force a design run and so raises.
+    The constructor has the JAX signature plus ``device``, where the design
+    runs and the tensors live.  ``use_cache=True`` takes the design bundled
+    with the JAX package for this configuration where there is one; anything
+    else is designed (a writable on-disk design cache is not ported).
     """
 
     def __init__(
@@ -77,8 +82,7 @@ class Demo:
         self.enforce_hw_limits = bool(enforce_hw_limits)
         self.fs = fs
         self.device = resolve_device(device)
-        if not self.bipolar_spikes:
-            raise NotImplementedError("unipolar spikes run on kernel K5, not ported yet (ROADMAP queue 2)")
+        self._setup(design_chunk)
 
         key = design_cache_key(
             r_vec=geometry.r_vec,
@@ -93,31 +97,48 @@ class Demo:
             version=1,
         )
         cached = load_bundled(key) if use_cache else None
-        if cached is None or any(f"bf_{i}" not in cached for i in range(len(self.freq_bands))):
-            raise NotImplementedError(f"no bundled design for this configuration (key {key}); " + _NO_DESIGN)
-        bf_mats = [cached[f"bf_{i}"] for i in range(len(self.freq_bands))]
+        # per-band beamformer design (micloc/xylo_snn_localization.py:115-145)
+        bf_mats = []
+        for i, (band, beamf) in enumerate(zip(self.freq_bands, self.beamfs)):
+            if cached is not None and f"bf_{i}" in cached:
+                bf_mats.append(cached[f"bf_{i}"])
+                continue
+            t = np.arange(0, recording_duration, step=1 / fs)
+            sig = np.sin(2 * np.pi * float(np.mean(band)) * t)
+            bf_mats.append(beamf.design_from_template((t, sig), self.doa_list).cpu().numpy())
+        # fail fast on a degenerate design: the quantizer would turn NaN into
+        # INT_MIN weights and the SNN would go silent
         for i, m in enumerate(bf_mats):
             if not np.all(np.isfinite(m)):
                 raise FloatingPointError(f"beamforming design for band {i} contains non-finite values")
-        self._setup(bf_mats)
+        self.bf_mats = bf_mats
         self._initialize_snn_module(target_dt)
 
     # ----------------------------------------------------------------- set-up
-    def _setup(self, bf_mats) -> None:
-        """Everything derived from the design and the constructor arguments
-        (shared by ``__init__`` and :meth:`load`)."""
-        self.bf_mats = list(bf_mats)
+    def _setup(self, design_chunk: int = 32) -> None:
+        """Everything derived from the constructor arguments (shared by
+        ``__init__`` and :meth:`load`): the per-band beamformers with the
+        taus 1/(2π f_mid) (micloc/xylo_snn_localization.py:115-145), the
+        shared order-1 filterbank, the STHT kernel and the RZCC robust width
+        of band 0."""
         self.tau_vecs = np.asarray(
             [[1.0 / (2 * np.pi * float(np.mean(b)))] * 2 for b in self.freq_bands]
         )
+        self.beamfs = [
+            SNNBeamformer(
+                geometry=self.geometry, kernel_duration=self.kernel_duration, freq_range=band,
+                tau_vec=list(tv), bipolar_spikes=self.bipolar_spikes, fs=self.fs,
+                design_chunk=design_chunk, device=self.device,
+            )
+            for band, tv in zip(self.freq_bands, self.tau_vecs)
+        ]
         self.filterbank = ButterworthFilterbank(freq_bands=self.freq_bands, order=1, fs=self.fs)
-        # STHT kernel and RZCC robust width of the SNN beamformer
-        # (haghighatshoarmuir2024_tpu/models/snn_beamformer.py:112-132)
-        self.kernel = stht_kernel(int(self.fs * self.kernel_duration))
-        self.robust_width = int(self.fs / self.freq_bands[0][1]) // 2
+        self.kernel = self.beamfs[0].kernel
+        self.robust_width = self.beamfs[0].robust_width
         self._doa_t = torch.as_tensor(self.doa_list, device=self.device)
         self._profiles = None
         self._profiles_t = None
+        self._lif = None
 
     def _initialize_snn_module(self, target_dt: float) -> None:
         """Spec assembly + quantization (JAX ``pipeline.py:334-361``;
@@ -145,10 +166,36 @@ class Demo:
                   "software simulator: " + "; ".join(problems))
             self.xylosim_version = True
 
+    # ------------------------------------------------------------ checkpoints
+    def save(self, path: str) -> None:
+        """Write the ``.npz`` of the JAX ``Demo.save`` (JAX
+        ``pipeline.py:466-500``): geometry, ``bf_i``, the quantized config's
+        integers and, if calibrated, the profiles.  Either package's
+        :meth:`load` reads it."""
+        cfg = self.xylo_config
+        arrays = {
+            "r_vec": self.geometry.r_vec,
+            "theta_vec": self.geometry.theta_vec,
+            "speed": np.asarray(self.geometry.speed),
+            "freq_bands": self.freq_bands,
+            "doa_list": self.doa_list,
+            "params": np.asarray([self.recording_duration, self.kernel_duration, float(self.fs),
+                                  float(self.bipolar_spikes), cfg.dt]),
+            "weight_scale": np.asarray(cfg.weight_scale),
+        }
+        for name in ("w_in", "w_rec", "w_out", "dash_syn", "dash_mem", "dash_syn_out",
+                     "dash_mem_out", "threshold", "threshold_out"):
+            arrays[name] = np.asarray(getattr(cfg, name))
+        for i, m in enumerate(self.bf_mats):
+            arrays[f"bf_{i}"] = m
+        if self._profiles is not None:
+            arrays["profiles"] = self._profiles
+        np.savez(path, **arrays)
+
     @classmethod
     def load(cls, path: str, device="cpu") -> "Demo":
-        """A Demo from the ``.npz`` that the JAX ``Demo.save`` writes
-        (JAX ``pipeline.py:466-561``): geometry, ``bf_i``, the quantized
+        """A Demo from the ``.npz`` that either package's ``Demo.save`` writes
+        (JAX ``pipeline.py:502-561``): geometry, ``bf_i``, the quantized
         config's integers and the profiles, restored verbatim."""
         z = np.load(path, allow_pickle=False)
         rec_dur, ker_dur, fs, bipolar, dt = z["params"]
@@ -163,12 +210,10 @@ class Demo:
         self.enforce_hw_limits = True
         self.fs = float(fs)
         self.device = resolve_device(device)
-        if not self.bipolar_spikes:
-            raise NotImplementedError("unipolar spikes run on kernel K5, not ported yet (ROADMAP queue 2)")
-        bf_mats = []
-        while f"bf_{len(bf_mats)}" in z:
-            bf_mats.append(z[f"bf_{len(bf_mats)}"])
-        self._setup(bf_mats)
+        self._setup()
+        self.bf_mats = []
+        while f"bf_{len(self.bf_mats)}" in z:
+            self.bf_mats.append(z[f"bf_{len(self.bf_mats)}"])
         self.xylo_config = XyloConfig(
             w_in=z["w_in"], w_rec=z["w_rec"], w_out=z["w_out"],
             dash_syn=z["dash_syn"], dash_mem=z["dash_mem"],
@@ -185,15 +230,23 @@ class Demo:
         self._profiles = np.asarray(profiles)
         self._profiles_t = torch.as_tensor(self._profiles, dtype=torch.float32, device=self.device)
 
-    def calibrate_profiles(self, template=None):
-        """Load the G×G matched-profile table bundled for this configuration
-        (keyed like JAX ``calibrate_profiles``, ``pipeline.py:564-621``).
-        Computing a new table runs the design path, which is not ported."""
+    def calibrate_profiles(self, template=None, batch: int = 32, use_cache: bool = True,
+                           band_stacked: bool = False):
+        """The G×G matched-profile table: row g is the rate profile of the
+        quantized pipeline for a noiseless source at grid DoA g, mean-removed
+        and unit-normalized (JAX ``pipeline.py:564-650``).
+
+        ``use_cache=True`` reads the table bundled for this configuration and
+        template where there is one; otherwise it is computed, ``batch``
+        DoAs per :meth:`forward_batch`.  ``band_stacked=True`` (the unfolded
+        per-band table) raises ``NotImplementedError``."""
+        if band_stacked:
+            raise NotImplementedError("calibrate_profiles(band_stacked=True) " + _MULTIBAND)
         if template is None:
             t = np.arange(0, self.recording_duration, 1.0 / self.fs)
             f_mid = float(np.mean(self.freq_bands[0]))
             template = (t, np.sin(2 * np.pi * f_mid * t))
-        _, sig = template
+        t, sig = template
         key = design_cache_key(
             kind="profiles",
             r_vec=self.geometry.r_vec,
@@ -207,10 +260,25 @@ class Demo:
             sig=np.asarray(sig, np.float32),
             version=1,
         )
-        cached = load_bundled(key)
-        if cached is None:
-            raise NotImplementedError(f"no bundled profiles for this configuration (key {key}); " + _NO_DESIGN)
-        self._set_profiles(cached["profiles"])
+        cached = load_bundled(key) if use_cache else None
+        if cached is not None:
+            self._set_profiles(cached["profiles"])
+            return self._profiles
+
+        # float32 synthesis, as the JAX package runs it on the TPU
+        t_dev = torch.as_tensor(np.asarray(t), dtype=torch.float32, device=self.device)
+        sig_dev = torch.as_tensor(np.asarray(sig), dtype=torch.float32, device=self.device)
+        profs = []
+        for start in range(0, len(self.doa_list), batch):
+            frames = torch.stack([
+                signal_from_template(self.geometry, t_dev, sig_dev, float(d), fs=self.fs)
+                for d in self.doa_list[start:start + batch]
+            ])
+            profs.append(self.forward_batch(frames)[1].cpu().numpy())
+        profiles = np.concatenate(profs, axis=0)
+        profiles = profiles - profiles.mean(axis=1, keepdims=True)
+        profiles = profiles / np.maximum(np.linalg.norm(profiles, axis=1, keepdims=True), 1e-12)
+        self._set_profiles(profiles)
         return self._profiles
 
     # ------------------------------------------------------------- the stages
@@ -240,10 +308,22 @@ class Demo:
         )
         return kp.reshape(T, B, C), kn.reshape(T, B, C)
 
+    def lif_params(self) -> lif_kernel.LifParams:
+        """The config's LIF integers on ``device``, uploaded once; the
+        no-saturation proof is made for binary spikes (``spike_bound=1``)."""
+        if self._lif is None:
+            self._lif = lif_kernel.lif_params(self.xylo_config, self.device, spike_bound=1)
+        return self._lif
+
     def lif_counts(self, kp: torch.Tensor, kn: torch.Tensor) -> torch.Tensor:
-        """Polarity masks → hidden spike counts (B, N) int32; spike_bound=1
-        (RZCC masks are binary) lets the kernel drop provably dead clips."""
-        return lif_kernel.lif_count_rates_bipolar(self.xylo_config, kp, kn, spike_bound=1)
+        """Polarity masks → hidden spike counts (B, N) int32.  Bipolar: the
+        two masks straight into K3; unipolar: the positive plane as an int8
+        raster into K5 (JAX ``pipeline.py:822-843``).  RZCC masks are binary,
+        so spike_bound=1 lets the kernel drop provably dead clips."""
+        if self.bipolar_spikes:
+            return lif_kernel.lif_count_rates_bipolar(self.lif_params(), kp, kn, spike_bound=1)
+        return lif_kernel.lif_count_rates(self.lif_params(), kp.to(torch.int8), time_major=True,
+                                          spike_bound=1)
 
     def estimate(self, counts: torch.Tensor, T: int, method: str = "peak"):
         """Counts → (doa (B,), folded rate (B, G)) (JAX ``pipeline.py:776-786,
@@ -255,30 +335,68 @@ class Demo:
 
     def estimate_doa_from_rate(self, rate_doa: torch.Tensor, method: str = "peak") -> torch.Tensor:
         """Folded rates (B, G) → DoAs (B,) (JAX ``estimate_doa_from_rate``,
-        ``pipeline.py:396-442``, row by row): ``"peak"`` is the
-        reference-parity argmax, ``"matched"`` the argmax of the correlation
-        with the calibrated profiles.  The multiband ``matched_stacked`` and
-        ``matched_auto`` estimators are not ported (ROADMAP queue 1 item 9)."""
+        ``pipeline.py:396-463``, row by row; micloc/xylo_snn_localization.py:400-444):
+
+        - ``"peak"``: the reference-parity argmax;
+        - ``"periodic_ml"``: the angle of ``mean_g rate_g·e^{iθ_g}``;
+        - ``"trimmed_periodic_ml"``: the same over the window
+          ``arange(-n // 2, n // 2 + 1) - argmax`` (n = G // 2), the
+          reference's index quirk kept; indices wrap once and then clamp,
+          as JAX's gather does;
+        - ``"matched"``: the argmax of the correlation with the calibrated
+          profiles.
+
+        The multiband ``matched_stacked`` and ``matched_auto`` raise."""
         if method == "matched":
             if self._profiles_t is None:
                 raise ValueError("call calibrate_profiles() before the matched estimator")
             full_fp32()  # f32-exact: a TF32 product can flip near-tie argmaxes
             r = rate_doa - rate_doa.mean(dim=-1, keepdim=True)
-            idx = torch.argmax(torch.matmul(r, self._profiles_t.T), dim=-1)
-        elif method == "peak":
-            idx = torch.argmax(rate_doa, dim=-1)
-        elif method in ("matched_stacked", "matched_auto"):
-            raise NotImplementedError(f"method={method!r} is multiband, not ported yet (ROADMAP queue 1 item 9)")
-        else:
-            raise ValueError(f"method must be 'peak' or 'matched' (got {method!r})")
-        return self._doa_t[idx]
+            return self._doa_t[torch.argmax(torch.matmul(r, self._profiles_t.T), dim=-1)]
+        if method == "peak":
+            return self._doa_t[torch.argmax(rate_doa, dim=-1)]
+        if method in ("periodic_ml", "trimmed_periodic_ml"):
+            G = len(self.doa_list)
+            rate = rate_doa.to(torch.float64)
+            phase = torch.exp(1j * self._doa_t)
+            if method == "periodic_ml":
+                return torch.angle((rate * phase).mean(dim=-1))
+            n = G // 2
+            window = torch.arange(-n // 2, n // 2 + 1, device=rate.device)
+            idx = window[None, :] - torch.argmax(rate, dim=-1, keepdim=True)
+            idx = torch.clamp(torch.where(idx < 0, idx + G, idx), 0, G - 1)
+            return torch.angle((torch.gather(rate, -1, idx) * phase[idx]).mean(dim=-1))
+        if method in ("matched_stacked", "matched_auto"):
+            raise NotImplementedError(f"method={method!r} " + _MULTIBAND)
+        raise ValueError(
+            "method must be 'peak', 'periodic_ml', 'trimmed_periodic_ml' or 'matched' "
+            f"(got {method!r})"
+        )
+
+    # -------------------------------------------------------------- entries
+    def forward(self, sig_in):
+        """One frame: (T, M) audio → (doa, rate (G,)) by the peak estimator
+        (JAX ``pipeline.py:666-722``).  The spikes go to K5 as one int8
+        raster (T, 1, C'): ``[kp & ~kn, kn]`` (2C channels) for a bipolar
+        model, ``kp`` for a unipolar one; spike_bound=1 as the masks are
+        binary."""
+        x = torch.as_tensor(sig_in, dtype=torch.float32, device=self.device)
+        M = len(self.geometry)
+        if x.dim() != 2 or x.shape[-1] != M:
+            raise ValueError(f"sig_in must be (T, {M}) for this {M}-mic geometry; got {tuple(x.shape)}")
+        cs = self.encode(x[None])
+        kp, kn = self.rzcc(cs)
+        spikes = torch.cat([kp & ~kn, kn], dim=-1) if self.bipolar_spikes else kp
+        counts = lif_kernel.lif_count_rates(self.lif_params(), spikes.to(torch.int8), time_major=True,
+                                            spike_bound=1)
+        doa, rate_doa = self.estimate(counts, cs.shape[0], "peak")
+        return doa[0], rate_doa[0]
 
     def forward_batch(self, sig_batch, method: str = "peak"):
-        """Batched flagship chain: (B, T, M) audio → (doa (B,), rate (B, G)).
+        """Batched chain: (B, T, M) audio → (doa (B,), rate (B, G)).
 
-        ``method="peak"`` is the reference-parity argmax estimator;
-        ``method="matched"`` correlates against the calibrated profiles
-        (requires :meth:`calibrate_profiles`)."""
+        ``method`` is any of :meth:`estimate_doa_from_rate`'s; ``"matched"``
+        requires :meth:`calibrate_profiles`."""
         cs = self.encode(sig_batch)
         kp, kn = self.rzcc(cs)
         counts = self.lif_counts(kp, kn)

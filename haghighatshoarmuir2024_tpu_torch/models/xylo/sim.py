@@ -35,7 +35,7 @@ def uniform_rec_coef(config: XyloConfig) -> int:
 def project_input(config: XyloConfig, spikes: torch.Tensor) -> torch.Tensor:
     """Input current ``spikes @ w_in`` as int32 (float64 products, exact for
     integer operands below 2^53)."""
-    w = torch.as_tensor(np.asarray(config.w_in), dtype=torch.float64, device=spikes.device)
+    w = torch.as_tensor(config.w_in, device=spikes.device).to(torch.float64)
     return torch.matmul(spikes.to(torch.float64), w).to(torch.int32)
 
 
@@ -46,7 +46,7 @@ def sim_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, rec_coef: int =
     Args:
         inp: (T, ..., N) int32 input current per step (time leading, any
             batch dims between).
-        dash_syn, dash_mem, threshold: (N,) integers.
+        dash_syn, dash_mem, threshold: (N,) integers (arrays or tensors).
         rec_coef: uniform recurrence coefficient (feedback ``c·Σ_n spk``,
             summed over the N neurons of the same batch row).
         record: also return the (T, ..., N) int32 spike raster.
@@ -58,9 +58,7 @@ def sim_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, rec_coef: int =
         int32 and the final state.  With T = 0 the final state is ``state0``.
     """
     dev = inp.device
-    ds = torch.as_tensor(np.asarray(dash_syn), dtype=torch.int32, device=dev)
-    dm = torch.as_tensor(np.asarray(dash_mem), dtype=torch.int32, device=dev)
-    th = torch.as_tensor(np.asarray(threshold), dtype=torch.int32, device=dev)
+    ds, dm, th = (torch.as_tensor(a, device=dev).to(torch.int32) for a in (dash_syn, dash_mem, threshold))
     if state0 is None:
         isyn = torch.zeros(inp.shape[1:], dtype=torch.int32, device=dev)
         vmem = torch.zeros_like(isyn)

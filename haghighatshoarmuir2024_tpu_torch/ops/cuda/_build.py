@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, at first use, with ``nvcc`` for ``sm_90a``:
+interface, at first use, with ``nvcc`` for ``sm_90a``: one compiler process
+per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/hm_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <source>.o csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/hm_kernels_<hash>.so *.o
 
 The library lands in ``haghighatshoarmuir2024_tpu_torch/build/`` (git-ignored),
 named by a hash of the sources and flags, so an edited source rebuilds and an
@@ -31,10 +34,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -49,6 +50,9 @@ _SIGNATURES = {
     "hm_lif_max_rec_neurons": ([], _I),
     "hm_lif_count_bipolar": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "hm_lif_count_stateful_bipolar": ([_P] * 13 + [_I] * 6 + [_P], _I),
+    "hm_lif_max_raster_channels": ([], _I),
+    "hm_lif_count": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "hm_lif_count_stateful": ([_P] * 12 + [_I] * 6 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -74,21 +78,36 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
-    path.  The compiler's report (registers, shared memory, spills) is kept
+    path.  The compilers' reports (registers, shared memory, spills) are kept
     beside it as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so", delete=False) as tmp:
-        tmp_path = Path(tmp.name)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp_path.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp_path, so)
+    nvcc = _nvcc()
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for obj, src in zip(objs, _sources())]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out[-4000:])
+        if not failed:
+            tmp_so = Path(tmp) / so.name
+            cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp_so), *map(str, objs)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout)
+            if proc.returncode != 0:
+                failed.append(proc.stdout[-4000:])
+            else:
+                os.replace(tmp_so, so)
+    so.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return so
 
 

@@ -1,5 +1,4 @@
-"""Integer-LIF spike counts from the RZCC polarity masks: wrappers of kernels
-K3 and K4 (``csrc/lif.cu``).
+"""Integer-LIF spike counts: wrappers of kernels K3-K6 (``csrc/lif.cu``).
 
 - K3, :func:`lif_count_rates_bipolar`: counterpart of
   ``lif_count_rates_bipolar`` in
@@ -9,8 +8,15 @@ K3 and K4 (``csrc/lif.cu``).
   ``lif_count_stateful_bipolar`` (``:605``, Pallas kernel
   ``_lif_kernel_bipolar_stateful``, ``:468``), the streaming runtime's
   per-chunk LIF with the (B, N) state carried in and out.
+- K5, :func:`lif_count_rates`: counterpart of ``lif_count_rates`` (``:218``,
+  Pallas kernel ``_lif_kernel``, ``:76``), counts from one int8 raster of any
+  values (multi-count and negative spikes included): the single-frame
+  ``Demo.forward`` and the unipolar batch.
+- K6, :func:`lif_count_stateful`: counterpart of ``lif_count_stateful``
+  (``:802``, Pallas kernel ``_lif_kernel_stateful``, ``:666``), K5 with the
+  (B, N) state: the unipolar streaming step.
 
-Both take the uniform recurrence ``w_rec = c·ones``; a dense ``w_rec``
+All take the uniform recurrence ``w_rec = c·ones``; a dense ``w_rec``
 raises.  On CPU tensors a wrapper runs the plain simulator
 (``models/xylo/sim.sim_hidden``); on CUDA tensors it launches its kernel or
 raises.
@@ -26,6 +32,7 @@ from ...models.xylo.sim import STATE_MAX, project_input, sim_hidden, uniform_rec
 from ._build import check, launch_counts, library, require_cuda, stream_handle
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
+_SPIKE_DTYPES = (torch.int8, torch.bool)
 
 
 class LifParams(NamedTuple):
@@ -33,7 +40,7 @@ class LifParams(NamedTuple):
     :func:`lif_params` so that a caller launching every step uploads
     nothing per launch."""
 
-    w_in: torch.Tensor  # (2C, N) int32
+    w_in: torch.Tensor  # (C', N) int32: 2C rows for K3/K4 ([:C] positive, [C:] negative)
     dash_syn: torch.Tensor  # (N,) int32
     dash_mem: torch.Tensor  # (N,) int32
     threshold: torch.Tensor  # (N,) int32
@@ -94,12 +101,20 @@ def lif_count_plain(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> torch
 
 
 def lif_count_stateful_bipolar_plain(config, kp_tbc, kn_tbc, isyn0, vmem0, spk0):
-    """What K4 computes, by the plain simulator: the stateful ``sim_hidden``
-    on ``project_input([kp & ~kn, kn])`` from ``(isyn0, vmem0, spk0)``
-    ((B, N) each; None for zeros).  Returns ``(counts, isyn, vmem, spk)``,
-    all (B, N) int32."""
+    """What K4 computes, by the plain simulator: :func:`lif_count_stateful_plain`
+    of the raster ``[kp & ~kn, kn]`` from ``(isyn0, vmem0, spk0)`` ((B, N)
+    each; None for zeros).  Returns ``(counts, isyn, vmem, spk)``, all
+    (B, N) int32."""
     kp, kn = kp_tbc != 0, kn_tbc != 0
-    inp = project_input(config, torch.cat([kp & ~kn, kn], dim=-1))  # (T, B, N)
+    return lif_count_stateful_plain(config, torch.cat([kp & ~kn, kn], dim=-1), isyn0, vmem0, spk0)
+
+
+def lif_count_stateful_plain(config, spikes_tbc, isyn0=None, vmem0=None, spk0=None):
+    """What K5 (state None) and K6 compute, by the plain simulator: the
+    stateful ``sim_hidden`` on ``project_input(spikes)`` of a time-major
+    (T, B, C) raster of any integer values (as int8).  Returns ``(counts,
+    isyn, vmem, spk)``, all (B, N) int32."""
+    inp = project_input(config, spikes_tbc.to(torch.int8))  # (T, B, N)
     state0 = None if isyn0 is None else (isyn0, vmem0, spk0)
     _, counts, (isyn, vmem, spk) = sim_hidden(
         inp, config.dash_syn, config.dash_mem, config.threshold, _rec_coef(config),
@@ -124,12 +139,23 @@ def _check_masks(params: LifParams, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor):
     lib = library()
     if C > lib.hm_lif_max_channels():
         raise ValueError(f"{C} channels per polarity exceed the kernel's {lib.hm_lif_max_channels()}")
-    if params.rec_coef != 0 and N > lib.hm_lif_max_rec_neurons():
+    _check_rec(params, N)
+    return T, B, C, N
+
+
+def _check_rec(params: LifParams, N: int) -> None:
+    if params.rec_coef != 0 and N > library().hm_lif_max_rec_neurons():
         raise ValueError(
             f"the uniform recurrence (rec_coef = {params.rec_coef}) couples the {N} neurons of a "
-            f"row, and one block holds at most {lib.hm_lif_max_rec_neurons()}"
+            f"row, and one block holds at most {library().hm_lif_max_rec_neurons()}"
         )
-    return T, B, C, N
+
+
+def _check_state(B: int, N: int, device, isyn0, vmem0, spk0) -> None:
+    for name, s in (("isyn0", isyn0), ("vmem0", vmem0), ("spk0", spk0)):
+        require_cuda(s, name, (torch.int32,), 2)
+        if s.shape != (B, N) or s.device != device:
+            raise ValueError(f"{name} must be ({B}, {N}) on {device} (got {tuple(s.shape)} on {s.device})")
 
 
 def lif_count_rates_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor,
@@ -173,10 +199,7 @@ def lif_count_stateful_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tenso
         return lif_count_stateful_bipolar_plain(config, kp_tbc, kn_tbc, isyn0, vmem0, spk0)
     params = lif_params(config, kp_tbc.device, spike_bound)
     T, B, C, N = _check_masks(params, kp_tbc, kn_tbc)
-    for name, s in (("isyn0", isyn0), ("vmem0", vmem0), ("spk0", spk0)):
-        require_cuda(s, name, (torch.int32,), 2)
-        if s.shape != (B, N) or s.device != kp_tbc.device:
-            raise ValueError(f"{name} must be ({B}, {N}) on {kp_tbc.device} (got {tuple(s.shape)} on {s.device})")
+    _check_state(B, N, kp_tbc.device, isyn0, vmem0, spk0)
     out = tuple(torch.empty((B, N), dtype=torch.int32, device=kp_tbc.device) for _ in range(4))
     with torch.cuda.device(kp_tbc.device):
         rc = library().hm_lif_count_stateful_bipolar(
@@ -187,4 +210,93 @@ def lif_count_stateful_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tenso
         )
     check(rc, "lif_k4")
     launch_counts["lif_k4"] += 1
+    return out
+
+
+def _as_spikes_tbc(spikes: torch.Tensor, time_major: bool) -> torch.Tensor:
+    """int8 or bool spikes as they are, any other dtype cast with
+    ``.to(torch.int8)`` (the Pallas wrapper's ``jnp.asarray(spikes,
+    jnp.int8)``, ``lif_kernel.py:250``: values outside int8 wrap there too);
+    time-major (T, B, C) and contiguous."""
+    if spikes.dtype not in _SPIKE_DTYPES:
+        spikes = spikes.to(torch.int8)
+    if not time_major:
+        spikes = spikes.transpose(0, 1)
+    return spikes.contiguous()
+
+
+def _check_raster(params: LifParams, spikes_tbc: torch.Tensor):
+    """Validate a K5/K6 raster against the params; returns (T, B, C, N)."""
+    require_cuda(spikes_tbc, "spikes", _SPIKE_DTYPES, 3)
+    if params.w_in.device != spikes_tbc.device:
+        raise ValueError(f"the LIF params live on {params.w_in.device}, the spikes on {spikes_tbc.device}")
+    T, B, C = spikes_tbc.shape
+    N = params.w_in.shape[1]
+    if params.w_in.shape[0] != C:
+        raise ValueError(f"w_in has {params.w_in.shape[0]} rows; the spikes have {C} channels")
+    if C > library().hm_lif_max_raster_channels():
+        raise ValueError(f"{C} input channels exceed the kernel's {library().hm_lif_max_raster_channels()}")
+    _check_rec(params, N)
+    return T, B, C, N
+
+
+def lif_count_rates(config, spikes: torch.Tensor, time_major: bool = False,
+                    spike_bound: int | None = None) -> torch.Tensor:
+    """Hidden-layer spike counts (B, N_hid) int32 of the quantized LIF
+    network from a zero state; the sum over time of
+    ``sim_hidden_batch(config, spikes)`` without the raster.
+
+    ``spikes`` is (B, T, C), or (T, B, C) with ``time_major=True``, with any
+    integer values: int8 or bool as they are, any other dtype cast with
+    ``.to(torch.int8)``, so values outside [-128, 127] wrap, as in the
+    Pallas wrapper.  ``config`` is a ``XyloConfig`` or its
+    :class:`LifParams` (w_in of C rows).  ``spike_bound``: a
+    caller-guaranteed bound on the per-step spike values (1 for RZCC masks)
+    that lets the static proof drop the 16-bit clips; None keeps them (see
+    :func:`lif_params`)."""
+    spikes_tbc = _as_spikes_tbc(spikes, time_major)
+    if spikes_tbc.device.type == "cpu":
+        return lif_count_stateful_plain(config, spikes_tbc)[0]
+    params = lif_params(config, spikes_tbc.device, spike_bound)
+    T, B, C, N = _check_raster(params, spikes_tbc)
+    counts = torch.empty((B, N), dtype=torch.int32, device=spikes_tbc.device)
+    with torch.cuda.device(spikes_tbc.device):
+        rc = library().hm_lif_count(
+            spikes_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            params.dash_mem.data_ptr(), params.threshold.data_ptr(), counts.data_ptr(),
+            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(spikes_tbc.device),
+        )
+    check(rc, "lif_k5")
+    launch_counts["lif_k5"] += 1
+    return counts
+
+
+def lif_count_stateful(config, spikes: torch.Tensor, isyn0: torch.Tensor, vmem0: torch.Tensor,
+                       spk0: torch.Tensor, spike_bound: int | None = None, time_major: bool = False):
+    """Stateful LIF: spikes (as :func:`lif_count_rates` takes them) and the
+    (B, N) int32 initial state → ``(counts, isyn, vmem, spk)``, all (B, N)
+    int32: the streaming form of :func:`lif_count_rates`, whose state
+    carries across chunk calls.  ``spk0`` holds 0/1 values.
+
+    ``spike_bound``: as in :func:`lif_count_rates`; the caller additionally
+    guarantees that the initial state came from the same bounded dynamics
+    (zeros plus earlier chunks of the same stream), so the no-saturation
+    invariant carries across chunks (``lif_kernel.py:810-813``).  A state
+    from elsewhere needs ``spike_bound=None``."""
+    spikes_tbc = _as_spikes_tbc(spikes, time_major)
+    if spikes_tbc.device.type == "cpu":
+        return lif_count_stateful_plain(config, spikes_tbc, isyn0, vmem0, spk0)
+    params = lif_params(config, spikes_tbc.device, spike_bound)
+    T, B, C, N = _check_raster(params, spikes_tbc)
+    _check_state(B, N, spikes_tbc.device, isyn0, vmem0, spk0)
+    out = tuple(torch.empty((B, N), dtype=torch.int32, device=spikes_tbc.device) for _ in range(4))
+    with torch.cuda.device(spikes_tbc.device):
+        rc = library().hm_lif_count_stateful(
+            spikes_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            params.dash_mem.data_ptr(), params.threshold.data_ptr(), isyn0.data_ptr(),
+            vmem0.data_ptr(), spk0.data_ptr(), *(o.data_ptr() for o in out),
+            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(spikes_tbc.device),
+        )
+    check(rc, "lif_k6")
+    launch_counts["lif_k6"] += 1
     return out

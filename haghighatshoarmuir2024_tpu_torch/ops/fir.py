@@ -38,24 +38,26 @@ def _toeplitz_slices(taps: tuple, block: int, device: torch.device) -> torch.Ten
     return torch.as_tensor(np.stack(mats), device=device)
 
 
-def fir_block_matmul(b: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+def fir_block_matmul(b: np.ndarray, x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """Causal FIR ``y[t] = Σ_k b[k] x[t−k]`` along dim 0 of ``x`` (T, ...),
     zero initial state, as blocked-Toeplitz float32 matmuls: output block n is
-    ``Σ_k A_k · x_{n−k}`` (``fir.py:110-153``)."""
+    ``Σ_k A_k · x_{n−k}`` (``fir.py:110-153``).  A short filter takes a
+    smaller ``block``: the work per sample is about twice the block."""
     full_fp32()
     T = x.shape[0]
     rest = x.shape[1:]
-    mats = _toeplitz_slices(tuple(np.asarray(b, np.float64).tolist()), BLOCK, x.device)
+    block = int(block)
+    mats = _toeplitz_slices(tuple(np.asarray(b, np.float64).tolist()), block, x.device)
     nk = mats.shape[0]
-    nb = -(-T // BLOCK)
+    nb = -(-T // block)
     xf = x.reshape(T, -1).to(torch.float32)
     L = xf.shape[1]
-    xp = torch.nn.functional.pad(xf.T, ((nk - 1) * BLOCK, nb * BLOCK - T))  # (L, Tp)
-    Xb = xp.reshape(L, nb + nk - 1, BLOCK)
+    xp = torch.nn.functional.pad(xf.T, ((nk - 1) * block, nb * block - T))  # (L, Tp)
+    Xb = xp.reshape(L, nb + nk - 1, block)
     y = None
     for k in range(nk):
         Xs = Xb[:, nk - 1 - k : nk - 1 - k + nb, :]
-        term = torch.matmul(Xs, mats[k].T)  # (L, nb, BLOCK)
+        term = torch.matmul(Xs, mats[k].T)  # (L, nb, block)
         y = term if y is None else y + term
-    y = y.reshape(L, nb * BLOCK)[:, :T].T
+    y = y.reshape(L, nb * block)[:, :T].T
     return y.reshape((T,) + rest).to(x.dtype)

@@ -1,17 +1,19 @@
 """Peak detection with scipy ``find_peaks(distance=...)`` semantics — the
-plain PyTorch versions of what kernels K1/K2 compute (counterpart of
-``haghighatshoarmuir2024_tpu/ops/peaks.py:172-288``; reference:
-micloc/spike_encoder.py:115-137).
+plain PyTorch versions of what kernels K1/K2 compute, and the design path's
+``find_peaks_mask`` (counterpart of ``haghighatshoarmuir2024_tpu/ops/peaks.py``;
+reference: micloc/spike_encoder.py:115-137).
 
-Both functions work along the last axis with any leading batch dims, like
+All functions work along the last axis with any leading batch dims, like
 the JAX originals, and are bit-exact with them:
 
 * :func:`local_extrema_mask_bounded` — plateau-midpoint maxima and minima
   with the plateau search bounded to ``max_plateau`` samples, from one pass
   over sign-encoded boundary indices (``2·i + 1`` rise, ``2·i`` fall);
+* :func:`local_maxima_mask` — the same maxima with no bound on the plateau;
 * :func:`select_by_distance` — scipy's greedy height-ordered suppression as a
   fixed point of rounds: window-maxima win, exact ties go to the rightmost
-  index, winners delete their window, repeat until no candidates remain.
+  index, winners delete their window, repeat until no candidates remain;
+* :func:`find_peaks_mask` — candidates, then the suppression.
 """
 from __future__ import annotations
 
@@ -120,3 +122,43 @@ def select_by_distance(cand_mask: torch.Tensor, height: torch.Tensor, distance) 
         active, kept = suppression_round(active, kept, height, w)
         if not bool(active.any()):
             return kept
+
+
+def local_maxima_mask(x: torch.Tensor) -> torch.Tensor:
+    """scipy-style local maxima (plateau midpoints) along the last axis with
+    no bound on the plateau length (JAX ``peaks.py:41-81``): the run of equal
+    values around p is ``[l, r]``, l − 1 the last nonzero diff before p
+    (forward cummax of marked indices) and r the next at/after p (reverse
+    cummin); p is a peak iff the run rises into it, falls out of it, and
+    ``p == (l + r) // 2``.  Signal edges fail the rise/fall test."""
+    T = x.shape[-1]
+    d = torch.sign(x[..., 1:] - x[..., :-1])
+    idx = torch.arange(T - 1, dtype=torch.int32, device=x.device).expand_as(d)
+    none = torch.full_like(idx, -1)
+    big = torch.full_like(idx, T)
+    last_pos = torch.cummax(torch.where(d == 1, idx, none), dim=-1).values
+    last_neg = torch.cummax(torch.where(d == -1, idx, none), dim=-1).values
+    rev_cummin = lambda v: torch.cummin(v.flip(-1), dim=-1).values.flip(-1)
+    next_pos = rev_cummin(torch.where(d == 1, idx, big))
+    next_neg = rev_cummin(torch.where(d == -1, idx, big))
+    edge = x.shape[:-1] + (1,)
+    last_pos = torch.cat([last_pos.new_full(edge, -1), last_pos], dim=-1)
+    last_neg = torch.cat([last_neg.new_full(edge, -1), last_neg], dim=-1)
+    next_pos = torch.cat([next_pos, next_pos.new_full(edge, T)], dim=-1)
+    next_neg = torch.cat([next_neg, next_neg.new_full(edge, T)], dim=-1)
+    p = torch.arange(T, dtype=torch.int32, device=x.device)
+    mid = torch.div(last_pos + 1 + next_neg, 2, rounding_mode="floor")
+    return (last_pos > last_neg) & (next_neg < next_pos) & (p == mid)
+
+
+def find_peaks_mask(x: torch.Tensor, distance=None, max_plateau=None) -> torch.Tensor:
+    """``scipy.signal.find_peaks(x, distance=d)`` along the last axis as a
+    bool mask (JAX ``peaks.py:291-306``); ``max_plateau`` bounds the plateau
+    search (exact for continuous-valued signals)."""
+    if max_plateau is None:
+        cand = local_maxima_mask(x)
+    else:
+        cand = local_extrema_mask_bounded(x, max_plateau)[0]
+    if distance is None or distance <= 1:
+        return cand
+    return select_by_distance(cand, x, distance)

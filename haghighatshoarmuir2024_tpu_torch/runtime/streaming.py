@@ -19,7 +19,10 @@ encoder and neuron state carried on the device:
   decided samples precedes the analysis window so that suppression works
   across the seam.  Kernels K1/K2 run on the (L, B·C) analysis window and
   the decisions over ``[guard, guard + Tc)`` are kept.
-* Integer LIF: isyn/vmem/spk carried exactly through kernel K4.
+* Integer LIF: isyn/vmem/spk carried exactly through kernel K4 from the two
+  polarity masks (bipolar model), or through kernel K6 from the positive
+  plane as an int8 raster (unipolar model; JAX ``streaming.py:264-271,
+  316-328``, its TPU form).
 
 Emitted spikes lag the input by ``pending`` samples.  A single stream is a
 batch of one.
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models.xylo.sim import uniform_rec_coef
-from ..ops.cuda.lif_kernel import lif_count_stateful_bipolar, lif_params
+from ..ops.cuda.lif_kernel import lif_count_stateful, lif_count_stateful_bipolar
 from ..ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
 from ..ops.iir import iir_cumsum_blocked, iir_scan
 from ..ops.stht import stht_stream
@@ -127,7 +130,8 @@ class StreamingLocalizer:
         except ValueError:
             raise ValueError("streaming runtime supports uniform w_rec only") from None
         self.n_hidden = cfg.n_hidden
-        self._lif = lif_params(cfg, self.device, spike_bound=1)
+        self.bipolar = demo.bipolar_spikes
+        self._lif = demo.lif_params()
 
     def init_state(self, batch: int | None = None) -> StreamState:
         """Fresh state for ``batch`` concurrent streams (one when None)."""
@@ -186,18 +190,25 @@ class StreamingLocalizer:
 
     def _step(self, state: StreamState, chunks: torch.Tensor):
         """Advance all B streams by one (B, Tc, M) chunk: the new state and
-        the two decided (Tc, B, C) polarity masks."""
+        the two decided (Tc, B, C) polarity masks; a unipolar model's
+        negative mask is None."""
         B, Tc, _ = chunks.shape
         fir_tail, delay_line, iir_state, int_carry, integrated = self._encode(state, chunks.transpose(0, 1))
         analysis = torch.cat([state.pending, integrated], dim=0)  # (L, B, C), time-major
         L = analysis.shape[0]
         kp, kn = rzcc_encode_bipolar_tm(analysis.reshape(L, B * self.C), self.rw, 2 * self.rw)
         kp = kp[self.guard:self.guard + Tc].reshape(Tc, B, self.C)
-        kn = kn[self.guard:self.guard + Tc].reshape(Tc, B, self.C)
         # spike_bound=1: binary masks from a zero start state, so the
         # no-saturation proof carries across chunks
-        counts, isyn, vmem, spk = lif_count_stateful_bipolar(
-            self._lif, kp, kn, state.isyn, state.vmem, state.spk, spike_bound=1)
+        if self.bipolar:
+            kn = kn[self.guard:self.guard + Tc].reshape(Tc, B, self.C)
+            counts, isyn, vmem, spk = lif_count_stateful_bipolar(
+                self._lif, kp, kn, state.isyn, state.vmem, state.spk, spike_bound=1)
+        else:
+            kn = None
+            counts, isyn, vmem, spk = lif_count_stateful(
+                self._lif, kp.to(torch.int8), state.isyn, state.vmem, state.spk, spike_bound=1,
+                time_major=True)
         new = StreamState(
             fir_tail=fir_tail, delay_line=delay_line, iir_state=iir_state, int_carry=int_carry,
             pending=analysis[Tc:], isyn=isyn, vmem=vmem, spk=spk,
@@ -209,9 +220,10 @@ class StreamingLocalizer:
         """One chunk in, ``(new_state, decided input-spike raster)`` out.
 
         ``chunk`` is (B, Tc, M) for a ``init_state(batch=B)`` state, or
-        (Tc, M) for a single stream (a batch of one).  The raster is
-        ``[kp & ~kn, kn]`` as int8: (Tc, 2C) for a single stream, time-major
-        (Tc, B, 2C) for a batch.  ``return_spikes=False`` returns the new
+        (Tc, M) for a single stream (a batch of one).  The raster is int8,
+        ``[kp & ~kn, kn]`` (2C channels) for a bipolar model and ``kp`` (C)
+        for a unipolar one: (Tc, C') for a single stream, time-major
+        (Tc, B, C') for a batch.  ``return_spikes=False`` returns the new
         state alone (the serving loop needs only the counts)."""
         x = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
         single = x.dim() == 2
@@ -225,7 +237,7 @@ class StreamingLocalizer:
         new, kp, kn = self._step(state, x)
         if not return_spikes:
             return new
-        spikes = torch.cat([kp & ~kn, kn], dim=-1).to(torch.int8)
+        spikes = (kp if kn is None else torch.cat([kp & ~kn, kn], dim=-1)).to(torch.int8)
         return new, spikes[:, 0] if single else spikes
 
     def rate(self, state: StreamState, fold: bool = True) -> torch.Tensor:

@@ -152,9 +152,14 @@ def test_torch_demo_load_reads_jax_save(demos, tmp_path):
 
 
 def test_torch_demo_without_bundled_design_raises():
+    """A configuration with no bundled design no longer raises: the port
+    designs it (here on the CPU) and gets a finite (14, G) ``bf_0``."""
     geo = tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Demo(geometry=geo, **{**FLAGSHIP, "freq_bands": [[1000, 1300]]})
+    demo = Demo(geometry=geo, **{**FLAGSHIP, "freq_bands": [[1000, 1300]]})
+    bf = demo.bf_mats[0]
+    assert bf.shape == (14, G) and bf.dtype == np.float32 and np.isfinite(bf).all()
+    np.testing.assert_allclose(np.linalg.norm(bf, axis=0), 1.0, atol=1e-5)
+    assert demo.xylo_config.w_in.shape == (28, G) and np.abs(demo.xylo_config.w_in).max() > 0
 
 
 def test_torch_cuda_request_without_gpu_raises():

@@ -25,6 +25,7 @@ from haghighatshoarmuir2024_tpu.ops import resample as jax_resample
 from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
 from haghighatshoarmuir2024_tpu.runtime import server as jax_server
 
+import haghighatshoarmuir2024_tpu_torch as tpkg
 from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo
 from haghighatshoarmuir2024_tpu_torch.ops import mulaw, resample
 from haghighatshoarmuir2024_tpu_torch.runtime import LocalizationServer, StreamingLocalizer
@@ -131,6 +132,32 @@ def test_torch_server_streams_localize_and_match_direct(demo, wire, up):
         for c in clients.values():
             c.close()
     assert got == direct_doas(demo, 4, rounds, wire, up)
+    for s, d in doas.items():
+        assert folded_deg(got[s][-1], d) < 25.0, (s, got[s], d)
+
+
+@pytest.fixture(scope="module")
+def unipolar_demo():
+    """The same small configuration with unipolar spikes, designed by the
+    port itself."""
+    return Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
+                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 65),
+                recording_duration=0.25, kernel_duration=5e-3, bipolar_spikes=False, fs=FS)
+
+
+def test_torch_server_serves_unipolar_model(unipolar_demo):
+    """A unipolar model over the f32 wire: 2 clients x 3 chunks, every
+    answer equal to the direct streaming step (kernel K6's path)."""
+    doas = {0: 0.7, 2: -1.4}
+    sigs = {s: stream_signal(unipolar_demo, d, 3, seed=s) for s, d in doas.items()}
+    rounds = [{s: sigs[s][k * TC:(k + 1) * TC] for s in doas} for k in range(3)]
+    with LocalizationServer(unipolar_demo, max_streams=4, chunk_sec=CHUNK_SEC) as srv:
+        srv.start()
+        clients = {s: StreamClient(srv.port, s) for s in doas}
+        got = serve(srv, clients, rounds)
+        for c in clients.values():
+            c.close()
+    assert got == direct_doas(unipolar_demo, 4, rounds)
     for s, d in doas.items():
         assert folded_deg(got[s][-1], d) < 25.0, (s, got[s], d)
 

@@ -133,7 +133,8 @@ def test_torch_slice_end_to_end_counts_within_2(slice_run):
 def test_torch_port_runs_without_jax(tmp_path):
     """The port imports nothing of JAX: with ``jax`` unimportable the flagship
     forward still runs (one frame, CPU tensors), and so do the streaming
-    runtime (one chunk) and the serving module's import."""
+    runtime (one chunk), the serving module's import, and a tiny unipolar
+    model's design, calibration, ``Demo.forward`` and streaming chunk."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -153,6 +154,18 @@ def test_torch_port_runs_without_jax(tmp_path):
         sl = streaming.StreamingLocalizer(demo)
         state, spikes = sl.process_chunk(sl.init_state(), frame[:2400].float())
         assert spikes.shape == (2400, 28) and int(state.steps[0]) == 2400 and int(spikes.abs().sum()) > 0
+        # a tiny unipolar model: designed and calibrated here, then one frame
+        # through Demo.forward and one chunk through the streaming step
+        uni = Demo(geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
+                   freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 17),
+                   recording_duration=0.05, kernel_duration=5e-3, bipolar_spikes=False, fs=48_000)
+        prof = uni.calibrate_profiles()
+        assert prof.shape == (17, 17) and np.isfinite(prof).all() and np.isfinite(uni.bf_mats[0]).all()
+        udoa, urate = uni.forward(frame[:2400].float())
+        assert urate.shape == (17,) and bool(torch.isfinite(urate).all()) and float(urate.sum()) > 0
+        usl = streaming.StreamingLocalizer(uni)
+        ustate, uspikes = usl.process_chunk(usl.init_state(), frame[:2400].float())
+        assert uspikes.shape == (2400, 14) and int(uspikes.sum()) > 0 and int(ustate.counts.sum()) > 0
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
         assert not any(m.startswith("haghighatshoarmuir2024_tpu.") or m == "haghighatshoarmuir2024_tpu"
                        for m in sys.modules)
