@@ -52,10 +52,26 @@ Phases, each failing the run with a non-zero exit:
     and carried, two chunks carried = one pass, ragged T, the clip path from
     a saturated state, rec_coef = -1;
 14. unipolar streaming: 96 streams x 4 chunks: K6 launches once per chunk,
-    spikes and counts equal the plain RZCC + plain K6 steps.
+    spikes and counts equal the plain RZCC + plain K6 steps;
+15. K7 (one-plane suppression behind ``select_by_distance_tm``) and
+    ``rzcc_select_bipolar_tm`` (on K2) bit-exact against ``select_by_distance``
+    on the card: random cumsums, dense chains across tiles, exact ties,
+    ragged shapes, empty, wide windows (and the too-wide one raising), and the
+    flagship ``cs`` maxima, where K7's kept mask must equal
+    ``rzcc_encode_bipolar_tm``'s ``kept_pos`` and ``rzcc_select_bipolar_tm``
+    both of its outputs; the K7 launches of one ``select_by_distance_tm`` call
+    on the flagship maxima are counted;
+16. the roofline probes: P1 and P2 bit-exact against their plain versions at
+    small sizes, P3's counts equal to K3's at the flagship (k = 2, 4) and
+    on a ragged case;
+17. one short run of the roofline harness's measurements
+    (``haghighatshoarmuir2024_tpu_torch.experiments.roofline``): P1's and
+    P2's ceilings beside the guide's peaks, P1 at K3's launch shape, P3 at
+    k = 2 and 4 against K3; every kernel's bound and share of it.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The kernels line (one JSON object with one entry per kernel, each with its
+bound) comes third from last, then the card's name and power limit, then the
+last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -76,6 +92,9 @@ SEED = 0
 # and calibration with use_cache=False).  The card's design and JAX's differ
 # in float rounding, so the gate allows one frame less.
 JAX_UNIPOLAR_OK = 96
+# blocking single-stream and single-frame calls timed per latency reading;
+# they are host-bound and spread by about a millisecond
+LATENCY_SAMPLES = 10
 
 
 def fail(msg: str):
@@ -410,7 +429,7 @@ def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doa
     s1 = sl.process_chunk(sl.init_state(), frames[0], return_spikes=False)
     torch.cuda.synchronize()
     lat = []
-    for _ in range(10):
+    for _ in range(LATENCY_SAMPLES):
         t1 = time.perf_counter()
         s1 = sl.process_chunk(s1, frames[0], return_spikes=False)
         torch.cuda.synchronize()
@@ -627,7 +646,7 @@ def check_k5(torch, lk, XyloConfig, dev, ucfg, u_spikes, bcfg, b_spikes):
 
 
 # ------------------------------------------------------------------ phase 12
-def check_forward(torch, _build, demos, frames, n=10):
+def check_forward(torch, _build, demos, frames, n=LATENCY_SAMPLES):
     """``Demo.forward`` frame by frame: one K5 launch each, the rate equal to
     the batch forward's row; blocking single-frame latency."""
     out = {}
@@ -746,6 +765,202 @@ def check_streaming_unipolar(torch, sk, lk, _build, StreamingLocalizer, udemo, f
     return launches, dict(step_ms=(time.perf_counter() - t1) / 20 * 1e3, ok=ok)
 
 
+# ------------------------------------------------------------------ phase 15
+def check_k7(torch, sk, peaks, _build, dev, flagship_cs, flagship_kept):
+    """K7 through ``select_by_distance_tm`` and ``rzcc_select_bipolar_tm``
+    (K2) against the plain ``select_by_distance`` on the card."""
+    rng = np.random.default_rng(SEED + 15)
+    n_cases = 0
+
+    def case(cand_rt, h_rt, d, label):
+        nonlocal n_cases
+        cand = torch.as_tensor(np.ascontiguousarray(cand_rt.T), device=dev)
+        h = torch.as_tensor(np.ascontiguousarray(h_rt.T), device=dev)
+        got = sk.select_by_distance_tm(cand, h, d)
+        ref = sk.select_by_distance_tm_plain(cand, h, d)
+        torch.cuda.synchronize()
+        bad = mismatches(got, ref)
+        if bad:
+            fail(f"K7 {label} d={d}: {bad} elements differ from select_by_distance")
+        n_cases += 1
+
+    def bipolar_case(cs_rt, d, W, label):
+        nonlocal n_cases
+        cs_tm = torch.as_tensor(np.ascontiguousarray(cs_rt.T), device=dev)
+        maxima, minima = (m.T.contiguous() for m in peaks.local_extrema_mask_bounded(cs_tm.T, W))
+        got = sk.rzcc_select_bipolar_tm(cs_tm, maxima, minima, d)
+        ref = sk.rzcc_select_bipolar_tm_plain(cs_tm, maxima, minima, d)
+        torch.cuda.synchronize()
+        bad = mismatches(got[0], ref[0]) + mismatches(got[1], ref[1])
+        if bad:
+            fail(f"rzcc_select_bipolar_tm {label} d={d}: {bad} elements differ from select_by_distance")
+        n_cases += 1
+
+    # the case families of tests/test_pallas_suppress.py
+    for _ in range(3):
+        x = np.cumsum(rng.standard_normal((5, 400)).astype(np.float32), axis=-1)
+        cand = peaks.local_maxima_mask(torch.as_tensor(x)).numpy()
+        for d in (1, 3, 7, 12):
+            case(cand, x, d, "random cumsum")
+    dense = rng.standard_normal((3, 257)).astype(np.float32)
+    for d in (2, 5, 11):
+        case(np.ones_like(dense, bool), dense, d, "dense chains")
+    long_dense = rng.standard_normal((5, 3000)).astype(np.float32)
+    for d in (11, 40):
+        case(np.ones_like(long_dense, bool), long_dense, d, "dense chains across tiles")
+    h = np.zeros((1, 64), np.float32)
+    cand = np.zeros((1, 64), bool)
+    h[0, [10, 15, 40, 45, 50]] = 1.0
+    cand[0, [10, 15, 40, 45, 50]] = True
+    for d in (6, 11, 40):
+        case(cand, h, d, "exact ties")
+    ragged = np.cumsum(rng.standard_normal((9, 203)).astype(np.float32), axis=-1)
+    case(peaks.local_maxima_mask(torch.as_tensor(ragged)).numpy(), ragged, 5, "ragged")
+    case(np.zeros((1, 100), bool), np.linspace(0, 1, 100, dtype=np.float32)[None, :], 5, "empty")
+    # wide windows: the widest the shared memory takes, and one past it
+    t = np.arange(4000, dtype=np.float32)
+    drift = np.cumsum(np.sin(2 * np.pi * t / 900.0)[None, :]
+                      + 0.3 * rng.standard_normal((3, 4000)).astype(np.float32), axis=-1)
+    drift_max = peaks.local_maxima_mask(torch.as_tensor(drift)).numpy()
+    for d in (24, 80, 120):
+        case(drift_max, drift, d, "wide window")
+    try:
+        sk.select_by_distance_tm(torch.as_tensor(drift_max.T.copy(), device=dev),
+                                 torch.as_tensor(drift.T.copy(), device=dev), 200)
+        fail("K7: a window too wide for shared memory did not raise")
+    except ValueError:
+        pass
+    inf_h = drift.copy()
+    inf_h[0, np.flatnonzero(drift_max[0])[0]] = -np.inf
+    try:
+        sk.select_by_distance_tm(torch.as_tensor(drift_max.T.copy(), device=dev),
+                                 torch.as_tensor(inf_h.T.copy(), device=dev), 12)
+        fail("K7: a candidate with a non-finite height did not raise")
+    except ValueError:
+        pass
+    for d, W in ((3, 6), (7, 14), (12, 24)):
+        bipolar_case(np.cumsum(rng.standard_normal((6, 500)).astype(np.float32), axis=-1), d, W, "random")
+    bipolar_case(drift, 80, 24, "wide window")
+
+    # the flagship cs: maxima with heights cs; the main path of K7 is one
+    # select_by_distance_tm call
+    T, R = flagship_cs.shape
+    w, W = sk._windows(12, 24)
+    maxima, minima = (m.T.contiguous() for m in peaks.local_extrema_mask_bounded(flagship_cs.T, W))
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    kept = sk.select_by_distance_tm(maxima, flagship_cs, 12)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches.get("suppress_k7", 0) < 1 or set(launches) != {"suppress_k7"}:
+        fail(f"select_by_distance_tm on the flagship launched {launches}; expected K7 only")
+    bad = mismatches(kept, flagship_kept[0])
+    kp, kn = sk.rzcc_select_bipolar_tm(flagship_cs, maxima, minima, 12)
+    bad_b = mismatches(kp, flagship_kept[0]) + mismatches(kn, flagship_kept[1])
+    if bad or bad_b:
+        fail(f"flagship cs: K7 kept differs from rzcc_encode_bipolar_tm's kept_pos in {bad} elements, "
+             f"rzcc_select_bipolar_tm from its outputs in {bad_b}")
+    # one K7 launch (round 1 from the maxima) against one plain round
+    act1, kept1 = maxima, torch.zeros_like(maxima)
+    act2, _ = sk.suppress_k7(flagship_cs, act1, kept1, w)
+    ref_act, ref_kept = sk._k7_plain(flagship_cs, act1, torch.zeros_like(maxima), w)
+    launch_bad = mismatches(act2, ref_act) + mismatches(kept1, ref_kept)
+    if launch_bad:
+        fail(f"flagship cs: one K7 launch differs from one plain round in {launch_bad} elements")
+    n_cases += 1
+    print(f"[K7] {n_cases} cases bit-exact vs plain select_by_distance (random cumsums, dense chains, exact ties, "
+          f"ragged, empty, windows up to d = 120; d = 200 and a -inf candidate height raise); flagship maxima "
+          f"{T}x{R}: launches {launches}, kept == rzcc_encode_bipolar_tm's kept_pos, rzcc_select_bipolar_tm "
+          "== both outputs", flush=True)
+    ms = timed_ms(torch, lambda: sk.suppress_k7(flagship_cs, maxima, kept1, w), 20)
+    plain_ms = timed_ms(torch, lambda: sk._k7_plain(flagship_cs, maxima, ref_kept, w), 5)
+    call_ms = timed_ms(torch, lambda: sk.select_by_distance_tm(maxima, flagship_cs, 12), 20)
+    call_plain_ms = timed_ms(torch, lambda: sk.select_by_distance_tm_plain(maxima, flagship_cs, 12), 5)
+    return launches, dict(max_abs_err=float(launch_bad), ms=ms, plain_ms=plain_ms,
+                          call_ms=call_ms, call_plain_ms=call_plain_ms)
+
+
+# ------------------------------------------------------------------ phase 16
+def check_probes(torch, rk, lk, dev, flagship_config, flagship_masks):
+    """P1 and P2 against their plain versions at small sizes; P3 against K3.
+    The harness (phase 17) holds P1 and P2 again at the shapes it times."""
+    rng = np.random.default_rng(SEED + 16)
+    n_cases = 0
+    for shape, iters, ilp, threads, blocks in (((8, 512), 64, 1, 256, None), ((8, 512), 64, 2, 128, None),
+                                              ((3, 1000), 100, 4, 64, None), ((4096,), 37, 8, 128, 5),
+                                              ((5000,), 20, 1, 64, 200)):
+        x = torch.as_tensor(rng.integers(-1000, 1000, size=shape).astype(np.int32), device=dev)
+        got = rk.lif_peak(x, iters, ilp, threads, blocks)
+        torch.cuda.synchronize()
+        bad = mismatches(got, rk.lif_peak_plain(x, iters))
+        if bad:
+            fail(f"P1 {shape} iters={iters} ilp={ilp}: {bad} elements differ from the plain version")
+        n_cases += 1
+    for nb, w, rep in ((3, 5, 2), (2, 1, 3), (2, 11, 3), (1, 24, 2), (2, 40, 1)):
+        x = torch.as_tensor(rng.standard_normal((nb, rk.P2_TBE, rk.P2_ROWS)).astype(np.float32), device=dev)
+        got = rk.shiftmax(x, w, rep)
+        torch.cuda.synchronize()
+        bad = mismatches(got.view(torch.int32), rk.shiftmax_plain(x, w, rep).view(torch.int32))
+        if bad:
+            fail(f"P2 {tuple(x.shape)} w={w} rep={rep}: {bad} elements differ from the plain version")
+        n_cases += 1
+    kp, kn = flagship_masks
+    ref = lk.lif_count_rates_bipolar(flagship_config, kp, kn, spike_bound=1)
+    for k in (2, 4):
+        bad = mismatches(rk.lif_count_kstep(flagship_config, kp, kn, k), ref)
+        if bad:
+            fail(f"P3 k={k}: {bad} flagship counts differ from K3's")
+        n_cases += 1
+    r = np.random.default_rng(SEED + 161)
+    rkp = torch.as_tensor(r.random((1001, 3, 14)) < 0.05, device=dev)
+    rkn = torch.as_tensor(r.random((1001, 3, 14)) < 0.05, device=dev)
+    ref = lk.lif_count_plain(flagship_config, rkp, rkn)
+    bad = mismatches(rk.lif_count_kstep(flagship_config, rkp, rkn, 4), ref)
+    if bad or int(ref.sum()) == 0:
+        fail(f"P3 ragged T=1001 B=3: {bad} counts differ from the plain simulator (sum {int(ref.sum())})")
+    n_cases += 1
+    print(f"[probes] {n_cases} cases: P1 and P2 bit-exact vs their plain versions (ILP 1-8, ragged launches, "
+          "w 1-40); P3 counts == K3's on the flagship masks (k = 2, 4) and == the plain "
+          "simulator on ragged T", flush=True)
+
+
+# ------------------------------------------------------------------ phase 17
+def run_roofline(torch, roofline, _build, flagship_config, flagship_masks, w, card):
+    """The harness's ceilings and P3 against K3, short: P1 and P2 held
+    bit-exact against their plain versions at the shapes timed, P3's counts
+    against K3's; the probes' launch counts are read from this run."""
+    kp, kn = flagship_masks
+    T, B, _ = kp.shape
+    N = np.asarray(flagship_config.w_in).shape[1]
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    ceil = roofline.ceilings(reps=3, k3_shape=(-(-N // roofline.K3_THREADS) * B, T), w=w)
+    p3 = roofline.p3_against_k3(flagship_config, kp, kn, reps=10)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    for name in ("probe_p1", "probe_p2", "probe_p3"):
+        if launches.get(name, 0) < 1:
+            fail(f"the roofline run never launched {name} (launch counts {launches})")
+    g, p1, p2 = ceil["guide"], ceil["p1"], ceil["p2"]
+    b, k3s = p1["best"], p1["k3_shape"]
+    if b["mismatches"] or p2["mismatches"] or p3["k2_max_abs_err"] or p3["k4_max_abs_err"]:
+        fail(f"the harness's shapes: P1 differs from its plain version in {b['mismatches']} elements, P2 in "
+             f"{p2['mismatches']}; P3's counts from K3's by up to {p3['k2_max_abs_err']} (k=2), "
+             f"{p3['k4_max_abs_err']} (k=4)")
+    tag = f"[roofline] [{card}]"
+    print(f"{tag} guide peaks ({g['sms']} SMs at {g['sm_clock_mhz']:.0f} MHz): int32 "
+          f"{g['int32_ops_per_s'] / 1e12:.3f} Tops/s, compares {g['compares_per_s'] / 1e12:.3f} T/s")
+    print(f"{tag} P1 ceiling {b['ops_per_s'] / 1e12:.3f} Tops/s (10 nominal per step; ILP {b['ilp']}, "
+          f"{b['blocks']} x {b['threads']} threads, {b['iters']} steps, {b['ms']:.3f} ms; bit-exact vs plain); "
+          f"at K3's launch shape ({k3s['blocks']} x {k3s['threads']}, one chain each, {k3s['iters']} steps) "
+          f"{k3s['ops_per_s'] / 1e12:.3f} Tops/s in {k3s['ms']:.3f} ms")
+    print(f"{tag} P2 executes {p2['compares_per_s'] / 1e12:.3f} T compares/s (w={p2['w']}, TBe={p2['tbe']}, "
+          f"rep={p2['rep']}, {p2['blocks']} blocks, {p2['ms']:.3f} ms; bit-exact vs plain)")
+    print(f"{tag} P3 vs K3 at the flagship: k=2 {p3['k2_ms']:.3f} ms, k=4 {p3['k4_ms']:.3f} ms, K3 "
+          f"{p3['k3_ms']:.3f} ms (counts exact)", flush=True)
+    return launches, dict(ceil=ceil, p3=p3)
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     try:
@@ -782,35 +997,22 @@ def main() -> int:
     for ln in ptxas:
         print(f"[build] {ln}")
 
-    from haghighatshoarmuir2024_tpu_torch import CenterCircularArray
     from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import FRAME, GRID, flagship_config, flagship_frames
     from haghighatshoarmuir2024_tpu_torch.ops import peaks
+    from haghighatshoarmuir2024_tpu_torch.experiments import roofline
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import roofline_kernel as rk
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import suppress_kernel as sk
     from haghighatshoarmuir2024_tpu_torch.ops import mulaw, resample
-    from haghighatshoarmuir2024_tpu_torch.ops.interp import signal_from_template
     from haghighatshoarmuir2024_tpu_torch.runtime import StreamingLocalizer, server
 
     # the flagship: bench.py's config and frames
-    fs, frame, B, G = 48_000, 0.25, 96, 64 * 7 + 1
-    flagship = dict(
-        geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
-        freq_bands=[[1600, 1900]],
-        doa_list=np.linspace(-np.pi, np.pi, G),
-        recording_duration=frame,
-        kernel_duration=10e-3,
-        bipolar_spikes=True,
-        fs=fs,
-        device=dev,
-    )
+    frame, B, G = FRAME, 96, GRID
+    flagship = flagship_config(dev)
     demo = Demo(**flagship)  # the bundled design
     demo.calibrate_profiles()  # the bundled table
-    t = torch.arange(0, frame, 1 / fs, dtype=torch.float64, device=dev)
-    sig = torch.sin(2 * np.pi * 1750 * t)
-    doas = np.linspace(-np.pi, np.pi, B, endpoint=False)
-    frames = torch.stack([signal_from_template(demo.geometry, t, sig, d, fs=fs) for d in doas])
-    noise = 0.1 * np.random.default_rng(SEED).standard_normal(tuple(frames.shape)).astype(np.float32)
-    frames = frames.to(torch.float32) + torch.as_tensor(noise, device=dev)
+    frames, doas = flagship_frames(demo, B, seed=SEED)
     T = frames.shape[1]
 
     cs = demo.encode(frames)  # (T, B, C)
@@ -873,6 +1075,13 @@ def main() -> int:
     ustream_launches, ustream = check_streaming_unipolar(torch, sk, lk, _build, StreamingLocalizer, udemo,
                                                          frames, doas)
 
+    # ---- phases 15-17: K7, the roofline probes, the harness's measurements
+    k7_launches, k7 = check_k7(torch, sk, peaks, _build, dev, cs.reshape(T, B * C),
+                               (kp.reshape(T, B * C), kn.reshape(T, B * C)))
+    check_probes(torch, rk, lk, dev, demo.xylo_config, (kp, kn))
+    w, W = sk._windows(demo.robust_width, 2 * demo.robust_width)
+    rf_launches, rf = run_roofline(torch, roofline, _build, demo.xylo_config, (kp, kn), w, card)
+
     # stage and end-to-end times
     stage_ms = {
         "encode": timed_ms(torch, lambda: demo.encode(frames), 10),
@@ -899,13 +1108,16 @@ def main() -> int:
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
     print(f"{tag} rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
-    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif), ("K4", lif4), ("K5", k5), ("K6", k6)):
+    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif), ("K4", lif4), ("K5", k5), ("K6", k6),
+                    ("K7", k7)):
         print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms")
+    print(f"{tag} select_by_distance_tm on the flagship maxima ({k7_launches['suppress_k7']} K7 launches): "
+          f"{k7['call_ms']:.3f} ms vs plain {k7['call_plain_ms']:.3f} ms")
     print(f"{tag} forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
           f"{B * frame / (batch_ms / 1e3):.1f} audio-sec/sec", flush=True)
     print(f"{tag} streaming step {stream['step_ms']:.3f} ms per {B} streams x {frame} s chunk = "
           f"{B * frame / (stream['step_ms'] / 1e3):.1f} serving audio-sec/sec; single-stream latency "
-          f"{stream['latency_ms']:.3f} ms (median of 10, max {stream['latency_max_ms']:.3f} ms)")
+          f"{stream['latency_ms']:.3f} ms (median of {LATENCY_SAMPLES}, max {stream['latency_max_ms']:.3f} ms)")
     print(f"{tag} design on the card: bipolar flagship {design['design_s']:.3f} s, unipolar flagship "
           f"{uni['design_s']:.3f} s; calibration (449 DoAs through forward_batch): bipolar "
           f"{design['calib_s']:.3f} s, unipolar {uni['calib_s']:.3f} s")
@@ -914,12 +1126,28 @@ def main() -> int:
           f"{ustream['step_ms']:.3f} ms per {B} streams")
     for name, r in fwd.items():
         print(f"{tag} Demo.forward ({name}) single-frame latency {r['latency_ms']:.3f} ms "
-              f"(median of 10, max {r['latency_max_ms']:.3f} ms)")
+              f"(median of {LATENCY_SAMPLES}, max {r['latency_max_ms']:.3f} ms)")
     for wire, r in serve.items():
         print(f"{tag} serve step ({wire} wire, {r['steps']} steps after the first round): "
               f"device {r['device_ms']:.3f} ms, "
               f"wait {r['wait_ms']:.3f} ms, route {r['route_ms']:.3f} ms per step", flush=True)
 
+    # every kernel's bound, from the harness's one table of what each kernel
+    # is counted for: its least operations over the higher of the probe's
+    # rate and the guide's peak, or its bytes over 3.35 TB/s, whichever is
+    # larger
+    ceil, p3 = rf["ceil"], rf["p3"]
+    p1b, p2c = ceil["p1"]["best"], ceil["p2"]
+    N = np.asarray(demo.xylo_config.w_in).shape[1]
+    work = roofline.flagship_work(cs.reshape(T, B * C), w, W, kp, kn, u_spikes, N, p1b, p2c)
+    bounds = roofline.bounds(work, ceil["peaks"])
+    probe_res = {
+        "probe_p1": dict(max_abs_err=p1b["max_abs_err"], ms=p1b["ms"], plain_ms=p1b["plain_ms"]),
+        "probe_p2": dict(max_abs_err=p2c["max_abs_err"], ms=p2c["ms"], plain_ms=p2c["plain_ms"]),
+        "probe_p3": dict(max_abs_err=float(p3["k4_max_abs_err"]), ms=p3["k4_ms"], plain_ms=lif["plain_ms"]),
+    }
+
+    noun = {"compares": "compares", "int32": "int32 ops"}
     kernels = []
     for name, src, repl, key, res in (
         ("rzcc_k1", "haghighatshoarmuir2024_tpu_torch/csrc/suppress.cu",
@@ -934,14 +1162,29 @@ def main() -> int:
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:76", "lif_k5", k5),
         ("lif_k6", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:666", "lif_k6", k6),
+        ("suppress_k7", "haghighatshoarmuir2024_tpu_torch/csrc/suppress.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:124", "suppress_k7", k7),
+        ("probe_p1", "haghighatshoarmuir2024_tpu_torch/csrc/roofline.cu",
+         "experiments/vpu_roofline.py:77", "probe_p1", probe_res["probe_p1"]),
+        ("probe_p2", "haghighatshoarmuir2024_tpu_torch/csrc/roofline.cu",
+         "experiments/vpu_roofline.py:163", "probe_p2", probe_res["probe_p2"]),
+        ("probe_p3", "haghighatshoarmuir2024_tpu_torch/csrc/roofline.cu",
+         "experiments/vpu_roofline.py:226", "probe_p3", probe_res["probe_p3"]),
     ):
         # launches: K1-K3 from the bipolar forward_batch run, K4 from the
         # bipolar streaming run, K5 from the unipolar forward_batch run, K6
-        # from the unipolar streaming run
-        path = {"lif_k4": stream_launches, "lif_k5": uni["launches"], "lif_k6": ustream_launches}.get(key, launches)
+        # from the unipolar streaming run, K7 from one select_by_distance_tm
+        # call, P1-P3 from the roofline run
+        path = {"lif_k4": stream_launches, "lif_k5": uni["launches"], "lif_k6": ustream_launches,
+                "suppress_k7": k7_launches}.get(key, rf_launches if key.startswith("probe") else launches)
+        (ops, nbytes), (bound_ms, bound_by) = work[key], bounds[key]
+        print(f"{tag} bound {name}: {res['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}: "
+              f"{ops:.4g} {noun[roofline.UNIT[key]]}, {nbytes:.4g} bytes); the bound is "
+              f"{100 * bound_ms / res['ms']:.1f} % of the kernel's time")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
-                        "ms": res["ms"], "plain_ms": res["plain_ms"]})
+                        "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,10 @@ each counterpart is easy to find.  Plain tensor code is PyTorch; every
 Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
 (``sm_90a``) under ``csrc/``, built by ``nvcc`` at first use
 (``ops/cuda/_build.py``).  On CPU tensors each kernel wrapper runs its plain
-PyTorch version; on CUDA tensors it launches its kernel or raises.
+PyTorch version; on CUDA tensors it launches its kernel or raises.  The
+entry points (``Demo``, ``Demo.load``, ``SNNBeamformer``,
+``StreamState.from_numpy``) run on the card unless the caller passes
+``device="cpu"``; without a GPU the default raises.
 
 Ported so far:
 
@@ -19,7 +22,11 @@ Ported so far:
 - the streaming runtime ``runtime.StreamingLocalizer`` (carried-state chunks
   of B streams: K1, K2 and the stateful LIF kernel K4, or K6 for a unipolar
   model) and the serving daemon ``runtime.LocalizationServer`` over the
-  native ingestion daemon ``native/streamd.cpp``.
+  native ingestion daemon ``native/streamd.cpp``;
+- the time-major suppression ops ``ops.cuda.suppress_kernel.select_by_distance_tm``
+  (kernel K7) and ``rzcc_select_bipolar_tm`` (K2);
+- the Hopper roofline harness ``experiments.roofline`` with its probes P1–P3
+  (``ops.cuda.roofline_kernel``).
 """
 
 __version__ = "0.1.0"

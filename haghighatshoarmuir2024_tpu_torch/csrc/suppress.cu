@@ -1,4 +1,5 @@
-// Fused bipolar RZCC spike extraction for Hopper (sm_90a): kernels K1 and K2.
+// Fused bipolar RZCC spike extraction and greedy distance suppression for
+// Hopper (sm_90a): kernels K1, K2 and K7.
 //
 // Replaces the Pallas kernels of haghighatshoarmuir2024_tpu/ops/pallas/
 // suppress_kernel.py:
@@ -9,6 +10,11 @@
 //                  polarities given the active masks.  Its first launch is the
 //                  TPU kernel's fused round 2 (:467-481); the caller repeats it
 //                  until every per-tile flag is 0 (:537-547).
+//   K7 suppress_k7 <- _round_kernel (:124): one suppression round of one
+//                  polarity with the heights as their own input (the public
+//                  op select_by_distance_tm, :687); K2's body with the
+//                  negative plane compiled out, repeated by the caller until
+//                  every flag is 0 (:235-245).
 //
 // Semantics (ops/peaks.py of either package): d = sign(cs[t+1] - cs[t]);
 // the nearest boundary within W before t and at/after t decides rise/fall;
@@ -16,7 +22,8 @@
 // a window-max if its height equals the max of the active heights in
 // [t-w, t+w]; among window-maxima the rightmost wins (no window-max strictly
 // to its right within w); winners are kept and clear their window.  Heights
-// of the negative polarity are -cs.  Inputs are finite.
+// of the negative polarity are -cs.  Heights at candidates are finite (the
+// wrappers reject others).
 //
 // Layout: time-major (T, R), R contiguous.  A block owns RB = 32 rows (one
 // warp across neighbouring rows, so every global access is coalesced) and a
@@ -170,11 +177,20 @@ __global__ void rzcc_k1_kernel(const float* __restrict__ cs, uint8_t* __restrict
   }
 }
 
-__global__ void rzcc_k2_kernel(const float* __restrict__ cs, const uint8_t* __restrict__ act_p_in,
-                               const uint8_t* __restrict__ act_n_in, uint8_t* __restrict__ act_p_out,
-                               uint8_t* __restrict__ act_n_out, uint8_t* __restrict__ kept_p,
-                               uint8_t* __restrict__ kept_n, int* __restrict__ flags, int T, int R,
-                               int w, int M, int TB) {
+// One suppression round per polarity given the active masks, at most one
+// launch per round: the body of K2 (both polarities, heights +-cs) and K7
+// (one polarity, heights as given).  Tiles with no candidate within their
+// halo exit after reading the masks.  kept is updated in place: only this
+// tile reads or writes its centre.
+template <bool BIPOLAR>
+__device__ __forceinline__ void round_body(const float* __restrict__ h,
+                                           const uint8_t* __restrict__ act_p_in,
+                                           const uint8_t* __restrict__ act_n_in,
+                                           uint8_t* __restrict__ act_p_out,
+                                           uint8_t* __restrict__ act_n_out,
+                                           uint8_t* __restrict__ kept_p,
+                                           uint8_t* __restrict__ kept_n, int* __restrict__ flags,
+                                           int T, int R, int w, int M, int TB) {
   extern __shared__ unsigned char smem[];
   const Tile s = carve(smem, TB + 2 * M);
   const int tx = threadIdx.x;
@@ -187,7 +203,7 @@ __global__ void rzcc_k2_kernel(const float* __restrict__ cs, const uint8_t* __re
     const long long g = base + t;
     uint8_t f = 0;
     if (g >= 0 && g < T && r < R)
-      f = (act_p_in[g * R + r] ? ACT_P : 0) | (act_n_in[g * R + r] ? ACT_N : 0);
+      f = (act_p_in[g * R + r] ? ACT_P : 0) | ((BIPOLAR && act_n_in[g * R + r]) ? ACT_N : 0);
     s.f[t * RB + tx] = f;
     any |= f;
   }
@@ -197,7 +213,7 @@ __global__ void rzcc_k2_kernel(const float* __restrict__ cs, const uint8_t* __re
       const long long g = base + t;
       if (g < T && r < R) {
         act_p_out[g * R + r] = 0;
-        act_n_out[g * R + r] = 0;
+        if (BIPOLAR) act_n_out[g * R + r] = 0;
       }
     }
     if (tx == 0 && threadIdx.y == 0) flags[flag_idx] = 0;
@@ -205,12 +221,12 @@ __global__ void rzcc_k2_kernel(const float* __restrict__ cs, const uint8_t* __re
   }
   for (int t = threadIdx.y; t < s.TBe; t += TY) {
     const long long g = base + t;
-    s.h[t * RB + tx] = (g >= 0 && g < T && r < R) ? cs[g * R + r] : 0.0f;
+    s.h[t * RB + tx] = (g >= 0 && g < T && r < R) ? h[g * R + r] : 0.0f;
   }
   __syncthreads();
 
   suppression_round(s, w, 1.0f, ACT_P, KEPT_P);
-  suppression_round(s, w, -1.0f, ACT_N, KEPT_N);
+  if (BIPOLAR) suppression_round(s, w, -1.0f, ACT_N, KEPT_N);
 
   int remaining = 0;
   for (int t = M + threadIdx.y; t < M + TB; t += TY) {
@@ -218,15 +234,30 @@ __global__ void rzcc_k2_kernel(const float* __restrict__ cs, const uint8_t* __re
     if (g < T && r < R) {
       const uint8_t f = s.f[t * RB + tx];
       act_p_out[g * R + r] = (f & ACT_P) != 0;
-      act_n_out[g * R + r] = (f & ACT_N) != 0;
-      // kept is updated in place: only this tile reads or writes its centre
+      if (BIPOLAR) act_n_out[g * R + r] = (f & ACT_N) != 0;
       if (f & KEPT_P) kept_p[g * R + r] = 1;
-      if (f & KEPT_N) kept_n[g * R + r] = 1;
+      if (BIPOLAR && (f & KEPT_N)) kept_n[g * R + r] = 1;
       remaining |= f & (ACT_P | ACT_N);
     }
   }
   remaining = __syncthreads_or(remaining);
   if (tx == 0 && threadIdx.y == 0) flags[flag_idx] = remaining != 0;
+}
+
+__global__ void rzcc_k2_kernel(const float* __restrict__ cs, const uint8_t* __restrict__ act_p_in,
+                               const uint8_t* __restrict__ act_n_in, uint8_t* __restrict__ act_p_out,
+                               uint8_t* __restrict__ act_n_out, uint8_t* __restrict__ kept_p,
+                               uint8_t* __restrict__ kept_n, int* __restrict__ flags, int T, int R,
+                               int w, int M, int TB) {
+  round_body<true>(cs, act_p_in, act_n_in, act_p_out, act_n_out, kept_p, kept_n, flags, T, R, w, M,
+                   TB);
+}
+
+__global__ void suppress_k7_kernel(const float* __restrict__ height,
+                                   const uint8_t* __restrict__ act_in, uint8_t* __restrict__ act_out,
+                                   uint8_t* __restrict__ kept, int* __restrict__ flags, int T, int R,
+                                   int w, int M, int TB) {
+  round_body<false>(height, act_in, nullptr, act_out, nullptr, kept, nullptr, flags, T, R, w, M, TB);
 }
 
 size_t smem_bytes(int TB, int M) { return (size_t)(TB + 2 * M) * RB * (sizeof(float) + 3); }
@@ -235,7 +266,7 @@ size_t smem_bytes(int TB, int M) { return (size_t)(TB + 2 * M) * RB * (sizeof(fl
 
 extern "C" {
 
-// Shared memory a launch of either kernel needs, for the wrapper's checks.
+// Shared memory a launch of any of the three kernels needs, for the wrapper's checks.
 size_t hm_rzcc_smem_bytes(int TB, int M) { return smem_bytes(TB, M); }
 
 int hm_rzcc_rows_per_block() { return RB; }
@@ -262,6 +293,18 @@ int hm_rzcc_k2(const float* cs, const uint8_t* act_p_in, const uint8_t* act_n_in
   const dim3 grid((R + RB - 1) / RB, (T + TB - 1) / TB);
   rzcc_k2_kernel<<<grid, dim3(RB, TY), smem, (cudaStream_t)stream>>>(
       cs, act_p_in, act_n_in, act_p_out, act_n_out, kept_p, kept_n, flags, T, R, w, M, TB);
+  return (int)cudaGetLastError();
+}
+
+int hm_suppress_k7(const float* height, const uint8_t* act_in, uint8_t* act_out, uint8_t* kept,
+                   int* flags, int T, int R, int w, int M, int TB, void* stream) {
+  const size_t smem = smem_bytes(TB, M);
+  cudaError_t err = cudaFuncSetAttribute(suppress_k7_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + RB - 1) / RB, (T + TB - 1) / TB);
+  suppress_k7_kernel<<<grid, dim3(RB, TY), smem, (cudaStream_t)stream>>>(height, act_in, act_out,
+                                                                          kept, flags, T, R, w, M, TB);
   return (int)cudaGetLastError();
 }
 

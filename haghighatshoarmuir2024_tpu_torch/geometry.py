@@ -13,10 +13,11 @@ import torch
 from .config import SOUND_SPEED_IN_OPEN_AIR
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; asking for CUDA without a usable GPU
-    raises instead of carrying on on the CPU."""
-    dev = torch.device(device)
+def resolve_device(device=None) -> torch.device:
+    """``torch.device`` for ``device``, the card (``"cuda"``) when None: the
+    port runs on the GPU unless the caller asks for ``"cpu"``.  Asking for
+    CUDA without a usable GPU raises instead of carrying on on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} requested but no CUDA device is available")
     return dev

@@ -32,7 +32,8 @@ from ..ops.stht import stht, stht_kernel
 
 class SNNBeamformer:
     """SNN beamformer with RZCC spike input (micloc/snn_beamformer.py:24-422),
-    computing on ``device``."""
+    computing on ``device``: the card by default, the CPU with
+    ``device="cpu"``."""
 
     def __init__(
         self,
@@ -43,7 +44,7 @@ class SNNBeamformer:
         bipolar_spikes: bool = False,
         fs: float = FS,
         design_chunk: int = 32,
-        device="cpu",
+        device=None,
     ):
         self.geometry = geometry
         self.fs = fs
@@ -70,7 +71,7 @@ class SNNBeamformer:
                                                     bipolar=self.bipolar_spikes)
 
     @classmethod
-    def from_config(cls, config, geometry: ArrayGeometry, device="cpu"):
+    def from_config(cls, config, geometry: ArrayGeometry, device=None):
         """From an object with the fields of the JAX package's
         ``SNNBeamformerConfig`` (``config.py``)."""
         return cls(

@@ -51,9 +51,11 @@ class Demo:
     unipolar.
 
     The constructor has the JAX signature plus ``device``, where the design
-    runs and the tensors live.  ``use_cache=True`` takes the design bundled
-    with the JAX package for this configuration where there is one; anything
-    else is designed (a writable on-disk design cache is not ported).
+    runs and the tensors live: the card (``"cuda"``) by default, the CPU only
+    with ``device="cpu"``; without a GPU the default raises.
+    ``use_cache=True`` takes the design bundled with the JAX package for this
+    configuration where there is one; anything else is designed (a writable
+    on-disk design cache is not ported).
     """
 
     def __init__(
@@ -70,7 +72,7 @@ class Demo:
         design_chunk: int = 32,
         use_cache: bool = True,
         enforce_hw_limits: bool = True,
-        device="cpu",
+        device=None,
     ):
         self.geometry = geometry
         self.freq_bands = np.atleast_2d(np.asarray(freq_bands, dtype=np.float64))
@@ -193,10 +195,12 @@ class Demo:
         np.savez(path, **arrays)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "Demo":
+    def load(cls, path: str, device=None) -> "Demo":
         """A Demo from the ``.npz`` that either package's ``Demo.save`` writes
         (JAX ``pipeline.py:502-561``): geometry, ``bf_i``, the quantized
-        config's integers and the profiles, restored verbatim."""
+        config's integers and the profiles, restored verbatim, on ``device``
+        (the card unless ``"cpu"`` is asked for)."""
+        device = resolve_device(device)
         z = np.load(path, allow_pickle=False)
         rec_dur, ker_dur, fs, bipolar, dt = z["params"]
         self = cls.__new__(cls)
@@ -209,7 +213,7 @@ class Demo:
         self.xylosim_version = True
         self.enforce_hw_limits = True
         self.fs = float(fs)
-        self.device = resolve_device(device)
+        self.device = device
         self._setup()
         self.bf_mats = []
         while f"bf_{len(self.bf_mats)}" in z:

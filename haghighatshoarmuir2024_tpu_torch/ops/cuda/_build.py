@@ -41,11 +41,17 @@ launch_counts: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "hm_rzcc_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "hm_rzcc_rows_per_block": ([], _I),
     "hm_rzcc_k1": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "hm_rzcc_k2": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "hm_suppress_k7": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "hm_probe_p1": ([_P, _P, _L] + [_I] * 4 + [_P], _I),
+    "hm_probe_p2": ([_P, _P] + [_I] * 4 + [_P], _I),
+    "hm_probe_p3_max_channels": ([], _I),
+    "hm_probe_p3": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "hm_lif_max_channels": ([], _I),
     "hm_lif_max_rec_neurons": ([], _I),
     "hm_lif_count_bipolar": ([_P] * 7 + [_I] * 6 + [_P], _I),

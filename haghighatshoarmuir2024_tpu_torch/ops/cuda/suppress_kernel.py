@@ -1,18 +1,28 @@
-"""Fused bipolar RZCC spike extraction: wrapper of kernels K1 and K2
-(``csrc/suppress.cu``), counterpart of ``rzcc_encode_bipolar_tm`` in
-``haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:551``.
+"""Greedy distance suppression on the card: wrappers of kernels K1, K2 and K7
+(``csrc/suppress.cu``), counterparts of the public ops of
+``haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py``.
 
-K1 (``_round_kernel_bipolar_first``, ``suppress_kernel.py:334``) finds the
-bounded-plateau extrema of ±cs and runs suppression round 1 of both
-polarities from one read of cs.  K2 (``_round_kernel_bipolar``, ``:248``)
-runs one more round given the active masks; it always runs once — that launch
-is the TPU kernel's fused round 2, and tiles with no candidate left exit after
-reading the masks — and then repeats until every per-tile flag is 0, as the
-TPU's fixed-point loop does (``:537-547``).  The flag sum is read on the host
-after each K2 launch.
+- :func:`rzcc_encode_bipolar_tm` (``:551``): fused bipolar RZCC spike
+  extraction.  K1 (``_round_kernel_bipolar_first``, ``:334``) finds the
+  bounded-plateau extrema of ±cs and runs suppression round 1 of both
+  polarities from one read of cs.  K2 (``_round_kernel_bipolar``, ``:248``)
+  runs one more round given the active masks; it always runs once — that
+  launch is the TPU kernel's fused round 2, and tiles with no candidate left
+  exit after reading the masks — and then repeats until every per-tile flag
+  is 0, as the TPU's fixed-point loop does (``:537-547``).
+- :func:`rzcc_select_bipolar_tm` (``:639``): the same suppression from given
+  extrema, on K2 alone, from ``act = extrema`` and ``kept = 0``.
+- :func:`select_by_distance_tm` (``:687``): one polarity with the heights as
+  their own input, on K7 (``_round_kernel``, ``:124``), repeated to the
+  fixed point (``:235-245``).
 
-On CPU tensors the wrapper runs the plain versions in ``ops/peaks.py``; on
-CUDA tensors it launches the kernels or raises.
+The flag sum is read on the host after each K2/K7 launch.  A window too wide
+for a block's shared memory raises ``ValueError`` (the JAX ops fall back to
+XLA there, ``:708-722``).  Heights that are not finite at a candidate raise
+``ValueError`` before any work: the JAX ops never finish on them.
+
+On CPU tensors the wrappers run the plain versions in ``ops/peaks.py``; on
+CUDA tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -49,8 +59,16 @@ def _check_smem(M: int) -> None:
     if need > SMEM_MAX:
         raise ValueError(
             f"suppression halo {M} needs {need} bytes of shared memory per block "
-            f"(limit {SMEM_MAX}); window too wide for the fused RZCC kernels"
+            f"(limit {SMEM_MAX}); window too wide for the suppression kernels"
         )
+
+
+def _check_finite(cand: torch.Tensor, height: torch.Tensor, label: str) -> None:
+    """Raise unless every candidate's height is finite.  A non-finite
+    candidate never wins a round, so unless a finite winner's window covers
+    it the fixed point is never reached (the JAX ops loop forever on it)."""
+    if bool((cand & ~torch.isfinite(height)).any()):
+        raise ValueError(f"{label}: a candidate has a non-finite height; heights at candidates must be finite")
 
 
 # ------------------------------------------------------------- plain versions
@@ -80,6 +98,24 @@ def rzcc_encode_bipolar_tm_plain(cs_tm: torch.Tensor, distance, max_plateau: int
     kp = peaks.select_by_distance(maxima, x, distance)
     kn = peaks.select_by_distance(minima, -x, distance)
     return kp.T, kn.T
+
+
+def _k7_plain(height_tm, act, kept, w: int):
+    """What one K7 launch computes: one round of one polarity."""
+    a, k = peaks.suppression_round(act.T, kept.T, height_tm.T, w)
+    return a.T, k.T
+
+
+def select_by_distance_tm_plain(cand_tm: torch.Tensor, height_tm: torch.Tensor, distance):
+    """``select_by_distance`` on the transposed arrays: (T, rows) in and out."""
+    return peaks.select_by_distance(cand_tm.T, height_tm.T, distance).T
+
+
+def rzcc_select_bipolar_tm_plain(cs_tm, maxima_tm, minima_tm, distance):
+    """``select_by_distance`` of (maxima, cs) and (minima, -cs), time-major."""
+    x = cs_tm.T
+    return (peaks.select_by_distance(maxima_tm.T, x, distance).T,
+            peaks.select_by_distance(minima_tm.T, -x, distance).T)
 
 
 # ------------------------------------------------------------------- kernels
@@ -144,6 +180,76 @@ def rzcc_encode_bipolar_tm(cs_tm: torch.Tensor, distance, max_plateau: int):
     # still has candidates, so T rounds always reach the fixed point
     for _ in range(cs_tm.shape[0] + 1):
         act_p, act_n, flags = rzcc_k2(cs_tm, act_p, act_n, kept_p, kept_n, w)
+        if not bool(flags.any()):
+            return kept_p, kept_n
+    raise RuntimeError("RZCC suppression did not reach its fixed point")
+
+
+def suppress_k7(height_tm: torch.Tensor, act: torch.Tensor, kept: torch.Tensor, w: int):
+    """Launch K7 once.  ``kept`` is updated in place; returns the new
+    ``act`` and the per-tile flags (int32, 1 = candidates remain)."""
+    require_cuda(height_tm, "height_tm", (torch.float32,), 2)
+    for name, t in (("act", act), ("kept", kept)):
+        require_cuda(t, name, (torch.bool,), 2)
+        if t.shape != height_tm.shape or t.device != height_tm.device:
+            raise ValueError(f"{name} must match height_tm's shape {tuple(height_tm.shape)} and device")
+    T, R = height_tm.shape
+    M = _margin(w)
+    _check_smem(M)
+    rb = library().hm_rzcc_rows_per_block()
+    flags = torch.empty((-(-T // TB), -(-R // rb)), dtype=torch.int32, device=height_tm.device)
+    act_out = torch.empty_like(act)
+    with torch.cuda.device(height_tm.device):
+        rc = library().hm_suppress_k7(
+            height_tm.data_ptr(), act.data_ptr(), act_out.data_ptr(), kept.data_ptr(),
+            flags.data_ptr(), T, R, w, M, TB, stream_handle(height_tm.device),
+        )
+    check(rc, "suppress_k7")
+    launch_counts["suppress_k7"] += 1
+    return act_out, flags
+
+
+def select_by_distance_tm(cand_tm: torch.Tensor, height_tm: torch.Tensor, distance) -> torch.Tensor:
+    """Time-major greedy distance suppression: (T, rows) candidates (any
+    dtype, nonzero = candidate) and heights in, (T, rows) bool out; exactly
+    ``ops.peaks.select_by_distance`` on the transposed arrays.  Heights are
+    taken as float32, as the Pallas op takes them."""
+    w = _windows(distance, 1)[0]
+    cand = cand_tm != 0
+    if w <= 0:
+        return cand
+    height = height_tm.to(torch.float32).contiguous()
+    _check_finite(cand, height, "select_by_distance_tm")
+    if cand.device.type == "cpu":
+        return select_by_distance_tm_plain(cand, height, distance)
+    act, kept = cand.contiguous(), torch.zeros_like(cand)
+    # every round keeps at least the rightmost window-max of each row that
+    # still has candidates, so T rounds always reach the fixed point
+    for _ in range(cand.shape[0] + 1):
+        act, flags = suppress_k7(height, act, kept, w)
+        if not bool(flags.any()):
+            return kept
+    raise RuntimeError("suppression did not reach its fixed point")
+
+
+def rzcc_select_bipolar_tm(cs_tm: torch.Tensor, maxima_tm: torch.Tensor, minima_tm: torch.Tensor,
+                           distance):
+    """Bipolar RZCC suppression from given extrema, time-major: returns
+    ``(kept_pos, kept_neg)`` bool masks of shape (T, rows), exactly
+    ``select_by_distance`` of (maxima, cs) and (minima, -cs), cs taken as
+    float32.  One read of cs serves both polarities in each K2 launch."""
+    w = _windows(distance, 1)[0]
+    act_p, act_n = maxima_tm != 0, minima_tm != 0
+    if w <= 0:
+        return act_p, act_n
+    cs = cs_tm.to(torch.float32).contiguous()
+    _check_finite(act_p | act_n, cs, "rzcc_select_bipolar_tm")
+    if cs.device.type == "cpu":
+        return rzcc_select_bipolar_tm_plain(cs, act_p, act_n, distance)
+    act_p, act_n = act_p.contiguous(), act_n.contiguous()
+    kept_p, kept_n = torch.zeros_like(act_p), torch.zeros_like(act_n)
+    for _ in range(cs.shape[0] + 1):
+        act_p, act_n, flags = rzcc_k2(cs, act_p, act_n, kept_p, kept_n, w)
         if not bool(flags.any()):
             return kept_p, kept_n
     raise RuntimeError("RZCC suppression did not reach its fixed point")

@@ -35,6 +35,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..geometry import resolve_device
 from ..models.xylo.sim import uniform_rec_coef
 from ..ops.cuda.lif_kernel import lif_count_stateful, lif_count_stateful_bipolar
 from ..ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
@@ -89,11 +90,13 @@ class StreamState:
         })
 
     @classmethod
-    def from_numpy(cls, arrays, device="cpu") -> "StreamState":
+    def from_numpy(cls, arrays, device=None) -> "StreamState":
         """A state from the arrays of a JAX ``StreamState`` (its
         ``_asdict()``, or any mapping of the same names), batched (B, ...)
-        or single-stream.  The JAX state leads every field with the stream
-        axis; here the time-carrying buffers become time-major."""
+        or single-stream, on ``device`` (the card unless ``"cpu"`` is asked
+        for).  The JAX state leads every field with the stream axis; here the
+        time-carrying buffers become time-major."""
+        device = resolve_device(device)
         arrays = dict(arrays)
         batched = np.ndim(arrays["isyn"]) == 2
         out = {}

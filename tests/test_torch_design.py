@@ -180,7 +180,7 @@ def small_design_setup(bipolar):
     kw = dict(kernel_duration=5e-3, freq_range=band, tau_vec=[tau, tau], bipolar_spikes=bipolar, fs=FS,
               design_chunk=8)
     jb = JaxSNNBeamformer(jpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **kw)
-    tb = SNNBeamformer(tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **kw)
+    tb = SNNBeamformer(tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **kw, device="cpu")
     t = np.arange(0, 0.1, 1 / FS)
     return jb, tb, (t, np.sin(2 * np.pi * 1750 * t)), np.linspace(-np.pi, np.pi, 33)
 

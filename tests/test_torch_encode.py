@@ -84,7 +84,7 @@ def flagship_frames():
 def test_torch_flagship_encode_matches_jax_tpu_form(flagship_frames):
     _, _, _, frames = flagship_frames
     demo = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
-                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=FS)
+                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=FS, device="cpu")
     cs = demo.encode(frames).numpy()  # (T, B, C)
     assert cs.shape == (12_000, 3, 14)
     b, a = BA

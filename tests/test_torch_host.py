@@ -42,7 +42,7 @@ CONFIG_FIELDS = ("w_in", "w_rec", "w_out", "dash_syn", "dash_mem", "dash_syn_out
 def demos():
     jd = JaxDemo(geometry=jpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **FLAGSHIP)
     jd.calibrate_profiles()
-    td = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **FLAGSHIP)
+    td = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **FLAGSHIP, device="cpu")
     td.calibrate_profiles()
     return jd, td
 
@@ -141,7 +141,7 @@ def test_torch_demo_load_reads_jax_save(demos, tmp_path):
     jd, td = demos
     path = str(tmp_path / "model.npz")
     jd.save(path)
-    ld = Demo.load(path)
+    ld = Demo.load(path, device="cpu")
     for name in CONFIG_FIELDS:
         np.testing.assert_array_equal(getattr(ld.xylo_config, name), getattr(jd.xylo_config, name))
     np.testing.assert_array_equal(ld._profiles, np.asarray(jd._profiles))
@@ -155,7 +155,7 @@ def test_torch_demo_without_bundled_design_raises():
     """A configuration with no bundled design no longer raises: the port
     designs it (here on the CPU) and gets a finite (14, G) ``bf_0``."""
     geo = tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7)
-    demo = Demo(geometry=geo, **{**FLAGSHIP, "freq_bands": [[1000, 1300]]})
+    demo = Demo(geometry=geo, **{**FLAGSHIP, "freq_bands": [[1000, 1300]]}, device="cpu")
     bf = demo.bf_mats[0]
     assert bf.shape == (14, G) and bf.dtype == np.float32 and np.isfinite(bf).all()
     np.testing.assert_allclose(np.linalg.norm(bf, axis=0), 1.0, atol=1e-5)

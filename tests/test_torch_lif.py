@@ -126,7 +126,7 @@ def test_torch_lif_collision_rule():
 
 def test_torch_lif_flagship_config_matches_jax():
     demo = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
-                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=48_000)
+                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=48_000, device="cpu")
     cfg = demo.xylo_config
     # RZCC-like density: about one spike per 27 samples per channel
     kp, kn = bipolar_masks(9, 600, 3, 14, 1 / 27)

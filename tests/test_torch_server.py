@@ -57,7 +57,7 @@ def demo(tmp_path_factory, _no_jax_persistent_cache):
                  use_cache=False)
     path = tmp_path_factory.mktemp("demo") / "small.npz"
     jd.save(str(path))
-    return Demo.load(str(path))
+    return Demo.load(str(path), device="cpu")
 
 
 def stream_signal(demo, doa, n_chunks, seed):
@@ -142,7 +142,7 @@ def unipolar_demo():
     port itself."""
     return Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
                 freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 65),
-                recording_duration=0.25, kernel_duration=5e-3, bipolar_spikes=False, fs=FS)
+                recording_duration=0.25, kernel_duration=5e-3, bipolar_spikes=False, fs=FS, device="cpu")
 
 
 def test_torch_server_serves_unipolar_model(unipolar_demo):

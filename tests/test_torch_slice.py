@@ -57,7 +57,7 @@ def grid_index(doa: np.ndarray) -> np.ndarray:
 def slice_run():
     jd = JaxDemo(geometry=jpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **FLAGSHIP)
     jd.calibrate_profiles()
-    td = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **FLAGSHIP)
+    td = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **FLAGSHIP, device="cpu")
     td.calibrate_profiles()
     # bench.py's frames, fewer of them
     t = np.arange(0, 0.25, 1 / FS)
@@ -133,8 +133,9 @@ def test_torch_slice_end_to_end_counts_within_2(slice_run):
 def test_torch_port_runs_without_jax(tmp_path):
     """The port imports nothing of JAX: with ``jax`` unimportable the flagship
     forward still runs (one frame, CPU tensors), and so do the streaming
-    runtime (one chunk), the serving module's import, and a tiny unipolar
-    model's design, calibration, ``Demo.forward`` and streaming chunk."""
+    runtime (one chunk), the serving module's import, a tiny unipolar
+    model's design, calibration, ``Demo.forward`` and streaming chunk, K7's
+    suppression op, and the imports of the roofline probes and harness."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -145,7 +146,7 @@ def test_torch_port_runs_without_jax(tmp_path):
         from haghighatshoarmuir2024_tpu_torch.ops.interp import signal_from_template
         demo = Demo(geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
                     freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449),
-                    recording_duration=0.25, kernel_duration=10e-3, fs=48_000)
+                    recording_duration=0.25, kernel_duration=10e-3, fs=48_000, device="cpu")
         demo.calibrate_profiles()
         t = torch.arange(0, 0.25, 1 / 48_000, dtype=torch.float64)
         frame = signal_from_template(demo.geometry, t, torch.sin(2 * np.pi * 1750 * t), 1.0, fs=48_000)
@@ -158,7 +159,8 @@ def test_torch_port_runs_without_jax(tmp_path):
         # through Demo.forward and one chunk through the streaming step
         uni = Demo(geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
                    freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 17),
-                   recording_duration=0.05, kernel_duration=5e-3, bipolar_spikes=False, fs=48_000)
+                   recording_duration=0.05, kernel_duration=5e-3, bipolar_spikes=False, fs=48_000,
+                   device="cpu")
         prof = uni.calibrate_profiles()
         assert prof.shape == (17, 17) and np.isfinite(prof).all() and np.isfinite(uni.bf_mats[0]).all()
         udoa, urate = uni.forward(frame[:2400].float())
@@ -166,6 +168,13 @@ def test_torch_port_runs_without_jax(tmp_path):
         usl = streaming.StreamingLocalizer(uni)
         ustate, uspikes = usl.process_chunk(usl.init_state(), frame[:2400].float())
         assert uspikes.shape == (2400, 14) and int(uspikes.sum()) > 0 and int(ustate.counts.sum()) > 0
+        # the suppression op of K7, the roofline probes and their harness
+        from haghighatshoarmuir2024_tpu_torch.experiments import roofline
+        from haghighatshoarmuir2024_tpu_torch.ops.cuda import roofline_kernel, suppress_kernel
+        h = torch.cumsum(torch.randn(500, 3), dim=0)
+        assert int(suppress_kernel.select_by_distance_tm(torch.ones(500, 3, dtype=torch.bool), h, 12).sum()) > 0
+        assert roofline_kernel.lif_peak(torch.ones(8, dtype=torch.int32), 16).shape == (8,)
+        assert callable(roofline.run)
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
         assert not any(m.startswith("haghighatshoarmuir2024_tpu.") or m == "haghighatshoarmuir2024_tpu"
                        for m in sys.modules)

@@ -143,7 +143,7 @@ def test_torch_stateful_lif_chunked_equals_full(rec_coef):
 
 def test_torch_stateful_lif_flagship_config_matches_jax():
     demo = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
-                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=48_000)
+                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=48_000, device="cpu")
     cfg = demo.xylo_config
     # RZCC-like density: about one spike per 27 samples per channel
     kp, kn = bipolar_masks(9, 300, 2, 14, 1 / 27)
@@ -171,7 +171,7 @@ def test_torch_lif_params_no_saturation_proof():
     """The flagship config with binary spikes proves the clips dead (the
     kernel then skips them); the saturating config does not."""
     demo = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
-                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=48_000)
+                freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 449), fs=48_000, device="cpu")
     p = lif_kernel.lif_params(demo.xylo_config, "cpu", spike_bound=1)
     assert p.no_sat and p.rec_coef == 0 and p.w_in.shape == (28, 449) and p.w_in.dtype == torch.int32
     assert not lif_kernel.lif_params(demo.xylo_config, "cpu", spike_bound=None).no_sat

@@ -65,7 +65,7 @@ def demos(tmp_path_factory, _no_jax_persistent_cache):
     jd.calibrate_profiles(use_cache=False)
     path = tmp_path_factory.mktemp("demo") / "small.npz"
     jd.save(str(path))
-    return jd, Demo.load(str(path))
+    return jd, Demo.load(str(path), device="cpu")
 
 
 def jax_layout(state):
@@ -208,7 +208,7 @@ def test_torch_streaming_from_jax_mid_stream_state(streams, runs):
     """Both runtimes resume from the same mid-stream state: the JAX state
     after two chunks, carried into the port with StreamState.from_numpy."""
     jsl, tsl, js = runs["jsl"], runs["tsl"], runs["js_2"]
-    ts = StreamState.from_numpy({k: np.asarray(v) for k, v in js._asdict().items()})
+    ts = StreamState.from_numpy({k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
     assert ts.pending.shape == (tsl.guard + tsl.pending, B, tsl.C) and ts.steps.tolist() == [2 * TC] * B
     chunk = streams[:, 2 * TC:]
     js, jsp = jsl.process_chunk(js, jnp.asarray(chunk))

@@ -64,7 +64,7 @@ def models(tmp_path_factory, _no_jax_persistent_cache):
     jd.calibrate_profiles(use_cache=False)
     path = tmp_path_factory.mktemp("unipolar") / "model.npz"
     jd.save(str(path))
-    td = Demo.load(str(path))
+    td = Demo.load(str(path), device="cpu")
     t = np.arange(0, 0.25, 1 / FS)
     sig = np.sin(2 * np.pi * 1750 * t)
     doas = np.array([-2.6, -0.9, 0.4, 2.1])
@@ -120,7 +120,7 @@ def bipolar_small():
     """A small bipolar model designed by the port itself."""
     return Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
                 **{**SMALL, "bipolar_spikes": True, "doa_list": np.linspace(-np.pi, np.pi, 33),
-                   "recording_duration": 0.1})
+                   "recording_duration": 0.1}, device="cpu")
 
 
 @pytest.mark.parametrize("polarity", ["unipolar", "bipolar"])
@@ -168,6 +168,6 @@ def test_torch_save_is_read_by_jax_load(models, bipolar_small, tmp_path):
         assert jl.bipolar_spikes == demo.bipolar_spikes and jl.fs == demo.fs
         np.testing.assert_array_equal(jl.bf_mats[0], demo.bf_mats[0])
         np.testing.assert_array_equal(np.asarray(jl._profiles), demo._profiles)
-        back = Demo.load(path)
+        back = Demo.load(path, device="cpu")
         for name in CONFIG_FIELDS:
             np.testing.assert_array_equal(getattr(back.xylo_config, name), getattr(demo.xylo_config, name))
