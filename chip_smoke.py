@@ -13,25 +13,39 @@ Phases, each failing the run with a non-zero exit:
 3. K1/K2 (fused bipolar RZCC) against the plain PyTorch versions on the card,
    bit-exact: random cumsums with plateaus, exact ties, dense chains, wide
    windows, ragged shapes and the flagship ``cs``;
-4. K3 (integer LIF counts) against the plain simulator on the card,
-   bit-exact: random and saturating configs, ragged T, the flagship config;
+4. K3 (integer LIF counts: the pack pass, then the chain) against the plain
+   simulator on the card, bit-exact: random and saturating configs, ragged T
+   (1, 7, 9 around the chain's group of 8 steps, 513 across its stage of 512,
+   12 001), the flagship
+   config, the flagship masks with six set bits at the start of every chunk
+   of 512 (timed too: the chain then reads six slots a step in every chunk),
+   dense masks at the flagship width, C = 32 (64-bit mask words) and
+   C = 1, B = 1, uint8 and int8 masks of any nonzero values, masks at an odd
+   byte offset, rec_coef = -1 (C = 32, and N = 1000 in one block); the
+   pack kernel bit-exact against ``pack_bipolar_masks_plain`` on every
+   case;
 5. slice: the flagship ``Demo.forward_batch(method="matched")`` at B = 96,
-   T = 12 000 (bench.py's frames): every kernel's launch count must rise,
+   T = 12 000 (bench.py's frames): every kernel's launch count (the pack
+   pass's too) must rise,
    the DoAs must equal the plain path's, and ``doa-ok-frac`` must be 1.00 @5°;
    prints stage and kernel times next to the plain versions';
 6. K4 (stateful integer LIF) against the plain simulator on the card,
    bit-exact on counts and final state: flagship shapes, two chunks carried
-   equal to one pass of 24 000 steps, ragged T, the clip path and the
-   uniform recurrence rec_coef = -1;
+   equal to one pass of 24 000 steps, chunks of 1001, 1, 7, 9 and 3001
+   steps carried equal to one pass, ragged T, dense masks, C = 32 and 1,
+   B = 1, the clip path and the uniform recurrence rec_coef = -1; the pack
+   kernel bit-exact on every case;
 7. streaming: ``StreamingLocalizer`` over 96 streams, 4 chunks of 0.25 s
-   (experiments/serving_throughput.py's set-up): K1, K2 and K4 must launch,
+   (experiments/serving_throughput.py's set-up): K1, K2, the pack pass and
+   K4 must launch,
    spikes and counts must equal the same steps with the plain RZCC and LIF,
    and ``doa-ok-frac`` must be 1.00 @5° (matched); prints the step time,
    serving audio-sec/sec and the single-stream latency;
 8. serving: ``LocalizationServer`` (96 slots, 0.25 s chunks) with 8 TCP
    clients of 8 chunks each, on the f32 wire and on the u4 wire at fs/4:
-   every answer must arrive and equal the DoA of the direct streaming step
-   on the same chunks; prints ms per serve step;
+   K1, the pack pass and K4 must launch; every answer must arrive and equal
+   the DoA of the direct streaming step on the same chunks; prints ms per
+   serve step;
 9. design: the bipolar flagship designed on the card (``use_cache=False``)
    must match the bundled ``bf_0`` per column up to a unit phase to within
    1e-4; the calibration profiles computed on the card from the bundled
@@ -95,6 +109,7 @@ JAX_UNIPOLAR_OK = 96
 # blocking single-stream and single-frame calls timed per latency reading;
 # they are host-bound and spread by about a millisecond
 LATENCY_SAMPLES = 10
+CHAIN_STAGE = 512  # csrc/lif.cu's STAGE: the steps of slots K3/K4's chain stages at a time
 
 
 def fail(msg: str):
@@ -265,24 +280,83 @@ def masks(torch, dev, seed, T, B, C, p):
     return kp, kn
 
 
+def check_pack(torch, lk, kp, kn, label):
+    """The pack kernel against its plain version on the same masks; returns
+    the number of differing elements of words, slots and overflow bits."""
+    got = lk.pack_bipolar_masks(kp, kn)
+    ref = lk.pack_bipolar_masks_plain(kp, kn)
+    torch.cuda.synchronize()
+    bad = sum(mismatches(a, b) for a, b in zip(got, ref))
+    if bad:
+        fail(f"pack {label}: {bad} mask words, slots or most-set-bit counts differ from the plain version")
+    return bad
+
+
+def odd_offset(torch, x):
+    """``x`` copied into a contiguous view that starts at an odd byte offset
+    of its storage."""
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def six_bits_every_chunk(kp, kn):
+    """The masks with exactly six set bits (kp on channels 0-5) at the first
+    step of every CHAIN_STAGE steps: the chain then reads six slots a step
+    in every chunk."""
+    kp, kn = kp.clone(), kn.clone()
+    kp[::CHAIN_STAGE] = 0
+    kn[::CHAIN_STAGE] = 0
+    kp[::CHAIN_STAGE, :, :6] = 1
+    return kp, kn
+
+
+def lif_cases(torch, make, rand, flagship_config, flagship_masks):
+    """K3/K4's mask families: (label, config, (kp, kn), must_clip)."""
+    kp, kn = flagship_masks
+    N = np.asarray(flagship_config.w_in).shape[1]
+    sat = make(11, w_scale=5000)
+    sat.threshold[:] = 25_000
+    to = lambda m, dtype, v: (m.to(dtype) * v).contiguous()  # noqa: E731
+    rkp, rkn = rand(8, 700, 3, 14, 0.2)
+    return [
+        ("random", make(0), rand(0, 50, 3, 6, 0.15), False),
+        ("random, N=200", make(1, N=200), rand(1, 777, 5, 6, 0.2), False),
+        ("ragged T=12001", make(2, C=14, N=N, w_scale=49), rand(2, 12001, 2, 14, 0.05), False),
+        ("T=1", make(4, C=14, N=N, w_scale=400), rand(4, 1, 3, 14, 0.3), False),
+        ("T=7", make(5, C=14, N=N, w_scale=49), rand(5, 7, 3, 14, 0.3), False),
+        ("T=9", make(6, C=14, N=N, w_scale=49), rand(6, 9, 3, 14, 0.3), False),
+        ("T=513", make(16, C=14, N=N, w_scale=49), rand(16, 513, 3, 14, 0.1), False),
+        ("saturating", sat, rand(11, 300, 3, 6, 0.9), True),
+        ("flagship", flagship_config, flagship_masks, False),
+        ("flagship, six set bits a chunk", flagship_config, six_bits_every_chunk(kp, kn), False),
+        ("dense, flagship width", make(7, C=14, N=N, w_scale=4), rand(7, 2000, 4, 14, 0.9), False),
+        ("C=32", make(9, C=32, N=300, w_scale=12), rand(9, 1500, 3, 32, 0.05), False),
+        ("C=32 dense", make(10, C=32, N=100, w_scale=2), rand(10, 300, 2, 32, 0.8), False),
+        ("C=1", make(12, C=1, N=64, w_scale=60), rand(12, 1500, 3, 1, 0.3), False),
+        ("B=1", flagship_config, (kp[:, :1].contiguous(), kn[:, :1].contiguous()), False),
+        ("uint8 and int8 values", make(13, C=14, N=200, w_scale=49),
+         (to(rkp, torch.uint8, 7), to(rkn, torch.uint8, 200)), False),
+        ("int8 values, odd byte offset", make(14, C=14, N=200, w_scale=49),
+         (odd_offset(torch, to(rkp, torch.int8, -3)), odd_offset(torch, to(rkn, torch.int8, 5))), False),
+        ("rec_coef=-1", make(3, N=200, rec=-1), rand(3, 1500, 4, 6, 0.2), False),
+        ("rec_coef=-1, C=32", make(15, C=32, N=150, rec=-1, w_scale=12), rand(15, 700, 2, 32, 0.05), False),
+        # a row of 1000 neurons in one block: its stages take more than 48 KB
+        ("rec_coef=-1, N=1000", make(17, C=14, N=1000, rec=-1, w_scale=49), rand(17, 1500, 3, 14, 0.05), False),
+        ("rec_coef=-1, flagship width", with_rec(flagship_config, -1), flagship_masks, False),
+    ]
+
+
 def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
     make = functools.partial(make_config, XyloConfig)
     rand = functools.partial(masks, torch, dev)
-    cases = [
-        ("random", make(0), rand(0, 50, 3, 6, 0.15), False),
-        ("random, N=200", make(1, N=200), rand(1, 777, 5, 6, 0.2), False),
-        ("ragged T=12001", make(2, C=14, N=449, w_scale=49), rand(2, 12001, 2, 14, 0.05), False),
-    ]
-    sat = make(11, w_scale=5000)
-    sat.threshold[:] = 25_000
-    cases.append(("saturating", sat, rand(11, 300, 3, 6, 0.9), True))
-    cases.append(("flagship", flagship_config, flagship_masks, False))
-    # the uniform recurrence: one block per batch row, a block-wide count per step
-    cases.append(("rec_coef=-1", make(3, N=200, rec=-1), rand(3, 1500, 4, 6, 0.2), False))
-    cases.append(("rec_coef=-1, flagship width", with_rec(flagship_config, -1), flagship_masks, False))
+    cases = lif_cases(torch, make, rand, flagship_config, flagship_masks)
+    pack_bad = 0
     for label, cfg, (kp, kn), must_clip in cases:
         if must_clip and lk._no_saturation_possible(cfg, 1, 0):
             fail(f"K3 {label}: the case was meant to exercise the clip path")
+        pack_bad += check_pack(torch, lk, kp, kn, label)
         got = lk.lif_count_rates_bipolar(cfg, kp, kn, spike_bound=1)
         ref = lk.lif_count_plain(cfg, kp, kn)
         torch.cuda.synchronize()
@@ -291,12 +365,35 @@ def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
             fail(f"K3 {label}: {bad} counts differ from the plain simulator")
         if int(ref.sum()) == 0:
             fail(f"K3 {label}: no neuron fired, the case checks nothing")
-    print(f"[K3] {len(cases)} cases bit-exact vs plain sim_hidden "
-          "(incl. saturating clip path, ragged T, flagship config and masks, rec_coef = -1)", flush=True)
+    print(f"[K3] {len(cases)} cases bit-exact vs plain sim_hidden, the pack kernel bit-exact vs its plain "
+          "version on each (incl. saturating clip path, ragged T = 1, 7, 9, 513, 12001, flagship config and "
+          "masks, the flagship masks with six set bits a chunk, dense masks, C = 32 and 1, B = 1, uint8/int8 values, an odd byte offset, rec_coef = -1)",
+          flush=True)
     kp, kn = flagship_masks
+    T, B, _ = kp.shape
+    # what the chain meets: steps (of B*T) by set bits, and chunks of
+    # CHAIN_STAGE steps by the most set bits a step of theirs has (at most 4:
+    # four slots a step; 5-6: six; more: the mask words)
+    bits = (torch.cat([kp & ~kn, kn], dim=-1) != 0).sum(dim=-1)  # (T, B)
+    most = torch.zeros((-(-T // CHAIN_STAGE) * CHAIN_STAGE, B), dtype=bits.dtype, device=dev)
+    most[:T] = bits
+    most = most.reshape(-1, CHAIN_STAGE, B).amax(dim=1)
+    print(f"[K3] flagship input: steps by set bits {torch.bincount(bits.flatten()).tolist()}; chunks of "
+          f"{CHAIN_STAGE} steps {most.numel()}, on six slots {int(((most > 4) & (most <= 6)).sum())}, "
+          f"on the mask words {int((most > 6).sum())}", flush=True)
+    # ms converts the config on every call, this script's yardstick for K3-K6
+    # from its first version; params_ms takes the LIF integers uploaded once,
+    # as Demo and the streaming runtime pass them; six_ms is params_ms on the
+    # flagship masks with six set bits a chunk (six slots read in every chunk)
+    params = lk.lif_params(flagship_config, dev, spike_bound=1)
     ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(flagship_config, kp, kn, spike_bound=1), 20)
+    params_ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(params, kp, kn), 20)
+    kp6, kn6 = six_bits_every_chunk(kp, kn)
+    six_ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(params, kp6, kn6), 20)
     plain_ms = timed_ms(torch, lambda: lk.lif_count_plain(flagship_config, kp, kn), 1)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+    pack = dict(max_abs_err=float(pack_bad), ms=timed_ms(torch, lambda: lk.pack_bipolar_masks(kp, kn), 20),
+                plain_ms=timed_ms(torch, lambda: lk.pack_bipolar_masks_plain(kp, kn), 3))
+    return dict(max_abs_err=0.0, ms=ms, params_ms=params_ms, six_ms=six_ms, plain_ms=plain_ms), pack
 
 
 # ------------------------------------------------------------------ phase 6
@@ -308,15 +405,16 @@ def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_mas
     def zeros(B, N):
         return tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))
 
-    def case(label, cfg, kp, kn, state0):
+    def case(label, cfg, kp, kn, state0, need_spikes=True):
         nonlocal n_cases, worst
+        check_pack(torch, lk, kp, kn, label)
         got = lk.lif_count_stateful_bipolar(cfg, kp, kn, *state0, spike_bound=1)
         ref = lk.lif_count_stateful_bipolar_plain(cfg, kp, kn, *state0)
         torch.cuda.synchronize()
         bad = sum(mismatches(a, b) for a, b in zip(got, ref))
         if bad:
             fail(f"K4 {label}: {bad} elements of counts/isyn/vmem/spk differ from the plain simulator")
-        if int(ref[0].sum()) == 0:
+        if need_spikes and int(ref[0].sum()) == 0:
             fail(f"K4 {label}: no neuron fired, the case checks nothing")
         worst = max([worst] + [int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref)])
         n_cases += 1
@@ -348,12 +446,34 @@ def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_mas
     rec = with_rec(flagship_config, -1)
     head = case("rec_coef=-1, flagship width", rec, kp[:3000].contiguous(), kn[:3000].contiguous(), zeros(B, N))
     case("rec_coef=-1, carried", rec, kp[3000:6001].contiguous(), kn[3000:6001].contiguous(), head[1:])
-    print(f"[K4] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk "
-          f"(flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, ragged T, clip path, "
-          "rec_coef = -1)", flush=True)
+    # chunks whose lengths are not multiples of the chain's group of 8 steps,
+    # carried, against one pass over the same 4019 steps
+    state, total, lo = zeros(B, N), torch.zeros((B, N), dtype=torch.int32, device=dev), 0
+    for Tc in (1001, 1, 7, 9, 3001):
+        out = case(f"carried chunk of {Tc}", flagship_config, kp[lo:lo + Tc].contiguous(),
+                   kn[lo:lo + Tc].contiguous(), state, need_spikes=False)
+        total, state, lo = total + out[0], out[1:], lo + Tc
+    whole = lk.lif_count_stateful_bipolar(flagship_config, kp[:lo].contiguous(), kn[:lo].contiguous(),
+                                          *zeros(B, N), spike_bound=1)
+    bad = mismatches(whole[0], total) + sum(mismatches(a, b) for a, b in zip(whole[1:], state))
+    if bad:
+        fail(f"K4: chunks of 1001, 1, 7, 9, 3001 carried differ from one pass of {lo} steps in {bad} elements")
+    # the mask families of phase 4 from mid-stream states of the plain dynamics
+    for label, cfg, (mkp, mkn), _ in lif_cases(torch, make, rand, flagship_config, flagship_masks):
+        if label in ("flagship", "random", "rec_coef=-1, flagship width", "saturating", "ragged T=12001"):
+            continue  # above
+        mid = lk.lif_count_stateful_bipolar_plain(cfg, mkp[:7].flip(0).contiguous(), mkn[:7].flip(0).contiguous(),
+                                                  None, None, None)
+        case(label + ", mid-stream state", cfg, mkp, mkn, mid[1:], need_spikes=label != "T=1")
+    print(f"[K4] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk, the pack "
+          f"kernel on each (flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, chunks of 1001, "
+          "1, 7, 9, 3001 carried == one pass, ragged T, dense masks, C = 32 and 1, B = 1, uint8/int8 values, "
+          "an odd byte offset, clip path, rec_coef = -1)", flush=True)
+    params = lk.lif_params(flagship_config, dev, spike_bound=1)  # as the streaming runtime passes them
     ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(flagship_config, kp2, kn2, *first[1:]), 20)
+    params_ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(params, kp2, kn2, *first[1:]), 20)
     plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar_plain(flagship_config, kp2, kn2, *first[1:]), 1)
-    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -399,7 +519,7 @@ def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doa
         spikes.append(sp)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    for name in ("rzcc_k1", "rzcc_k2", "lif_k4"):
+    for name in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4"):
         if launches.get(name, 0) < 1:
             fail(f"the streaming run never launched {name} (launch counts {launches})")
     pstate = sl.init_state(B)
@@ -479,7 +599,7 @@ def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, de
             stage = {k: v - first[k] for k, v in srv.stage_times.items()}
             for c in clients.values():
                 c.close()
-        for name in ("rzcc_k1", "lif_k4"):
+        for name in ("rzcc_k1", "lif_pack", "lif_k4"):
             if launches.get(name, 0) < 1:
                 fail(f"serving {wire}: the daemon never launched {name} (launch counts {launches})")
 
@@ -580,7 +700,7 @@ def check_unipolar(torch, sk, lk, _build, Demo, flagship, frames, doas):
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     if launches.get("rzcc_k1") != 1 or launches.get("rzcc_k2", 0) < 1 or launches.get("lif_k5") != 1 \
-            or "lif_k3" in launches:
+            or "lif_k3" in launches or "lif_pack" in launches:
         fail(f"the unipolar batch run launched {launches}; expected K1 once, K2, K5 once")
     B, T, _ = frames.shape
     cs = udemo.encode(frames)
@@ -640,9 +760,11 @@ def check_k5(torch, lk, XyloConfig, dev, ucfg, u_spikes, bcfg, b_spikes):
     print(f"[K5] {len(cases)} cases bit-exact vs plain sim_hidden (unipolar flagship masks, bipolar "
           "combined raster, multi-count clip path, negative values, C = 84 and 128, ragged T, "
           "rec_coef = -1, B = 3)", flush=True)
+    params = lk.lif_params(ucfg, dev, spike_bound=1)  # as Demo passes them
     ms = timed_ms(torch, lambda: lk.lif_count_rates(ucfg, u_spikes, time_major=True, spike_bound=1), 20)
+    params_ms = timed_ms(torch, lambda: lk.lif_count_rates(params, u_spikes, time_major=True), 20)
     plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_plain(ucfg, u_spikes), 1)
-    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms)
 
 
 # ------------------------------------------------------------------ phase 12
@@ -723,10 +845,12 @@ def check_k6(torch, lk, XyloConfig, dev, ucfg, u_spikes):
     print(f"[K6] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk (unipolar "
           f"flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, ragged T, clip path, "
           "rec_coef = -1)", flush=True)
+    params = lk.lif_params(ucfg, dev, spike_bound=1)  # as the streaming runtime passes them
     ms = timed_ms(torch, lambda: lk.lif_count_stateful(ucfg, second_in, *first[1:], spike_bound=1,
                                                        time_major=True), 20)
+    params_ms = timed_ms(torch, lambda: lk.lif_count_stateful(params, second_in, *first[1:], time_major=True), 20)
     plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_plain(ucfg, second_in, *first[1:]), 1)
-    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms)
 
 
 # ------------------------------------------------------------------ phase 14
@@ -934,7 +1058,7 @@ def run_roofline(torch, roofline, _build, flagship_config, flagship_masks, w, ca
     N = np.asarray(flagship_config.w_in).shape[1]
     torch.cuda.synchronize()
     _build.launch_counts.clear()
-    ceil = roofline.ceilings(reps=3, k3_shape=(-(-N // roofline.K3_THREADS) * B, T), w=w)
+    ceil = roofline.ceilings(reps=3, k3_shape=roofline.k3_launch_shape(B, kp.shape[-1], N, T), w=w)
     p3 = roofline.p3_against_k3(flagship_config, kp, kn, reps=10)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
@@ -1025,7 +1149,7 @@ def main() -> int:
 
     # ---- phase 4: K3
     kp, kn = demo.rzcc(cs)
-    lif = check_lif(torch, lk, XyloConfig, dev, demo.xylo_config, (kp, kn))
+    lif, pack = check_lif(torch, lk, XyloConfig, dev, demo.xylo_config, (kp, kn))
 
     # ---- phase 5: the slice through the user's entry point
     demo.forward_batch(frames, method="matched")  # warm-up
@@ -1034,7 +1158,7 @@ def main() -> int:
     doa, rate = demo.forward_batch(frames, method="matched")
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    for name in ("rzcc_k1", "rzcc_k2", "lif_k3"):
+    for name in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3"):
         if launches.get(name, 0) < 1:
             fail(f"the slice run never launched {name} (launch counts {launches})")
     if doa.shape != (B,) or rate.shape != (B, G) or not bool(torch.isfinite(rate).all()):
@@ -1086,7 +1210,7 @@ def main() -> int:
     stage_ms = {
         "encode": timed_ms(torch, lambda: demo.encode(frames), 10),
         "rzcc (K1+K2)": sup["rzcc_ms"],
-        "lif (K3)": lif["ms"],
+        "lif (pack + K3)": lif["ms"],
         "estimate": timed_ms(torch, lambda: demo.estimate(p_counts, T, "matched"), 20),
     }
     n_rep = 20
@@ -1108,9 +1232,12 @@ def main() -> int:
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
     print(f"{tag} rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
-    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("K3", lif), ("K4", lif4), ("K5", k5), ("K6", k6),
-                    ("K7", k7)):
-        print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms")
+    for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("pack", pack), ("K3 (pack included)", lif),
+                    ("K4 (pack included)", lif4), ("K5", k5), ("K6", k6), ("K7", k7)):
+        print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms"
+              + (f" (the LIF integers uploaded once: {k['params_ms']:.3f} ms)" if "params_ms" in k else ""))
+    print(f"{tag} K3 with the LIF integers uploaded once: flagship masks {lif['params_ms']:.3f} ms; the same "
+          f"with six set bits a chunk of {CHAIN_STAGE} (six slots read in every chunk) {lif['six_ms']:.3f} ms")
     print(f"{tag} select_by_distance_tm on the flagship maxima ({k7_launches['suppress_k7']} K7 launches): "
           f"{k7['call_ms']:.3f} ms vs plain {k7['call_plain_ms']:.3f} ms")
     print(f"{tag} forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
@@ -1154,6 +1281,8 @@ def main() -> int:
          "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:334", "rzcc_k1", sup["k1"]),
         ("rzcc_k2", "haghighatshoarmuir2024_tpu_torch/csrc/suppress.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:248", "rzcc_k2", sup["k2"]),
+        ("lif_pack", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:300", "lif_pack", pack),
         ("lif_k3", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:275", "lif_k3", lif),
         ("lif_k4", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
@@ -1171,8 +1300,8 @@ def main() -> int:
         ("probe_p3", "haghighatshoarmuir2024_tpu_torch/csrc/roofline.cu",
          "experiments/vpu_roofline.py:226", "probe_p3", probe_res["probe_p3"]),
     ):
-        # launches: K1-K3 from the bipolar forward_batch run, K4 from the
-        # bipolar streaming run, K5 from the unipolar forward_batch run, K6
+        # launches: K1-K3 and the pack pass from the bipolar forward_batch
+        # run, K4 from the bipolar streaming run, K5 from the unipolar forward_batch run, K6
         # from the unipolar streaming run, K7 from one select_by_distance_tm
         # call, P1-P3 from the roofline run
         path = {"lif_k4": stream_launches, "lif_k5": uni["launches"], "lif_k6": ustream_launches,
@@ -1184,7 +1313,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": None,
+                        **({"params_ms": res["params_ms"]} if "params_ms" in res else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,11 +10,12 @@ measures:
 
 1. P1, the integer ceiling of the LIF op mix: a sweep over chains per
    thread and launch shapes, and one reading at K3's own launch shape
-   (one chain per thread, 64 threads per block, one block per 64 neurons of
-   a batch row, T steps); K3 as a share of the ceiling;
+   (``lif_kernel.lif_launch_shape``: one chain per thread, T steps); K3 as
+   a share of the ceiling;
 2. P3 at k = 2 and 4: exact against K3, and its time against K3's;
 3. P2, the shift-max chains on K2/K7's tile;
-4. K1-K7 at their flagship shapes, each beside its bound.
+4. K1-K7 and K3/K4's pack pass at their flagship shapes, each beside its
+   bound.
 
 P1 and P2 are held against their plain versions at the shapes timed.
 
@@ -59,11 +60,10 @@ from ..ops.cuda import suppress_kernel as sk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_PER_CLK_SM = 64  # CUDA Programming Guide, cc 9.0: 32-bit integer add, shift, compare
 CMP_PER_CLK_SM = 64  # CUDA Programming Guide, cc 9.0: compare, minimum, maximum
-K3_THREADS = 64  # csrc/lif.cu's NT: neurons per block when rec == 0
 # the peak each kernel's operations are priced at
 UNIT = {"rzcc_k1": "compares", "rzcc_k2": "compares", "suppress_k7": "compares", "probe_p2": "compares",
-        "lif_k3": "int32", "lif_k4": "int32", "lif_k5": "int32", "lif_k6": "int32", "probe_p1": "int32",
-        "probe_p3": "int32"}
+        "lif_pack": "int32", "lif_k3": "int32", "lif_k4": "int32", "lif_k5": "int32", "lif_k6": "int32",
+        "probe_p1": "int32", "probe_p3": "int32"}
 
 
 def _require_cuda() -> torch.device:
@@ -124,13 +124,13 @@ def _against_plain(got: torch.Tensor, plain, reps: int) -> dict:
 
 
 # ------------------------------------------------------------------ ceilings
-def p1_sweep(reps: int, k3_shape: tuple[int, int] | None = None, ops_target: float = 2e10) -> dict:
+def p1_sweep(reps: int, k3_shape: tuple[int, int, int] | None = None, ops_target: float = 2e10) -> dict:
     """P1 over chains per thread × threads per block × blocks per SM, at about
     ``ops_target`` nominal operations per launch, on random int32 inputs in
     [-1000, 1000); the best rate is the ceiling, and its output is held
-    against the plain version.  ``k3_shape`` = (blocks, steps) adds the
-    reading at K3's launch shape: that many blocks of 64 threads, one chain
-    each."""
+    against the plain version.  ``k3_shape`` = (blocks, threads, steps) adds
+    the reading at K3's launch shape (:func:`k3_launch_shape`), one chain a
+    thread."""
     dev = _require_cuda()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
@@ -153,13 +153,20 @@ def p1_sweep(reps: int, k3_shape: tuple[int, int] | None = None, ops_target: flo
     best.update(_against_plain(got, lambda: rk.lif_peak_plain(x, best["iters"]), 1))
     out = dict(best=best)
     if k3_shape is not None:
-        blocks, steps = k3_shape
-        n = blocks * K3_THREADS
+        blocks, threads, steps = k3_shape
+        n = blocks * threads
         x = xs[:n]
-        ms = timed_ms(lambda: rk.lif_peak(x, steps, 1, K3_THREADS, blocks), reps)
-        out["k3_shape"] = dict(blocks=blocks, threads=K3_THREADS, ilp=1, iters=steps, ms=ms,
+        ms = timed_ms(lambda: rk.lif_peak(x, steps, 1, threads, blocks), reps)
+        out["k3_shape"] = dict(blocks=blocks, threads=threads, ilp=1, iters=steps, ms=ms,
                                ops_per_s=rk.P1_OPS_PER_STEP * n * steps / (ms * 1e-3))
     return out
+
+
+def k3_launch_shape(B: int, C: int, N: int, T: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, steps) of K3's launch at this shape, as
+    the library launches it."""
+    gx, gy, threads = lk.lif_launch_shape(B, C, N)
+    return gx * gy, threads, T
 
 
 def p2_ceiling(w: int, reps: int, rep: int = 32, blocks_per_sm: int = 12) -> dict:
@@ -220,6 +227,17 @@ def lif_work(nnz: int, T: int, B: int, N: int, C_in: int, stateful: bool = False
     return float(ops), float(nbytes)
 
 
+def pack_work(T: int, B: int, C: int) -> tuple[float, float]:
+    """(operations, bytes) of K3/K4's pack pass, as its function needs them:
+    per step, row and channel a test of each mask, an and-not and an or into
+    the word; the two (T, B, C) one-byte masks in and per step and row one
+    mask word out (4 bytes where 2C <= 32, else 8).  The slots and the most
+    set bits the kernel also writes are its design's, not its function's:
+    the bound leaves them out."""
+    word = 4 if 2 * C <= 32 else 8
+    return float(4 * T * B * C), float(2 * T * B * C + word * T * B)
+
+
 def k1_work(T: int, R: int, w: int, W: int) -> tuple[float, float]:
     """(compares, bytes) of K1: the extrema and one round of both polarities
     over every element; cs in, four masks out."""
@@ -272,9 +290,11 @@ def flagship_work(cs_tm, w: int, W: int, kp, kn, u_spikes, N: int, p1: dict, p2:
     """{kernel: (operations, bytes)} of each kernel's timed launch at the
     flagship, counted from its inputs: K1 on ``cs_tm`` (T, rows); K2 on K1's
     masks; K3/K4 and P3 on the (T, B, C) polarity masks ``kp``/``kn``; K5/K6
-    on the unipolar (T, B, C) int8 raster; K7's first round on the maxima
-    of ``cs_tm`` with heights ``cs_tm``; P1 at the sweep's best point
-    ``p1``; P2 on its tiles ``p2``.  Masks come from the plain versions."""
+    on the unipolar (T, B, C) int8 raster (K3/K4 counted as their function
+    needs, the masks read once; the pack pass they run first has its own
+    entry); K7's first round on the maxima of ``cs_tm`` with heights
+    ``cs_tm``; P1 at the sweep's best point ``p1``; P2 on its tiles ``p2``.
+    Masks come from the plain versions."""
     T, R = cs_tm.shape
     _, B, C = kp.shape
     k1 = sk._k1_plain(cs_tm, w, W)
@@ -288,6 +308,7 @@ def flagship_work(cs_tm, w: int, W: int, kp, kn, u_spikes, N: int, p1: dict, p2:
     return {
         "rzcc_k1": k1_work(T, R, w, W),
         "rzcc_k2": round_work((k1[0], k1[1]), w, new_kept),
+        "lif_pack": pack_work(T, B, C),
         "lif_k3": lif_work(nnz, T, B, N, 2 * C),
         "lif_k4": lif_work(nnz, T, B, N, 2 * C, stateful=True),
         "lif_k5": lif_work(u_nnz, T, B, N, Cu),
@@ -336,7 +357,7 @@ def run(reps: int, batch: int) -> dict:
     u_spikes = udemo.rzcc(udemo.encode(frames))[0].to(torch.int8)
     cfg, ucfg = demo.xylo_config, udemo.xylo_config
 
-    ceil = ceilings(reps, k3_shape=(-(-N // K3_THREADS) * B, T), w=w)
+    ceil = ceilings(reps, k3_shape=k3_launch_shape(B, C, N, T), w=w)
     p3 = p3_against_k3(cfg, kp, kn, reps)
     work = flagship_work(cs_tm, w, W, kp, kn, u_spikes, N, ceil["p1"]["best"], ceil["p2"])
     zeros = lambda: tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))  # noqa: E731
@@ -353,6 +374,7 @@ def run(reps: int, batch: int) -> dict:
         "rzcc_k1": timed_ms(lambda: sk.rzcc_k1(cs_tm, w, W), reps),
         # repeating the round on the same masks sets the same kept bits again
         "rzcc_k2": timed_ms(lambda: sk.rzcc_k2(cs_tm, *k1, w), reps),
+        "lif_pack": timed_ms(lambda: lk.pack_bipolar_masks(kp, kn), reps),
         "lif_k3": p3["k3_ms"],
         "lif_k4": timed_ms(lambda: lk.lif_count_stateful_bipolar(cfg, kp2, kn2, *first[1:]), reps),
         "lif_k5": timed_ms(lambda: lk.lif_count_rates(ucfg, u_spikes, time_major=True, spike_bound=1), reps),

@@ -54,8 +54,10 @@ _SIGNATURES = {
     "hm_probe_p3": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "hm_lif_max_channels": ([], _I),
     "hm_lif_max_rec_neurons": ([], _I),
-    "hm_lif_count_bipolar": ([_P] * 7 + [_I] * 6 + [_P], _I),
-    "hm_lif_count_stateful_bipolar": ([_P] * 13 + [_I] * 6 + [_P], _I),
+    "hm_lif_launch_shape": ([_I] * 4 + [_P], None),
+    "hm_lif_pack_bipolar": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "hm_lif_count_bipolar": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "hm_lif_count_stateful_bipolar": ([_P] * 14 + [_I] * 7 + [_P], _I),
     "hm_lif_max_raster_channels": ([], _I),
     "hm_lif_count": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "hm_lif_count_stateful": ([_P] * 12 + [_I] * 6 + [_P], _I),

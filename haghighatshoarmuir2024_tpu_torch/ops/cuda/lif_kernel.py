@@ -8,6 +8,11 @@
   ``lif_count_stateful_bipolar`` (``:605``, Pallas kernel
   ``_lif_kernel_bipolar_stateful``, ``:468``), the streaming runtime's
   per-chunk LIF with the (B, N) state carried in and out.
+- K3 and K4 first launch the pack pass, :func:`pack_bipolar_masks`: the two
+  (T, B, C) masks become one mask word and one word of slots per (b, t),
+  row-major (B, Tp), and the most set bits of each 32 steps (the Pallas
+  kernel's mask combination, ``lif_kernel.py:300-307``); the chain kernel
+  then reads its row's slots.  Both on the current stream, no host sync.
 - K5, :func:`lif_count_rates`: counterpart of ``lif_count_rates`` (``:218``,
   Pallas kernel ``_lif_kernel``, ``:76``), counts from one int8 raster of any
   values (multi-count and negative spikes included): the single-frame
@@ -23,6 +28,7 @@ raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +39,18 @@ from ._build import check, launch_counts, library, require_cuda, stream_handle
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
 _SPIKE_DTYPES = (torch.int8, torch.bool)
+PACK_STEPS = 32  # csrc/lif.cu's PACK_T: the words' row length Tp is T rounded up to it
+PACK_SLOTS = 6  # csrc/lif.cu's SLOTS: set bits a step's word of slots names
+
+
+class PackedMasks(NamedTuple):
+    """The pack pass's outputs, row-major with Tp = T rounded up to
+    :data:`PACK_STEPS` steps (zeros past T).  Unsigned words held as int32
+    (int64 for 64-bit mask words) of the same bits."""
+
+    words: torch.Tensor  # (B, Tp): bit c = kp & ~kn of channel c, bit C + c = kn; int32 where 2C <= 32
+    slots: torch.Tensor  # (B, Tp) int64: the PACK_SLOTS lowest set bits c as bytes c + 1 (0 for none)
+    most: torch.Tensor  # (B, Tp / PACK_STEPS) int32: the most set bits a step of [b, k]'s 32 has
 
 
 class LifParams(NamedTuple):
@@ -109,6 +127,40 @@ def lif_count_stateful_bipolar_plain(config, kp_tbc, kn_tbc, isyn0, vmem0, spk0)
     return lif_count_stateful_plain(config, torch.cat([kp & ~kn, kn], dim=-1), isyn0, vmem0, spk0)
 
 
+def pack_bipolar_masks_plain(kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> PackedMasks:
+    """What K3/K4's pack pass computes from the (T, B, C) masks: see
+    :class:`PackedMasks` (−1 wins on collision: bit c is ``kp & ~kn``)."""
+    T, B, C = kp_tbc.shape
+    Tp = _words_steps(T)
+    kp, kn = kp_tbc != 0, kn_tbc != 0
+    bits = torch.cat([kp & ~kn, kn], dim=-1).to(torch.int64)  # (T, B, 2C)
+    c = torch.arange(2 * C, dtype=torch.int64, device=bits.device)
+    rank = bits.cumsum(dim=-1) * bits  # 1, 2, ... along the set bits
+    slots = sum(((rank == k) * (c + 1)).sum(dim=-1) << (8 * (k - 1)) for k in range(1, PACK_SLOTS + 1))
+    most = torch.zeros((B, Tp), dtype=torch.int32, device=bits.device)
+    most[:, :T] = bits.sum(dim=-1).T
+    most = most.reshape(B, Tp // PACK_STEPS, PACK_STEPS).amax(dim=-1)
+    words = torch.zeros((B, Tp), dtype=torch.int64, device=bits.device)
+    words[:, :T] = (bits << c).sum(dim=-1).T  # distinct bits: the sum is their OR
+    slots_p = torch.zeros_like(words)
+    slots_p[:, :T] = slots.T
+    return PackedMasks(words=_as_int32(words) if _word_dtype(C) == torch.int32 else words,
+                       slots=slots_p, most=most)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 → int32 of the same bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _word_dtype(C: int) -> torch.dtype:
+    return torch.int32 if 2 * C <= 32 else torch.int64
+
+
+def _words_steps(T: int) -> int:
+    return -(-T // PACK_STEPS) * PACK_STEPS
+
+
 def lif_count_stateful_plain(config, spikes_tbc, isyn0=None, vmem0=None, spk0=None):
     """What K5 (state None) and K6 compute, by the plain simulator: the
     stateful ``sim_hidden`` on ``project_input(spikes)`` of a time-major
@@ -124,21 +176,26 @@ def lif_count_stateful_plain(config, spikes_tbc, isyn0=None, vmem0=None, spk0=No
 
 
 # ------------------------------------------------------------------ kernels
-def _check_masks(params: LifParams, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor):
-    """Validate the masks against the params; returns (T, B, C, N)."""
+def _check_mask_pair(kp_tbc: torch.Tensor, kn_tbc: torch.Tensor):
+    """Validate two polarity masks for the pack pass; returns (T, B, C)."""
     require_cuda(kp_tbc, "kp_tbc", _MASK_DTYPES, 3)
     require_cuda(kn_tbc, "kn_tbc", _MASK_DTYPES, 3)
     if kn_tbc.shape != kp_tbc.shape or kn_tbc.dtype != kp_tbc.dtype or kn_tbc.device != kp_tbc.device:
         raise ValueError("kp_tbc and kn_tbc must have the same shape, dtype and device")
+    T, B, C = kp_tbc.shape
+    if C > library().hm_lif_max_channels():
+        raise ValueError(f"{C} channels per polarity exceed the kernel's {library().hm_lif_max_channels()}")
+    return T, B, C
+
+
+def _check_masks(params: LifParams, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor):
+    """Validate the masks against the params; returns (T, B, C, N)."""
+    T, B, C = _check_mask_pair(kp_tbc, kn_tbc)
     if params.w_in.device != kp_tbc.device:
         raise ValueError(f"the LIF params live on {params.w_in.device}, the masks on {kp_tbc.device}")
-    T, B, C = kp_tbc.shape
     N = params.w_in.shape[1]
     if params.w_in.shape[0] != 2 * C:
         raise ValueError(f"w_in has {params.w_in.shape[0]} rows; the masks need 2C = {2 * C}")
-    lib = library()
-    if C > lib.hm_lif_max_channels():
-        raise ValueError(f"{C} channels per polarity exceed the kernel's {lib.hm_lif_max_channels()}")
     _check_rec(params, N)
     return T, B, C, N
 
@@ -158,6 +215,33 @@ def _check_state(B: int, N: int, device, isyn0, vmem0, spk0) -> None:
             raise ValueError(f"{name} must be ({B}, {N}) on {device} (got {tuple(s.shape)} on {s.device})")
 
 
+def lif_launch_shape(B: int, C: int, N: int, rec_coef: int = 0) -> tuple[int, int, int]:
+    """How K3 and K4 launch: (blocks along the neurons, blocks along the
+    batch, threads per block)."""
+    out = (ctypes.c_int * 3)()
+    library().hm_lif_launch_shape(B, C, N, rec_coef, ctypes.cast(out, ctypes.c_void_p))
+    return tuple(out)
+
+
+def pack_bipolar_masks(kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> PackedMasks:
+    """K3/K4's pack pass: the two time-major (T, B, C) polarity masks (bool,
+    uint8 or int8; nonzero is a spike) → :class:`PackedMasks`."""
+    if kp_tbc.device.type == "cpu":
+        return pack_bipolar_masks_plain(kp_tbc, kn_tbc)
+    T, B, C = _check_mask_pair(kp_tbc, kn_tbc)
+    Tp = _words_steps(T)
+    new = lambda shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device=kp_tbc.device)  # noqa: E731
+    packed = PackedMasks(words=new((B, Tp), _word_dtype(C)), slots=new((B, Tp), torch.int64),
+                         most=new((B, Tp // PACK_STEPS)))
+    with torch.cuda.device(kp_tbc.device):
+        rc = library().hm_lif_pack_bipolar(kp_tbc.data_ptr(), kn_tbc.data_ptr(),
+                                           *(x.data_ptr() for x in packed), T, Tp, B, C,
+                                           stream_handle(kp_tbc.device))
+    check(rc, "lif_pack")
+    launch_counts["lif_pack"] += 1
+    return packed
+
+
 def lif_count_rates_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor,
                             spike_bound: int | None = 1) -> torch.Tensor:
     """Hidden-layer spike counts (B, N_hid) int32 straight from the two
@@ -168,12 +252,14 @@ def lif_count_rates_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tensor,
         return lif_count_plain(config, kp_tbc, kn_tbc)
     params = lif_params(config, kp_tbc.device, spike_bound)
     T, B, C, N = _check_masks(params, kp_tbc, kn_tbc)
+    packed = pack_bipolar_masks(kp_tbc, kn_tbc)
     counts = torch.empty((B, N), dtype=torch.int32, device=kp_tbc.device)
     with torch.cuda.device(kp_tbc.device):
         rc = library().hm_lif_count_bipolar(
-            kp_tbc.data_ptr(), kn_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            *(x.data_ptr() for x in packed), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
             params.dash_mem.data_ptr(), params.threshold.data_ptr(), counts.data_ptr(),
-            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(kp_tbc.device),
+            T, packed.slots.shape[1], B, C, N, params.rec_coef, int(not params.no_sat),
+            stream_handle(kp_tbc.device),
         )
     check(rc, "lif_k3")
     launch_counts["lif_k3"] += 1
@@ -200,13 +286,15 @@ def lif_count_stateful_bipolar(config, kp_tbc: torch.Tensor, kn_tbc: torch.Tenso
     params = lif_params(config, kp_tbc.device, spike_bound)
     T, B, C, N = _check_masks(params, kp_tbc, kn_tbc)
     _check_state(B, N, kp_tbc.device, isyn0, vmem0, spk0)
+    packed = pack_bipolar_masks(kp_tbc, kn_tbc)
     out = tuple(torch.empty((B, N), dtype=torch.int32, device=kp_tbc.device) for _ in range(4))
     with torch.cuda.device(kp_tbc.device):
         rc = library().hm_lif_count_stateful_bipolar(
-            kp_tbc.data_ptr(), kn_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            *(x.data_ptr() for x in packed), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
             params.dash_mem.data_ptr(), params.threshold.data_ptr(), isyn0.data_ptr(),
             vmem0.data_ptr(), spk0.data_ptr(), *(o.data_ptr() for o in out),
-            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(kp_tbc.device),
+            T, packed.slots.shape[1], B, C, N, params.rec_coef, int(not params.no_sat),
+            stream_handle(kp_tbc.device),
         )
     check(rc, "lif_k4")
     launch_counts["lif_k4"] += 1

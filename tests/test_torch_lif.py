@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import haghighatshoarmuir2024_tpu_torch as tpkg
 from haghighatshoarmuir2024_tpu.models.xylo.sim import sim_hidden_batch as jax_sim_batch
 from haghighatshoarmuir2024_tpu.ops.pallas.lif_kernel import (
+    _lif_count_bipolar_impl,
     lif_count_rates_bipolar as jax_lif_bipolar,
 )
 
@@ -82,12 +83,25 @@ def bipolar_masks(seed, T, B, C, p):
     return rng.random((T, B, C)) < p, rng.random((T, B, C)) < p
 
 
-BIPOLAR_CASES = ["random", "recurrent", "saturating", "collisions", "ragged"]
+# the families K3's words and groups of steps meet: dense masks (most of the
+# 2C bits set on every step), C = 32 (64-bit words) and C = 1, one batch row,
+# T around the chain's group of 8 steps
+BIPOLAR_CASES = ["random", "recurrent", "saturating", "collisions", "ragged", "dense", "C=32", "C=1",
+                 "B=1", "T=1", "T=7", "T=9", "T=33"]
+
+
+def pallas_k3(cfg, kp, kn):
+    """The Pallas K3 itself, in interpret mode (clips kept)."""
+    return np.asarray(_lif_count_bipolar_impl(
+        jnp.asarray(kp, jnp.int8), jnp.asarray(kn, jnp.int8), jnp.asarray(cfg.w_in, jnp.int32),
+        jnp.asarray(cfg.dash_syn, jnp.int32), jnp.asarray(cfg.dash_mem, jnp.int32),
+        jnp.asarray(cfg.threshold, jnp.int32), rec_coef=int(np.asarray(cfg.w_rec).flat[0]), time_chunk=8,
+        interpret=True, int8_mm=bool(np.all(np.abs(cfg.w_in) <= 127))))
 
 
 @pytest.mark.parametrize("case", BIPOLAR_CASES)
 def test_torch_lif_count_bipolar_matches_jax(case):
-    T, B, p = 64, 3, 0.15
+    T, B, C, p = 64, 3, 6, 0.15
     if case == "random":
         cfg = make_config(3)
     elif case == "recurrent":
@@ -96,18 +110,82 @@ def test_torch_lif_count_bipolar_matches_jax(case):
         cfg, p = saturating_config(), 0.9
     elif case == "collisions":  # kp & kn both set: the negative spike wins
         cfg, p = make_config(5), 0.6
-    else:
+    elif case == "ragged":
         cfg, T, B = make_config(6), 53, 5
-    kp, kn = bipolar_masks(BIPOLAR_CASES.index(case), T, B, 6, p)
+    elif case == "dense":
+        cfg, C, p = make_config(14, C=28, N=30, w_scale=3), 14, 0.9
+    elif case.startswith("C="):
+        C = int(case[2:])
+        cfg, p = make_config(15 + C, C=2 * C, N=24, w_scale=8), 0.1 if C == 32 else 0.5
+    elif case == "B=1":
+        cfg, B = make_config(16), 1
+    else:
+        T = int(case[2:])
+        cfg = make_config(17, w_scale=200 if T == 1 else 20)  # one step can fire
+    kp, kn = bipolar_masks(BIPOLAR_CASES.index(case), T, B, C, p)
     if case == "collisions":
         assert (kp & kn).any()
     before = dict(_build.launch_counts)
     got = lif_kernel.lif_count_rates_bipolar(cfg, torch.as_tensor(kp), torch.as_tensor(kn))
     ref = np.asarray(jax_lif_bipolar(cfg, jnp.asarray(kp), jnp.asarray(kn), spike_bound=1))
-    assert got.dtype == torch.int32 and got.shape == (B, 20)
+    N = cfg.w_in.shape[1]
+    assert got.dtype == torch.int32 and got.shape == (B, N)
     np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(pallas_k3(cfg, kp, kn), ref)
     assert ref.sum() > 0
     assert dict(_build.launch_counts) == before  # CPU tensors: plain path, no launch
+
+
+def numpy_pack(kp, kn, steps):
+    """(T, B, C) masks → (B, steps) uint64 mask words (bit c = kp & ~kn, bit
+    C + c = kn), (B, steps) slots (the six lowest set bits c as bytes c + 1)
+    and (B, steps // 32) the most set bits a step of each 32 has; zeros past
+    T."""
+    T, B, C = kp.shape
+    kp, kn = kp != 0, kn != 0
+    bits = np.concatenate([kp & ~kn, kn], axis=-1)  # (T, B, 2C)
+    words = np.zeros((B, steps), np.uint64)
+    slots = np.zeros((B, steps), np.uint64)
+    count = np.zeros((B, steps), np.int64)
+    for t in range(T):
+        for b in range(B):
+            set_bits = np.flatnonzero(bits[t, b])
+            words[b, t] = sum(np.uint64(1) << np.uint64(c) for c in set_bits) if len(set_bits) else 0
+            slots[b, t] = sum(int(c + 1) << (8 * k) for k, c in enumerate(set_bits[:6]))
+            count[b, t] = len(set_bits)
+    return words, slots, count.reshape(B, steps // 32, 32).max(axis=-1)
+
+
+@pytest.mark.parametrize("C,T,B,p,dtype", [(1, 40, 3, 0.5, np.bool_), (14, 100, 5, 0.1, np.uint8),
+                                           (14, 70, 2, 0.5, np.bool_), (32, 33, 2, 0.5, np.int8),
+                                           (16, 64, 9, 0.5, np.bool_)])
+def test_torch_pack_bipolar_masks_plain_matches_numpy(C, T, B, p, dtype):
+    """The pack pass's plain version against a numpy bit-pack with the
+    collision rule: 32-bit mask words where 2C <= 32 (bit 31 set at C = 16),
+    else 64-bit (bit 63 set at C = 32); the slots of the six lowest set
+    bits; the most set bits of each 32 steps; rows T rounded up to PACK_STEPS."""
+    rng = np.random.default_rng(C)
+    kp = (rng.random((T, B, C)) < p) * rng.integers(1, 100, size=(T, B, C))
+    kn = (rng.random((T, B, C)) < p) * rng.integers(1, 100, size=(T, B, C))
+    kp, kn = kp.astype(dtype), kn.astype(dtype)
+    got = lif_kernel.pack_bipolar_masks(torch.as_tensor(kp), torch.as_tensor(kn))
+    steps = -(-T // lif_kernel.PACK_STEPS) * lif_kernel.PACK_STEPS
+    words, slots, most = numpy_pack(kp, kn, steps)
+    assert got.words.shape == got.slots.shape == (B, steps) and got.most.shape == (B, steps // 32)
+    assert got.slots.dtype == torch.int64 and got.most.dtype == torch.int32
+    as_u32 = lambda x: x.numpy().astype(np.int64) & 0xFFFFFFFF  # noqa: E731
+    if 2 * C <= 32:
+        assert got.words.dtype == torch.int32
+        np.testing.assert_array_equal(as_u32(got.words), words.astype(np.int64))
+    else:
+        assert got.words.dtype == torch.int64
+        np.testing.assert_array_equal(got.words.numpy().view(np.uint64), words)
+    np.testing.assert_array_equal(got.slots.numpy().view(np.uint64), slots)
+    np.testing.assert_array_equal(got.most.numpy(), most)
+    assert (words >> np.uint64(2 * C - 1)).any()  # the top bit is exercised
+    assert (kp.astype(bool) & kn.astype(bool)).any()
+    if 2 * C > 6 and p >= 0.5:
+        assert most.max() > 6  # dense masks overflow the six slots
 
 
 def test_torch_lif_collision_rule():

@@ -26,6 +26,7 @@ from haghighatshoarmuir2024_tpu_torch.experiments import roofline
 from haghighatshoarmuir2024_tpu_torch.models.snn_beamformer import SNNBeamformer
 from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build
+from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import roofline_kernel as rk
 from haghighatshoarmuir2024_tpu_torch.runtime.streaming import StreamState
 
@@ -212,10 +213,27 @@ def test_torch_roofline_flagship_work_table():
     assert set(work) == set(roofline.UNIT)
     assert all(ops > 0 and nbytes > 0 for ops, nbytes in work.values())
     assert work["rzcc_k1"] == roofline.k1_work(T, B * C, w, W)
+    # K3/K4 counted as their function needs, the pack pass they launch first on its own
+    assert work["lif_pack"] == roofline.pack_work(T, B, C) and work["lif_k3"][1] < work["lif_k4"][1]
     bounds = roofline.bounds(work, dict(int32=1e12, compares=2e12))
     ops, nbytes = work["suppress_k7"]
     assert bounds["suppress_k7"] == roofline.bound(ops, 2e12, nbytes)
     assert all(ms > 0 and by in ("operations", "bytes") for ms, by in bounds.values())
+    pack_ops, pack_bytes = work["lif_pack"]
+    assert roofline.bound(pack_ops, 31e12, pack_bytes)[1] == "bytes"  # at the card's integer rate
+
+
+@pytest.mark.parametrize("C, word", [(1, 4), (14, 4), (16, 4), (17, 8), (32, 8)])
+def test_torch_roofline_pack_work_counts_the_function(C, word):
+    """The pack pass's bytes are its function's: the two one-byte masks in
+    and one mask word per step and row out (32 bits while 2C <= 32), none of
+    the slots or counts its design adds."""
+    T, B = 12_000, 96
+    ops, nbytes = roofline.pack_work(T, B, C)
+    assert nbytes == 2 * T * B * C + word * T * B
+    assert ops == 4 * T * B * C
+    small = torch.zeros((40, 2, C), dtype=torch.bool)
+    assert lk.pack_bipolar_masks_plain(small, small).words.element_size() == word
 
 
 @pytest.mark.parametrize("call", [

@@ -83,6 +83,16 @@ CASES = {
     "ragged": (make_config(2), 37, 5, 0.2),
     "saturating": (make_config(3, w_scale=5000), 30, 3, 0.9),
     "saturating recurrent": (make_config(4, rec_coef=-1, w_scale=5000), 29, 2, 0.9),
+    # the families K4's words and groups of steps meet: dense masks, C = 32
+    # (64-bit words) and C = 1, one batch row, T around the chain's group of
+    # 8 steps
+    "dense": (make_config(5, C=14, N=30, w_scale=3), 40, 2, 0.9),
+    "C=32": (make_config(6, C=32, N=24, w_scale=8), 40, 2, 0.1),
+    "C=1": (make_config(7, C=1, N=16, w_scale=60), 40, 3, 0.5),
+    "B=1": (make_config(8), 40, 1, 0.2),
+    "T=1": (make_config(9, w_scale=200), 1, 3, 0.5),
+    "T=7": (make_config(10), 7, 3, 0.3),
+    "T=9": (make_config(11), 9, 3, 0.3),
 }
 
 
