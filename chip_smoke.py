@@ -12,7 +12,12 @@ Phases, each failing the run with a non-zero exit:
 2. build: compiles ``csrc/*.cu`` with nvcc for sm_90a and loads the library;
 3. K1/K2 (fused bipolar RZCC) against the plain PyTorch versions on the card,
    bit-exact: random cumsums with plateaus, exact ties, dense chains, wide
-   windows, ragged shapes and the flagship ``cs``;
+   windows, ragged shapes, the edges of the kernels' bit-word layout (T and
+   tiles ending mid-word, rows in and out of the four-rows-a-word path,
+   masks at an odd byte offset, candidates at t = 0 and T - 1, all-candidate
+   rows beside empty rows in one warp), the widest window the shared memory
+   takes (one more must raise) and the flagship ``cs``; K1 and K2 are also
+   timed through the library's launch functions alone;
 4. K3 (integer LIF counts: the pack pass, then the chain) against the plain
    simulator on the card, bit-exact: random and saturating configs, ragged T
    (1, 7, 9 around the chain's group of 8 steps, 513 across its stage of 512,
@@ -70,7 +75,8 @@ Phases, each failing the run with a non-zero exit:
 15. K7 (one-plane suppression behind ``select_by_distance_tm``) and
     ``rzcc_select_bipolar_tm`` (on K2) bit-exact against ``select_by_distance``
     on the card: random cumsums, dense chains across tiles, exact ties,
-    ragged shapes, empty, wide windows (and the too-wide one raising), and the
+    ragged shapes, empty, the bit-word layout's edges as in phase 3, wide
+    windows up to the widest the shared memory takes (one more raising), and the
     flagship ``cs`` maxima, where K7's kept mask must equal
     ``rzcc_encode_bipolar_tm``'s ``kept_pos`` and ``rzcc_select_bipolar_tm``
     both of its outputs; the K7 launches of one ``select_by_distance_tm`` call
@@ -144,6 +150,41 @@ def mismatches(a, b) -> int:
     return int((a.to("cpu").long() != b.to("cpu").long()).sum())
 
 
+def widest_distance(sk, W: int = 0) -> int:
+    """The largest suppression distance whose halo fits the suppression
+    kernels' shared memory: K1's with the plateau bound ``W``, K2/K7's with
+    ``W = 0``.  The first design took 125 (K2/K7); no later one may take less."""
+    def fits(d):
+        return sk.library().hm_rzcc_smem_bytes(sk.TB, sk._margin(d - 1, W)) <= sk.SMEM_MAX
+
+    d = 2
+    while fits(d + 1):
+        d += 1
+    return d
+
+
+def must_raise_too_wide(fn, label: str):
+    try:
+        fn()
+    except ValueError:
+        return
+    fail(f"{label}: a window too wide for shared memory did not raise ValueError")
+
+
+def raw_launch_ms(torch, fn, *args, reps: int = 50) -> float:
+    """Device milliseconds of one of the library's C launch functions on
+    tensors allocated beforehand: a kernel without its wrapper's host work
+    (checks, allocations, a device context), which for K1, K2 and K7 is of
+    the order of the launch itself and can set the wrapper's ``ms``."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*args, stream):
+            fail(f"{fn.__name__} refused its launch")
+
+    return timed_ms(torch, launch, reps)
+
+
 # ------------------------------------------------------------------ phase 3
 def check_suppress(torch, sk, peaks, dev, flagship_cs):
     rng = np.random.default_rng(SEED + 11)
@@ -184,12 +225,30 @@ def check_suppress(torch, sk, peaks, dev, flagship_cs):
     wrapper_case(np.cumsum(rng.standard_normal((9, 203)).astype(np.float32), axis=-1), 5, 10, "ragged")
     wrapper_case(np.cumsum(rng.standard_normal((33, 1)).astype(np.float32), axis=-1), 12, 24, "T=1")
 
+    # the word layout's edges: T and tiles that end mid-word, rows inside the
+    # four-rows-a-word path but not a multiple of the block (36) and outside it
+    # (37), a plateau longer than a word, T shorter than a word
+    for rows, T in ((36, sk.TB + 13), (37, 2 * sk.TB + 45), (4, 33)):
+        cs = np.cumsum(rng.standard_normal((rows, T)).astype(np.float32), axis=-1)
+        cs[:, 3:12] = cs[:, 3:4]
+        if T > 100:
+            cs[0, 20:61] = cs[0, 20]
+        for d, W in ((12, 24), (40, 24), (12, 60)):
+            wrapper_case(cs, d, W, f"word edges {rows}x{T}")
+    # the widest window K1's shared memory takes (W = 24), and the first past it
+    d_k1 = widest_distance(sk, 24)
+    wrapper_case(wide, d_k1, 24, "widest window")
+    wide_tm = torch.as_tensor(np.ascontiguousarray(wide.T), device=dev)
+    must_raise_too_wide(lambda: sk.rzcc_encode_bipolar_tm(wide_tm, d_k1 + 1, 24), f"K1 d={d_k1 + 1}")
+
     # K2 fixed point from given candidates: exact ties and dense chains
-    def k2_case(h_rt: np.ndarray, cand_rt: np.ndarray, d, label):
+    def k2_case(h_rt: np.ndarray, cand_rt: np.ndarray, d, label, odd=False):
         nonlocal n_cases
         w = int(np.ceil(d)) - 1
         h_tm = torch.as_tensor(np.ascontiguousarray(h_rt.T), device=dev)
         act = torch.as_tensor(np.ascontiguousarray(cand_rt.T), device=dev)
+        if odd:  # masks at an odd byte offset: one byte a row, not four rows a word
+            act = odd_offset(torch, act)
         none = torch.zeros_like(act)
         kept_p, kept_n = torch.zeros_like(act), torch.zeros_like(act)
         ap, an, rounds = act, none, 0
@@ -217,6 +276,26 @@ def check_suppress(torch, sk, peaks, dev, flagship_cs):
     dense = rng.standard_normal((5, 3000)).astype(np.float32)
     max_rounds = max([max_rounds] + [k2_case(dense, np.ones_like(dense, bool), d, "dense chains")
                                      for d in (11, 40)])
+    # candidates at t = 0 and t = T - 1, T not a multiple of the word, rows
+    # not of the block; then all-candidate rows beside empty rows in one warp
+    edge_h = rng.standard_normal((37, 2 * sk.TB + 13)).astype(np.float32)
+    edge_c = rng.random(edge_h.shape) < 0.05
+    edge_c[:, [0, -1]] = True
+    for d in (5, 12, 33, 65):
+        k2_case(edge_h, edge_c, d, "candidates at both ends")
+    k2_case(edge_h, edge_c, 12, "candidates at both ends, odd byte offset", odd=True)
+    mixed_h = rng.standard_normal((36, sk.TB + 200)).astype(np.float32)
+    mixed_c = np.ones_like(mixed_h, bool)
+    mixed_c[1::2] = False
+    for d in (11, 40):
+        max_rounds = max(max_rounds, k2_case(mixed_h, mixed_c, d, "dense rows beside empty rows"))
+    # the widest window K2's shared memory takes, and the first past it
+    d_k2 = widest_distance(sk)
+    if d_k2 < 125:
+        fail(f"K2/K7 take distance <= {d_k2}: narrower than the first design's 125")
+    k2_case(edge_h, edge_c, d_k2, "widest window")
+    k2_args = [torch.zeros((8, 4), dtype=torch.bool, device=dev) for _ in range(4)]
+    must_raise_too_wide(lambda: sk.rzcc_k2(torch.zeros((8, 4), device=dev), *k2_args, d_k2), f"K2 d={d_k2 + 1}")
 
     # the flagship cs: the whole wrapper, then K1 and one K2 launch alone
     T, R = flagship_cs.shape
@@ -235,7 +314,8 @@ def check_suppress(torch, sk, peaks, dev, flagship_cs):
         fail(f"flagship cs: wrapper {bad}, K1 {k1_bad}, K2 {k2_bad} elements differ")
     n_cases += 1
     spikes = int(kp.sum()) + int(kn.sum())
-    print(f"[K1/K2] {n_cases} cases bit-exact vs plain (dense chains up to {max_rounds} K2 rounds); "
+    print(f"[K1/K2] {n_cases} cases bit-exact vs plain (dense chains up to {max_rounds} K2 rounds; tiles of "
+          f"{sk.TB} samples; widest distance K1 {d_k1} at W = 24, K2 {d_k2}, one more raises); "
           f"flagship cs {T}x{R}: {spikes} spikes, K1 and one K2 launch bit-exact", flush=True)
 
     ms_k1 = timed_ms(torch, lambda: sk.rzcc_k1(flagship_cs, w, W), 20)
@@ -244,9 +324,17 @@ def check_suppress(torch, sk, peaks, dev, flagship_cs):
     ms_k2_plain = timed_ms(torch, lambda: sk._k2_plain(flagship_cs, *k1_ref, w), 5)
     ms_rzcc = timed_ms(torch, lambda: sk.rzcc_encode_bipolar_tm(flagship_cs, 12, 24), 20)
     ms_rzcc_plain = timed_ms(torch, lambda: sk.rzcc_encode_bipolar_tm_plain(flagship_cs, 12, 24), 5)
+    lib, ptr = sk.library(), (lambda t: t.data_ptr())
+    outs = [torch.empty_like(m) for m in k1]
+    flags = torch.empty((-(-T // sk.TB), -(-R // lib.hm_rzcc_rows_per_block())), dtype=torch.int32, device=dev)
+    raw_k1 = raw_launch_ms(torch, lib.hm_rzcc_k1, ptr(flagship_cs), *map(ptr, outs), T, R, w, W,
+                           sk._margin(w, W), sk.TB)
+    # K1's masks in, as the flagship's one K2 launch; the kept bits it sets again are the same bits
+    raw_k2 = raw_launch_ms(torch, lib.hm_rzcc_k2, ptr(flagship_cs), ptr(k1[0]), ptr(k1[1]), ptr(outs[0]),
+                           ptr(outs[1]), ptr(k1[2]), ptr(k1[3]), ptr(flags), T, R, w, sk._margin(w), sk.TB)
     return {
-        "k1": dict(max_abs_err=float(k1_bad), ms=ms_k1, plain_ms=ms_k1_plain),
-        "k2": dict(max_abs_err=float(k2_bad), ms=ms_k2, plain_ms=ms_k2_plain),
+        "k1": dict(max_abs_err=float(k1_bad), ms=ms_k1, plain_ms=ms_k1_plain, raw_ms=raw_k1),
+        "k2": dict(max_abs_err=float(k2_bad), ms=ms_k2, plain_ms=ms_k2_plain, raw_ms=raw_k2),
         "rzcc_ms": ms_rzcc, "rzcc_plain_ms": ms_rzcc_plain,
     }
 
@@ -946,14 +1034,38 @@ def check_k7(torch, sk, peaks, _build, dev, flagship_cs, flagship_kept):
     drift = np.cumsum(np.sin(2 * np.pi * t / 900.0)[None, :]
                       + 0.3 * rng.standard_normal((3, 4000)).astype(np.float32), axis=-1)
     drift_max = peaks.local_maxima_mask(torch.as_tensor(drift)).numpy()
-    for d in (24, 80, 120):
+    d_max = widest_distance(sk)
+    for d in (24, 80, 120, d_max):
         case(drift_max, drift, d, "wide window")
-    try:
-        sk.select_by_distance_tm(torch.as_tensor(drift_max.T.copy(), device=dev),
-                                 torch.as_tensor(drift.T.copy(), device=dev), 200)
-        fail("K7: a window too wide for shared memory did not raise")
-    except ValueError:
-        pass
+    must_raise_too_wide(lambda: sk.select_by_distance_tm(torch.as_tensor(drift_max.T.copy(), device=dev),
+                                                         torch.as_tensor(drift.T.copy(), device=dev), d_max + 1),
+                        f"K7 d={d_max + 1}")
+    # the word layout's edges: candidates at t = 0 and t = T - 1 with T and
+    # the tiles ending mid-word, rows in (36) and out of (37) the
+    # four-rows-a-word path, all-candidate rows beside empty rows in one warp,
+    # masks at an odd byte offset
+    for rows, T in ((36, sk.TB + 13), (37, 2 * sk.TB + 45), (3, 33)):
+        eh = rng.standard_normal((rows, T)).astype(np.float32)
+        ec = rng.random(eh.shape) < 0.05
+        ec[:, [0, -1]] = True
+        for d in (5, 12, 33, 65):
+            case(ec, eh, d, f"candidates at both ends {rows}x{T}")
+    mixed_h = rng.standard_normal((36, sk.TB + 200)).astype(np.float32)
+    mixed_c = np.ones_like(mixed_h, bool)
+    mixed_c[1::2] = False
+    for d in (11, 40):
+        case(mixed_c, mixed_h, d, "dense rows beside empty rows")
+    odd_h = torch.as_tensor(np.ascontiguousarray(mixed_h.T), device=dev)
+    cand_tm = torch.as_tensor(np.ascontiguousarray(mixed_c.T), device=dev)
+    act, kept = odd_offset(torch, cand_tm), odd_offset(torch, torch.zeros_like(cand_tm))
+    while True:  # K7 itself on masks at an odd byte offset: one byte a row, not four rows a word
+        act, flags = sk.suppress_k7(odd_h, act, kept, 11)
+        act = odd_offset(torch, act)
+        if not bool(flags.any()):
+            break
+    if mismatches(kept, sk.select_by_distance_tm_plain(cand_tm, odd_h, 12)):
+        fail("K7 masks at an odd byte offset: differs from select_by_distance")
+    n_cases += 1
     inf_h = drift.copy()
     inf_h[0, np.flatnonzero(drift_max[0])[0]] = -np.inf
     try:
@@ -993,14 +1105,19 @@ def check_k7(torch, sk, peaks, _build, dev, flagship_cs, flagship_kept):
         fail(f"flagship cs: one K7 launch differs from one plain round in {launch_bad} elements")
     n_cases += 1
     print(f"[K7] {n_cases} cases bit-exact vs plain select_by_distance (random cumsums, dense chains, exact ties, "
-          f"ragged, empty, windows up to d = 120; d = 200 and a -inf candidate height raise); flagship maxima "
+          f"ragged, empty, word and tile edges, windows up to d = {d_max}; d = {d_max + 1} and a -inf candidate height "
+          f"raise); flagship maxima "
           f"{T}x{R}: launches {launches}, kept == rzcc_encode_bipolar_tm's kept_pos, rzcc_select_bipolar_tm "
           "== both outputs", flush=True)
     ms = timed_ms(torch, lambda: sk.suppress_k7(flagship_cs, maxima, kept1, w), 20)
     plain_ms = timed_ms(torch, lambda: sk._k7_plain(flagship_cs, maxima, ref_kept, w), 5)
     call_ms = timed_ms(torch, lambda: sk.select_by_distance_tm(maxima, flagship_cs, 12), 20)
     call_plain_ms = timed_ms(torch, lambda: sk.select_by_distance_tm_plain(maxima, flagship_cs, 12), 5)
-    return launches, dict(max_abs_err=float(launch_bad), ms=ms, plain_ms=plain_ms,
+    lib, ptr = sk.library(), (lambda t: t.data_ptr())
+    flags = torch.empty((-(-T // sk.TB), -(-R // lib.hm_rzcc_rows_per_block())), dtype=torch.int32, device=dev)
+    raw_ms = raw_launch_ms(torch, lib.hm_suppress_k7, ptr(flagship_cs), ptr(maxima), ptr(act2), ptr(kept1),
+                           ptr(flags), T, R, w, sk._margin(w), sk.TB)
+    return launches, dict(max_abs_err=float(launch_bad), ms=ms, plain_ms=plain_ms, raw_ms=raw_ms,
                           call_ms=call_ms, call_plain_ms=call_plain_ms)
 
 
@@ -1235,7 +1352,8 @@ def main() -> int:
     for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("pack", pack), ("K3 (pack included)", lif),
                     ("K4 (pack included)", lif4), ("K5", k5), ("K6", k6), ("K7", k7)):
         print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms"
-              + (f" (the LIF integers uploaded once: {k['params_ms']:.3f} ms)" if "params_ms" in k else ""))
+              + (f" (the LIF integers uploaded once: {k['params_ms']:.3f} ms)" if "params_ms" in k else "")
+              + (f" (the launch alone, outputs allocated once: {k['raw_ms']:.3f} ms)" if "raw_ms" in k else ""))
     print(f"{tag} K3 with the LIF integers uploaded once: flagship masks {lif['params_ms']:.3f} ms; the same "
           f"with six set bits a chunk of {CHAIN_STAGE} (six slots read in every chunk) {lif['six_ms']:.3f} ms")
     print(f"{tag} select_by_distance_tm on the flagship maxima ({k7_launches['suppress_k7']} K7 launches): "
@@ -1314,7 +1432,7 @@ def main() -> int:
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None,
-                        **({"params_ms": res["params_ms"]} if "params_ms" in res else {})})
+                        **{k: res[k] for k in ("params_ms", "raw_ms") if k in res}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

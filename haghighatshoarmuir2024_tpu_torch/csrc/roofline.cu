@@ -79,8 +79,8 @@ constexpr int P2_RB = 32;  // rows per tile: threadIdx.x, as K1/K2/K7
 constexpr int P2_TY = 8;   // warps per block, strided over time: threadIdx.y
 constexpr float P2_LOW = -3.0e38f, P2_HIGH = 3.0e38f;  // the Pallas probe's fills
 
-// K2/K7's tile at the flagship: TB = 256 samples plus the halo _margin(11)
-// = 48 on each side.  PER of them per thread in registers.
+// The tile of K2/K7's first design at the flagship: 256 samples plus the
+// halo _margin(11) = 48 on each side.  PER of them per thread in registers.
 constexpr int P2_PER = 44;
 constexpr int P2_TBE = P2_PER * P2_TY;
 

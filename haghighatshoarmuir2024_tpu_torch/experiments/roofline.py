@@ -33,7 +33,7 @@ maximum SM clock ``nvidia-smi`` reports:
   Herk / Gil-Werman: a prefix and a suffix scan per block of L, and one
   compare to join them), a shift one; against the guide's 64 compare,
   minimum or maximum per SM and clock, or P2's executed rate.  A round
-  counts only the 256 × 32 tiles it does not skip.
+  counts only the tiles (``suppress_kernel.TB`` samples × 32 rows) it does not skip.
 
 Counts come from the shapes and the inputs' set bits, never from padding.
 :func:`flagship_work` is the one table of what each kernel is counted for;
@@ -170,7 +170,8 @@ def k3_launch_shape(B: int, C: int, N: int, T: int) -> tuple[int, int, int]:
 
 
 def p2_ceiling(w: int, reps: int, rep: int = 32, blocks_per_sm: int = 12) -> dict:
-    """P2 on one (352, 32) tile per block, ``blocks_per_sm`` blocks per SM:
+    """P2 on one (352, 32) tile per block (the tile of K2/K7's first design, which did
+    such shifted reads; the kernels now work on bit words), ``blocks_per_sm`` blocks per SM:
     the compares it executes per second (one per shifted read), and its
     output against the plain version."""
     dev = _require_cuda()

@@ -140,6 +140,7 @@ class Demo:
         self._doa_t = torch.as_tensor(self.doa_list, device=self.device)
         self._profiles = None
         self._profiles_t = None
+        self._profiles_stacked = None
         self._lif = None
 
     def _initialize_snn_module(self, target_dt: float) -> None:
@@ -172,8 +173,9 @@ class Demo:
     def save(self, path: str) -> None:
         """Write the ``.npz`` of the JAX ``Demo.save`` (JAX
         ``pipeline.py:466-500``): geometry, ``bf_i``, the quantized config's
-        integers and, if calibrated, the profiles.  Either package's
-        :meth:`load` reads it."""
+        integers and, if calibrated, the profiles; a band-stacked table that
+        a loaded checkpoint brought is written back as it came.  Either
+        package's :meth:`load` reads it."""
         cfg = self.xylo_config
         arrays = {
             "r_vec": self.geometry.r_vec,
@@ -192,14 +194,17 @@ class Demo:
             arrays[f"bf_{i}"] = m
         if self._profiles is not None:
             arrays["profiles"] = self._profiles
+        if self._profiles_stacked is not None:
+            arrays["profiles_stacked"] = self._profiles_stacked
         np.savez(path, **arrays)
 
     @classmethod
     def load(cls, path: str, device=None) -> "Demo":
         """A Demo from the ``.npz`` that either package's ``Demo.save`` writes
         (JAX ``pipeline.py:502-561``): geometry, ``bf_i``, the quantized
-        config's integers and the profiles, restored verbatim, on ``device``
-        (the card unless ``"cpu"`` is asked for)."""
+        config's integers, the profiles and the band-stacked profiles (kept
+        for :meth:`save`; no estimator of the port reads them yet), restored
+        verbatim, on ``device`` (the card unless ``"cpu"`` is asked for)."""
         device = resolve_device(device)
         z = np.load(path, allow_pickle=False)
         rec_dur, ker_dur, fs, bipolar, dt = z["params"]
@@ -227,6 +232,8 @@ class Demo:
         )
         if "profiles" in z:
             self._set_profiles(z["profiles"])
+        if "profiles_stacked" in z:
+            self._profiles_stacked = np.asarray(z["profiles_stacked"])
         return self
 
     # ------------------------------------------------------- matched profiles

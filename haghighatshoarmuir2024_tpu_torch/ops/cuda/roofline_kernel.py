@@ -6,8 +6,9 @@ the Pallas probes of the TPU's roofline harness ``experiments/vpu_roofline.py``.
   10 nominal operations per element and iteration, as the TPU harness
   counts them (``:129``).
 - P2, :func:`shiftmax` (``_shiftmax_peak_kernel``, ``:163``): dilated doubling
-  max-down / min-up chains over (352, 32) float32 tiles, K2/K7's tile at the
-  flagship, ``rep`` times; :func:`shiftmax_pairs` counts the chain steps it
+  max-down / min-up chains over (352, 32) float32 tiles, the tile of K2/K7's
+  first design at the flagship (the suppression kernels have since moved to
+  bit words and a 512-sample tile), ``rep`` times; :func:`shiftmax_pairs` counts the chain steps it
   executes (a shifted shared-memory read plus a max or min each).
 - P3, :func:`lif_count_kstep` (``_lif_kernel_bipolar_k``, ``:226``): K3's
   counts on the flagship fast path, dense currents staged per chunk and
@@ -26,7 +27,7 @@ from ._build import check, launch_counts, library, require_cuda, stream_handle
 
 P1_OPS_PER_STEP = 10  # 9 ALU operations + 1 for the loop, the TPU harness's nominal count
 P2_ROWS = 32  # rows per P2 tile, as the suppression kernels' blocks
-P2_TBE = 352  # samples per P2 tile: TB = 256 plus the halo _margin(11) = 48 on each side
+P2_TBE = 352  # samples per P2 tile: 256 plus the halo _margin(11) = 48 on each side (K2/K7's first tile)
 P2_LOW, P2_HIGH = -3.0e38, 3.0e38  # the Pallas probe's fills
 
 

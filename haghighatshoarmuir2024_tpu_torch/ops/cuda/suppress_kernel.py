@@ -16,10 +16,21 @@
   their own input, on K7 (``_round_kernel``, ``:124``), repeated to the
   fixed point (``:235-245``).
 
+A block keeps every flag of its tile as a bit, 32 consecutive samples of a
+row to a word, and does the round's neighbour logic on those words; heights
+are read only where candidates are.  It stages ``TB`` samples of 32 rows with
+the halo :func:`_margin` on both sides, rounded up to whole words: the staged
+floats and six bit planes, 4.75 bytes a sample
+(``hm_rzcc_smem_bytes`` is the one formula, the kernels' and the check's).
+Where the rows are a multiple of 4 and the masks 4-byte aligned, four rows'
+mask bytes move as one word; otherwise byte by byte.
+
 The flag sum is read on the host after each K2/K7 launch.  A window too wide
-for a block's shared memory raises ``ValueError`` (the JAX ops fall back to
-XLA there, ``:708-722``).  Heights that are not finite at a candidate raise
-``ValueError`` before any work: the JAX ops never finish on them.
+for a block's shared memory (``TB + 2·_margin`` beyond 1504 samples: a
+``distance`` above 162 for K2/K7, above 154 for K1 at ``max_plateau`` 24)
+raises ``ValueError`` (the JAX ops fall back to XLA there, ``:708-722``).
+Heights that are not finite at a candidate raise ``ValueError`` before any
+work: the JAX ops never finish on them.
 
 On CPU tensors the wrappers run the plain versions in ``ops/peaks.py``; on
 CUDA tensors they launch the kernels or raise.
@@ -33,7 +44,7 @@ import torch
 from .. import peaks
 from ._build import check, launch_counts, library, require_cuda, stream_handle
 
-TB = 256  # time samples a block owns; its halo is _margin on both sides
+TB = 512  # time samples a block owns (a multiple of 32); its halo is _margin on both sides
 SMEM_MAX = 232_448  # shared memory a Hopper block may use (227 KB)
 
 

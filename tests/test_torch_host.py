@@ -1,6 +1,8 @@
 """Host side of the PyTorch port against the JAX package: geometry arrays,
 design cache keys and the bundled designs, the quantized config, the static
-no-saturation proof, and JAX ``Demo.save`` → port ``Demo.load``."""
+no-saturation proof, JAX ``Demo.save`` → port ``Demo.load``, and a JAX
+checkpoint through the port's ``load`` → ``save`` back into the JAX
+``Demo.load`` with every array byte-equal (``profiles_stacked`` included)."""
 import os
 
 import numpy as np
@@ -149,6 +151,38 @@ def test_torch_demo_load_reads_jax_save(demos, tmp_path):
     assert ld.geometry.r_vec.tobytes() == jd.geometry.r_vec.tobytes()
     assert ld.robust_width == td.robust_width and ld.fs == 48_000.0
     np.testing.assert_array_equal(ld.doa_list, td.doa_list)
+
+
+@pytest.mark.parametrize("stacked", [True, False], ids=["profiles_stacked", "no_profiles_stacked"])
+def test_torch_demo_load_save_keeps_jax_checkpoint(demos, tmp_path, stacked):
+    """A JAX checkpoint loaded and saved again by the port holds the same
+    arrays byte for byte, the band-stacked profile table too where the JAX
+    Demo had one, and the JAX ``Demo.load`` reads it back."""
+    jd, _ = demos
+    jd.save(str(tmp_path / "calibrated.npz"))
+    src = JaxDemo.load(str(tmp_path / "calibrated.npz"))  # a copy: the fixture stays as it is
+    table = None
+    if stacked:
+        table = np.random.default_rng(3).standard_normal((2, 5, G)).astype(np.float32)
+        src._profiles_stacked = table
+    jax_path, port_path = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    src.save(jax_path)
+    ld = Demo.load(jax_path, device="cpu")
+    ld.save(port_path)
+    za, zb = np.load(jax_path), np.load(port_path)
+    assert sorted(za.files) == sorted(zb.files)
+    assert ("profiles_stacked" in zb.files) == stacked
+    for name in za.files:
+        assert za[name].dtype == zb[name].dtype and za[name].shape == zb[name].shape, name
+        assert za[name].tobytes() == zb[name].tobytes(), name
+    back = JaxDemo.load(port_path)
+    if stacked:
+        assert ld._profiles_stacked.tobytes() == table.tobytes()
+        assert back._profiles_stacked.dtype == table.dtype
+        assert back._profiles_stacked.tobytes() == table.tobytes()
+    else:
+        assert ld._profiles_stacked is None and getattr(back, "_profiles_stacked", None) is None
+    np.testing.assert_array_equal(np.asarray(back._profiles), np.asarray(jd._profiles))
 
 
 def test_torch_demo_without_bundled_design_raises():
