@@ -58,20 +58,38 @@ Phases, each failing the run with a non-zero exit:
    must pass with them;
 10. unipolar: the unipolar flagship designs and calibrates itself on the
     card; ``forward_batch(method="matched")`` on the 96 frames must launch
-    K1, K2 and K5 (once), give the plain path's DoAs and a doa-ok-frac @5°
-    not below the JAX package's on the same frames less one frame;
-11. K5 (integer LIF counts from one int8 raster) against the plain simulator
-    on the card, bit-exact: the unipolar flagship masks, the bipolar
-    combined raster, multi-count values on the clip path, negative values,
-    C = 84 and C = 128, ragged T, rec_coef = -1, B = 3;
-12. forward: ``Demo.forward`` on single frames, bipolar and unipolar: one K5
-    launch per frame, the rate equal to ``forward_batch``'s row; prints the
-    single-frame latency;
+    K1, K2, the raster pack pass and K5 (once each), give the plain path's
+    DoAs and a doa-ok-frac @5° not below the JAX package's on the same
+    frames less one frame;
+11. K5 (integer LIF counts from one int8 raster: the raster pack pass, then
+    the tensor-core fill and the chain) against the plain simulator on the
+    card, bit-exact: the unipolar flagship masks, the bipolar combined
+    raster, multi-count values on the clip path, negative values, C = 84
+    and C = 128, ragged T, rec_coef = -1, B = 3; C = 1, 31, 32, 33, 64, 65
+    around the k-tiles of 16 channels, a bool raster, the values -128 and
+    127, weights of magnitude 127 and 128 (one int8 plane, then two byte
+    planes), within and beyond int16, T = 15, 16, 17 around the group of 16
+    steps, rec_coef = -1 at N = 1000 and C = 128 (the most shared memory), a
+    raster at an odd byte offset, and a dense multi-valued raster of the
+    flagship's size (timed too); the raster pack kernel bit-exact against
+    ``pack_raster_plain`` on every case; the bipolar flagship's combined
+    raster of all rows through K5 must give K3's counts (timed beside K3);
+    timed only, at the flagship's size: int8 weights of 42, 64, 84 and 128
+    channels (the fragments in registers), two byte planes (the fragments
+    read again each group), and, for the raster
+    pack's ``library_ms``, ``torch.nn.functional.pad`` of the transposed
+    raster, the one PyTorch call of its function (held equal to it);
+12. forward: ``Demo.forward`` on single frames, bipolar and unipolar: one
+    raster pack and one K5 launch per frame, the rate equal to
+    ``forward_batch``'s row; prints the single-frame latency;
 13. K6 (stateful K5) bit-exact on counts and final state: flagship from zero
     and carried, two chunks carried = one pass, ragged T, the clip path from
-    a saturated state, rec_coef = -1;
-14. unipolar streaming: 96 streams x 4 chunks: K6 launches once per chunk,
-    spikes and counts equal the plain RZCC + plain K6 steps;
+    a saturated state, rec_coef = -1; C = 33 and 65 with negative values, a
+    bool raster, two byte planes, chunks of 15, 16, 17 and 1 steps carried
+    equal to one pass, rec_coef = -1 at N = 1000 and C = 128 carried;
+14. unipolar streaming: 96 streams x 4 chunks: the raster pack pass and K6
+    launch once per chunk, spikes and counts equal the plain RZCC + plain K6
+    steps;
 15. K7 (one-plane suppression behind ``select_by_distance_tm``) and
     ``rzcc_select_bipolar_tm`` (on K2) bit-exact against ``select_by_distance``
     on the card: random cumsums, dense chains across tiles, exact ties,
@@ -142,6 +160,23 @@ def timed_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(torch, fn):
+    """``fn()`` and the device milliseconds of that one call, by CUDA
+    events: for the LIF kernels' plain versions, seconds a call at the
+    flagship, whose check against the kernel is also their timing."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lap(t0: float, done: str) -> None:
+    """Where the script's time goes: seconds since its start, after ``done``."""
+    print(f"[clock] {time.perf_counter() - t0:.1f} s: {done}", flush=True)
 
 
 def mismatches(a, b) -> int:
@@ -440,14 +475,13 @@ def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
     make = functools.partial(make_config, XyloConfig)
     rand = functools.partial(masks, torch, dev)
     cases = lif_cases(torch, make, rand, flagship_config, flagship_masks)
-    pack_bad = 0
+    pack_bad, plain_ms = 0, {}
     for label, cfg, (kp, kn), must_clip in cases:
         if must_clip and lk._no_saturation_possible(cfg, 1, 0):
             fail(f"K3 {label}: the case was meant to exercise the clip path")
         pack_bad += check_pack(torch, lk, kp, kn, label)
         got = lk.lif_count_rates_bipolar(cfg, kp, kn, spike_bound=1)
-        ref = lk.lif_count_plain(cfg, kp, kn)
-        torch.cuda.synchronize()
+        ref, plain_ms[label] = timed_once(torch, lambda: lk.lif_count_plain(cfg, kp, kn))
         bad = mismatches(got, ref)
         if bad:
             fail(f"K3 {label}: {bad} counts differ from the plain simulator")
@@ -478,17 +512,16 @@ def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
     params_ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(params, kp, kn), 20)
     kp6, kn6 = six_bits_every_chunk(kp, kn)
     six_ms = timed_ms(torch, lambda: lk.lif_count_rates_bipolar(params, kp6, kn6), 20)
-    plain_ms = timed_ms(torch, lambda: lk.lif_count_plain(flagship_config, kp, kn), 1)
     pack = dict(max_abs_err=float(pack_bad), ms=timed_ms(torch, lambda: lk.pack_bipolar_masks(kp, kn), 20),
                 plain_ms=timed_ms(torch, lambda: lk.pack_bipolar_masks_plain(kp, kn), 3))
-    return dict(max_abs_err=0.0, ms=ms, params_ms=params_ms, six_ms=six_ms, plain_ms=plain_ms), pack
+    return dict(max_abs_err=0.0, ms=ms, params_ms=params_ms, six_ms=six_ms, plain_ms=plain_ms["flagship"]), pack
 
 
 # ------------------------------------------------------------------ phase 6
 def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
     make = functools.partial(make_config, XyloConfig)
     rand = functools.partial(masks, torch, dev)
-    n_cases, worst = 0, 0
+    n_cases, worst, plain_ms = 0, 0, {}
 
     def zeros(B, N):
         return tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))
@@ -497,8 +530,7 @@ def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_mas
         nonlocal n_cases, worst
         check_pack(torch, lk, kp, kn, label)
         got = lk.lif_count_stateful_bipolar(cfg, kp, kn, *state0, spike_bound=1)
-        ref = lk.lif_count_stateful_bipolar_plain(cfg, kp, kn, *state0)
-        torch.cuda.synchronize()
+        ref, plain_ms[label] = timed_once(torch, lambda: lk.lif_count_stateful_bipolar_plain(cfg, kp, kn, *state0))
         bad = sum(mismatches(a, b) for a, b in zip(got, ref))
         if bad:
             fail(f"K4 {label}: {bad} elements of counts/isyn/vmem/spk differ from the plain simulator")
@@ -560,8 +592,7 @@ def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_mas
     params = lk.lif_params(flagship_config, dev, spike_bound=1)  # as the streaming runtime passes them
     ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(flagship_config, kp2, kn2, *first[1:]), 20)
     params_ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(params, kp2, kn2, *first[1:]), 20)
-    plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar_plain(flagship_config, kp2, kn2, *first[1:]), 1)
-    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms)
+    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms["flagship chunk 2, carried"])
 
 
 # ------------------------------------------------------------------ phase 7
@@ -788,8 +819,8 @@ def check_unipolar(torch, sk, lk, _build, Demo, flagship, frames, doas):
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     if launches.get("rzcc_k1") != 1 or launches.get("rzcc_k2", 0) < 1 or launches.get("lif_k5") != 1 \
-            or "lif_k3" in launches or "lif_pack" in launches:
-        fail(f"the unipolar batch run launched {launches}; expected K1 once, K2, K5 once")
+            or launches.get("lif_pack_raster") != 1 or "lif_k3" in launches or "lif_pack" in launches:
+        fail(f"the unipolar batch run launched {launches}; expected K1 once, K2, the raster pack and K5 once")
     B, T, _ = frames.shape
     cs = udemo.encode(frames)
     p_kp, _ = sk.rzcc_encode_bipolar_tm_plain(cs.reshape(T, B * cs.shape[-1]), udemo.robust_width,
@@ -815,10 +846,65 @@ def raster(torch, dev, seed, T, B, C, p, lo=1, hi=2):
     return torch.as_tensor(v.astype(np.int8), device=dev)
 
 
-def check_k5(torch, lk, XyloConfig, dev, ucfg, u_spikes, bcfg, b_spikes):
+def with_weights(config, entries):
+    """``config`` with the ``w_in`` entries ``{(row, column): value}`` set."""
+    w = np.array(config.w_in)
+    for at, v in entries.items():
+        w[at] = v
+    return dataclasses.replace(config, w_in=w)
+
+
+def check_raster_pack(torch, lk, spikes, label):
+    """The raster pack kernel against its plain version; returns the number
+    of differing bytes."""
+    got, ref = lk.pack_raster(spikes), lk.pack_raster_plain(spikes)
+    torch.cuda.synchronize()
+    bad = mismatches(got, ref)
+    if bad:
+        fail(f"raster pack {label}: {bad} bytes differ from the plain version")
+    return bad
+
+
+def raster_cases(torch, lk, make, ras):
+    """K5/K6's case families around the new design's edges: (label, config,
+    raster, spike_bound, planes K5/K6 must take for the config's weights)."""
+    extreme = ras(40, 300, 3, 33, 0.5, -128, 128)
+    extreme[0, 0, 0], extreme[0, 0, 1] = -128, 127
+    int8_cfg = with_weights(make(41, N=70, w_scale=120, rows=14), {(0, 0): 127, (1, 0): -127, (2, 1): -128})
+    cases = [(f"C={C}", make(50 + C, N=70, w_scale=20 if C < 40 else 6, rows=C),
+              ras(50 + C, 300, 2, C, 0.3 if C < 40 else 0.1, -5, 6), None, 1) for C in (1, 31, 32, 33, 64, 65)]
+    cases += [
+        ("bool raster", make(42, N=449, w_scale=49, rows=14), ras(42, 1000, 3, 14, 0.1).bool(), 1, 1),
+        ("values -128 and 127, C=33", make(43, N=70, w_scale=127, rows=33), extreme, None, 1),
+        ("|w| = 127 and -128: one int8 plane", int8_cfg, ras(44, 300, 3, 14, 0.3, 0, 4), None, 1),
+        ("|w| = 128: two byte planes", with_weights(int8_cfg, {(3, 2): 128}), ras(44, 300, 3, 14, 0.3, 0, 4), None, 2),
+        ("weights within int16", with_weights(make(45, N=70, w_scale=30_000, rows=14), {(0, 0): 32767, (1, 1): -32768}),
+         ras(45, 300, 3, 14, 0.2), None, 2),
+        ("weights beyond int16",
+         with_weights(make(46, N=70, w_scale=1_000_000, rows=14), {(0, 0): 32768, (1, 1): -8_388_609}),
+         ras(46, 300, 3, 14, 0.2), None, 4),
+        ("T=15", make(47, N=449, w_scale=49, rows=14), ras(47, 15, 3, 14, 0.3), 1, 1),
+        ("T=16", make(48, N=449, w_scale=49, rows=14), ras(48, 16, 3, 14, 0.3), 1, 1),
+        ("T=17", make(49, N=449, w_scale=49, rows=14), ras(49, 17, 3, 14, 0.3), 1, 1),
+        # a row of 1000 neurons in one block, eight k-tiles: the most shared memory the kernels ask for
+        ("rec_coef=-1, N=1000, C=128", make(39, N=1000, rec=-1, w_scale=4, rows=128),
+         ras(39, 400, 2, 128, 0.05, -3, 4), 3, 1),
+        ("odd byte offset", make(38, N=200, w_scale=49, rows=14), odd_offset(torch, ras(38, 700, 3, 14, 0.2, -3, 4)),
+         None, 1),
+    ]
+    for label, cfg, _, _, planes in cases:
+        if lk.weight_planes(np.asarray(cfg.w_in)) != planes:
+            fail(f"K5/K6 {label}: the case was meant to take {planes} byte planes")
+    return cases
+
+
+def check_k5(torch, lk, XyloConfig, dev, ucfg, u_spikes, bcfg, b_spikes, b_masks):
     make = functools.partial(make_config, XyloConfig)
     ras = functools.partial(raster, torch, dev)
     big = make(21, N=70, w_scale=400, rows=14)
+    T, B, C = u_spikes.shape
+    N = np.asarray(ucfg.w_in).shape[1]
+    dense = ras(37, T, B, C, 0.5, -8, 9)  # the flagship's size, half the entries nonzero, values -8..8
     cases = [
         ("unipolar flagship masks", ucfg, u_spikes, 1),
         ("bipolar flagship combined raster, B=1", bcfg, b_spikes, 1),
@@ -831,34 +917,93 @@ def check_k5(torch, lk, XyloConfig, dev, ucfg, u_spikes, bcfg, b_spikes):
         ("rec_coef=-1, C=128", make(27, N=300, rec=-1, rows=128), ras(27, 800, 2, 128, 0.05, -3, 4), 3),
         ("rec_coef=-1, unipolar flagship width", with_rec(ucfg, -1), u_spikes[:3000].contiguous(), 1),
         ("B=3", make(28, N=449, w_scale=49, rows=14), ras(28, 3000, 3, 14, 0.1), 1),
-    ]
+        ("dense, values -8..8, the flagship's size", ucfg, dense, 8),
+    ] + [c[:4] for c in raster_cases(torch, lk, make, ras)]
     if lk._no_saturation_possible(big, 15, 0):
         fail("K5 clip case: the config was meant to saturate")
-    worst = 0
+    worst, pack_bad, plain_ms = 0, 0, {}
     for label, cfg, spikes, bound in cases:
+        pack_bad += check_raster_pack(torch, lk, spikes, label)
         got = lk.lif_count_rates(cfg, spikes, time_major=True, spike_bound=bound)
-        ref = lk.lif_count_stateful_plain(cfg, spikes)[0]
-        torch.cuda.synchronize()
+        ref, plain_ms[label] = timed_once(torch, lambda: lk.lif_count_stateful_plain(cfg, spikes)[0])
         bad = mismatches(got, ref)
         if bad:
             fail(f"K5 {label}: {bad} counts differ from the plain simulator")
         if int(ref.sum()) == 0:
             fail(f"K5 {label}: no neuron fired, the case checks nothing")
         worst = max(worst, int((got.long() - ref.long()).abs().max()))
-    print(f"[K5] {len(cases)} cases bit-exact vs plain sim_hidden (unipolar flagship masks, bipolar "
-          "combined raster, multi-count clip path, negative values, C = 84 and 128, ragged T, "
-          "rec_coef = -1, B = 3)", flush=True)
+    print(f"[K5] {len(cases)} cases bit-exact vs plain sim_hidden, the raster pack kernel bit-exact vs its plain "
+          "version on each (unipolar flagship masks, bipolar combined raster, multi-count clip path, negative "
+          "values, C = 1, 31, 32, 33, 64, 65, 84, 128, a bool raster, values -128 and 127, |w| = 127 and 128, "
+          "weights within and beyond int16, T = 15, 16, 17, 12001, rec_coef = -1 up to N = 1000 with C = 128, "
+          "an odd byte offset, B = 3, a dense raster of the flagship's size)", flush=True)
     params = lk.lif_params(ucfg, dev, spike_bound=1)  # as Demo passes them
     ms = timed_ms(torch, lambda: lk.lif_count_rates(ucfg, u_spikes, time_major=True, spike_bound=1), 20)
     params_ms = timed_ms(torch, lambda: lk.lif_count_rates(params, u_spikes, time_major=True), 20)
-    plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_plain(ucfg, u_spikes), 1)
-    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms)
+    # the same on the bool masks as the entry points pass them; on a dense binary raster (half the entries
+    # set: the same kernel as the flagship's); and on the dense multi-valued one (its clips are not proven dead)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    coin = lambda channels, p: (torch.rand((T, B, channels), device=dev, generator=gen) < p).to(torch.int8)  # noqa: E731
+    u_bool, dense_binary = u_spikes.bool(), coin(C, 0.5)
+    bool_ms = timed_ms(torch, lambda: lk.lif_count_rates(params, u_bool, time_major=True), 20)
+    dense_binary_ms = timed_ms(torch, lambda: lk.lif_count_rates(params, dense_binary, time_major=True), 20)
+    dense_params = lk.lif_params(ucfg, dev, spike_bound=8)
+    dense_ms = timed_ms(torch, lambda: lk.lif_count_rates(dense_params, dense, time_major=True), 20)
+    pack = dict(max_abs_err=float(pack_bad), ms=timed_ms(torch, lambda: lk.pack_raster(u_spikes), 20),
+                plain_ms=timed_ms(torch, lambda: lk.pack_raster_plain(u_spikes), 3))
+    lib, ptr = lk.library(), (lambda t: t.data_ptr())
+    packed = lk.pack_raster(u_spikes)
+    pack["raw_ms"] = raw_launch_ms(torch, lib.hm_lif_pack_raster, ptr(u_spikes), ptr(packed), T, packed.shape[1], B, C)
+    # the one PyTorch call that computes the pack's function; timed here, used nowhere in the port
+    library = lambda: torch.nn.functional.pad(  # noqa: E731
+        u_spikes.transpose(0, 1), (0, packed.shape[2] - C, 0, packed.shape[1] - T))
+    if mismatches(library(), packed):
+        fail("raster pack: torch.nn.functional.pad of the transposed flagship raster differs from the kernel")
+    pack["library_ms"] = timed_ms(torch, library, 20)
+    counts = torch.empty((B, params.w_in.shape[1]), dtype=torch.int32, device=dev)
+    chain_ms = raw_launch_ms(torch, lib.hm_lif_count, ptr(packed), ptr(params.w_frag), ptr(params.dash_syn),
+                             ptr(params.dash_mem), ptr(params.threshold), ptr(counts),
+                             *lk._raster_args(params, packed, T, counts.shape[1]))
+    # the bipolar flagship through K5: the combined raster [kp & ~kn, kn] of all B rows (2C channels, two
+    # k-tiles) against K3 on the same masks; K5's time with and without making the raster
+    kp, kn = b_masks
+    b_params = lk.lif_params(bcfg, dev, spike_bound=1)
+    combine = lambda: torch.cat([kp & ~kn, kn], dim=-1)  # noqa: E731
+    bad = mismatches(lk.lif_count_rates(b_params, combine(), time_major=True),
+                     lk.lif_count_rates_bipolar(b_params, kp, kn))
+    if bad:
+        fail(f"K5 on the bipolar flagship's combined raster: {bad} counts differ from K3's")
+    combined = combine()
+    bipolar_ms = timed_ms(torch, lambda: lk.lif_count_rates(b_params, combined, time_major=True), 20)
+    bipolar_cat_ms = timed_ms(torch, lambda: lk.lif_count_rates(b_params, combine(), time_major=True), 20)
+    # timed only, at the flagship's size (the case families hold these routes to the plain simulator): int8
+    # weights of more channels, three to eight k-tiles of fragments in registers, with the flagship's decays
+    # and threshold and weights small enough that the clips stay proven dead; and the fragments read again
+    # each group: two byte planes (one flagship weight set to 128)
+    rng, channels_ms = np.random.default_rng(SEED + 60), {}
+    for channels in (42, 64, 84, 128):
+        w_max = min(49, 2000 // channels)
+        wide = dataclasses.replace(ucfg, w_in=rng.integers(-w_max, w_max + 1, size=(channels, N)).astype(np.int32))
+        wide_params, wide_raster = lk.lif_params(wide, dev, spike_bound=1), coin(channels, 0.036)
+        if not wide_params.no_sat or wide_params.w_frag.shape[1:3] != (1, -(-channels // lk.RASTER_K)):
+            fail(f"K5's timed case of {channels} channels was meant to take one plane with the clips proven dead")
+        channels_ms[channels] = timed_ms(
+            torch, lambda: lk.lif_count_rates(wide_params, wide_raster, time_major=True), 20)
+    planes_params = lk.lif_params(with_weights(ucfg, {(0, 0): 128}), dev, spike_bound=1)
+    if planes_params.w_frag.shape[1:3] != (2, 1):
+        fail("K5's timed case of weights outside int8 was meant to take two byte planes")
+    planes_ms = timed_ms(torch, lambda: lk.lif_count_rates(planes_params, u_spikes, time_major=True), 20)
+    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms["unipolar flagship masks"],
+                bool_ms=bool_ms, planes_ms=planes_ms, planes_clip=not planes_params.no_sat, channels_ms=channels_ms,
+                dense_binary_ms=dense_binary_ms, dense_ms=dense_ms, dense_clip=not dense_params.no_sat,
+                chain_ms=chain_ms, bipolar_ms=bipolar_ms, bipolar_cat_ms=bipolar_cat_ms), pack
 
 
 # ------------------------------------------------------------------ phase 12
 def check_forward(torch, _build, demos, frames, n=LATENCY_SAMPLES):
-    """``Demo.forward`` frame by frame: one K5 launch each, the rate equal to
-    the batch forward's row; blocking single-frame latency."""
+    """``Demo.forward`` frame by frame: one raster pack and one K5 launch
+    each, the rate equal to the batch forward's row; blocking single-frame
+    latency."""
     out = {}
     for name, d in demos.items():
         d.forward(frames[0])  # warm-up
@@ -871,15 +1016,15 @@ def check_forward(torch, _build, demos, frames, n=LATENCY_SAMPLES):
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t1) * 1e3)
             launches = dict(_build.launch_counts)
-            if launches.get("lif_k5") != 1 or "lif_k3" in launches:
-                fail(f"forward ({name}) frame {i} launched {launches}; expected one K5 launch")
+            if launches.get("lif_k5") != 1 or launches.get("lif_pack_raster") != 1 or "lif_k3" in launches:
+                fail(f"forward ({name}) frame {i} launched {launches}; expected one raster pack and one K5 launch")
             _, rate_b = d.forward_batch(frames[i:i + 1])
             if rate.shape != rate_b[0].shape or not torch.equal(rate, rate_b[0]):
                 fail(f"forward ({name}) frame {i}: the rate differs from forward_batch's row")
             if not bool(torch.isfinite(rate).all()) or doa.dim() != 0:
                 fail(f"forward ({name}) frame {i}: malformed output")
         out[name] = dict(latency_ms=float(np.median(lat)), latency_max_ms=max(lat))
-        print(f"[forward] {name}: {n} single frames, one K5 launch each ({launches}), rate == "
+        print(f"[forward] {name}: {n} single frames, one raster pack and one K5 launch each ({launches}), rate == "
               f"forward_batch's row", flush=True)
     return out
 
@@ -888,20 +1033,20 @@ def check_forward(torch, _build, demos, frames, n=LATENCY_SAMPLES):
 def check_k6(torch, lk, XyloConfig, dev, ucfg, u_spikes):
     make = functools.partial(make_config, XyloConfig)
     ras = functools.partial(raster, torch, dev)
-    n_cases, worst = 0, 0
+    n_cases, worst, plain_ms = 0, 0, {}
 
     def zeros(B, N):
         return tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))
 
-    def case(label, cfg, spikes, state0, bound=1):
+    def case(label, cfg, spikes, state0, bound=1, need_spikes=True):
         nonlocal n_cases, worst
+        check_raster_pack(torch, lk, spikes, label)
         got = lk.lif_count_stateful(cfg, spikes, *state0, spike_bound=bound, time_major=True)
-        ref = lk.lif_count_stateful_plain(cfg, spikes, *state0)
-        torch.cuda.synchronize()
+        ref, plain_ms[label] = timed_once(torch, lambda: lk.lif_count_stateful_plain(cfg, spikes, *state0))
         bad = sum(mismatches(a, b) for a, b in zip(got, ref))
         if bad:
             fail(f"K6 {label}: {bad} elements of counts/isyn/vmem/spk differ from the plain simulator")
-        if int(ref[0].sum()) == 0:
+        if need_spikes and int(ref[0].sum()) == 0:
             fail(f"K6 {label}: no neuron fired, the case checks nothing")
         worst = max([worst] + [int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref)])
         n_cases += 1
@@ -930,15 +1075,30 @@ def check_k6(torch, lk, XyloConfig, dev, ucfg, u_spikes):
     rec = with_rec(ucfg, -1)
     head = case("rec_coef=-1, flagship width", rec, u_spikes[:3000].contiguous(), zeros(B, N))
     case("rec_coef=-1, carried", rec, u_spikes[3000:6001].contiguous(), head[1:])
-    print(f"[K6] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk (unipolar "
-          f"flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, ragged T, clip path, "
-          "rec_coef = -1)", flush=True)
+    # chunks around the group of 16 steps, carried, against one pass over the same 49 steps
+    state, total, lo = zeros(B, N), torch.zeros((B, N), dtype=torch.int32, device=dev), 0
+    for Tc in (15, 16, 17, 1):
+        out = case(f"carried chunk of {Tc}", ucfg, u_spikes[lo:lo + Tc].contiguous(), state, need_spikes=False)
+        total, state, lo = total + out[0], out[1:], lo + Tc
+    whole = lk.lif_count_stateful(ucfg, u_spikes[:lo].contiguous(), *zeros(B, N), spike_bound=1, time_major=True)
+    bad = mismatches(whole[0], total) + sum(mismatches(a, b) for a, b in zip(whole[1:], state))
+    if bad:
+        fail(f"K6: chunks of 15, 16, 17, 1 carried differ from one pass of {lo} steps in {bad} elements")
+    # the families around the design's edges, from mid-stream states of the plain dynamics
+    for label, cfg, spikes, bound, _ in raster_cases(torch, lk, make, ras):
+        mid = lk.lif_count_stateful_plain(cfg, spikes[:9].flip(0).contiguous())
+        case(label + ", mid-stream state", cfg, spikes, mid[1:], bound=bound)
+    print(f"[K6] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk, the raster pack "
+          f"kernel on each (unipolar flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, chunks of "
+          "15, 16, 17, 1 carried == one pass, ragged T, clip path, rec_coef = -1 up to N = 1000 with C = 128, "
+          "C = 1, 31, 32, 33, 64, 65, a bool raster, values -128 and 127, one to four byte planes of weights, "
+          "an odd byte offset)", flush=True)
     params = lk.lif_params(ucfg, dev, spike_bound=1)  # as the streaming runtime passes them
     ms = timed_ms(torch, lambda: lk.lif_count_stateful(ucfg, second_in, *first[1:], spike_bound=1,
                                                        time_major=True), 20)
     params_ms = timed_ms(torch, lambda: lk.lif_count_stateful(params, second_in, *first[1:], time_major=True), 20)
-    plain_ms = timed_ms(torch, lambda: lk.lif_count_stateful_plain(ucfg, second_in, *first[1:]), 1)
-    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms, plain_ms=plain_ms)
+    return dict(max_abs_err=float(worst), ms=ms, params_ms=params_ms,
+                plain_ms=plain_ms["unipolar flagship chunk 2, carried"])
 
 
 # ------------------------------------------------------------------ phase 14
@@ -954,8 +1114,9 @@ def check_streaming_unipolar(torch, sk, lk, _build, StreamingLocalizer, udemo, f
         spikes.append(sp)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    if launches.get("lif_k6") != n_chunks or launches.get("rzcc_k1") != n_chunks or "lif_k4" in launches:
-        fail(f"the unipolar streaming run launched {launches}; expected K1 and K6 once per chunk")
+    if launches.get("lif_k6") != n_chunks or launches.get("lif_pack_raster") != n_chunks \
+            or launches.get("rzcc_k1") != n_chunks or "lif_k4" in launches:
+        fail(f"the unipolar streaming run launched {launches}; expected K1, the raster pack and K6 once per chunk")
     pstate = sl.init_state(B)
     for k in range(n_chunks):
         pstate, psp = plain_step(torch, sk, lk, sl, pstate, frames)
@@ -1212,6 +1373,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this check runs only on the GPU", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     repo = Path(__file__).resolve().parent
     if not (repo / "haghighatshoarmuir2024_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository (port package not found)", file=sys.stderr)
@@ -1237,6 +1399,7 @@ def main() -> int:
     print(f"[build] {so.name} in {build_s:.1f} s", flush=True)
     for ln in ptxas:
         print(f"[build] {ln}")
+    lap(start, "build")
 
     from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
     from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import FRAME, GRID, flagship_config, flagship_frames
@@ -1263,10 +1426,12 @@ def main() -> int:
 
     # ---- phase 3: K1/K2
     sup = check_suppress(torch, sk, peaks, dev, cs.reshape(T, B * C))
+    lap(start, "flagship set up, K1/K2")
 
     # ---- phase 4: K3
     kp, kn = demo.rzcc(cs)
     lif, pack = check_lif(torch, lk, XyloConfig, dev, demo.xylo_config, (kp, kn))
+    lap(start, "K3")
 
     # ---- phase 5: the slice through the user's entry point
     demo.forward_batch(frames, method="matched")  # warm-up
@@ -1299,29 +1464,40 @@ def main() -> int:
         fail(f"matched accuracy gate failed: doa-ok-frac {ok_matched:.2f} @5deg")
 
     # ---- phases 6-8: K4, the streaming runtime, the serving daemon
+    lap(start, "the bipolar batch")
     lif4 = check_lif_stateful(torch, lk, XyloConfig, dev, demo.xylo_config, (kp, kn))
+    lap(start, "K4")
     stream_launches, stream = check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doas)
+    lap(start, "bipolar streaming")
     serve = check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=8)
+    lap(start, "serving")
 
     # ---- phases 9-14: the design path, the unipolar model, K5 and K6
     design = check_design(torch, Demo, flagship, demo, frames, doas)
+    lap(start, "design")
     udemo, uni = check_unipolar(torch, sk, lk, _build, Demo, flagship, frames, doas)
+    lap(start, "the unipolar batch")
     u_kp, _ = udemo.rzcc(udemo.encode(frames))
     u_spikes = u_kp.to(torch.int8)
     b_kp, b_kn = kp[:, :1], kn[:, :1]
     b_spikes = torch.cat([b_kp & ~b_kn, b_kn], dim=-1).to(torch.int8)  # (T, 1, 2C)
-    k5 = check_k5(torch, lk, XyloConfig, dev, udemo.xylo_config, u_spikes, demo.xylo_config, b_spikes)
+    k5, rpack = check_k5(torch, lk, XyloConfig, dev, udemo.xylo_config, u_spikes, demo.xylo_config, b_spikes,
+                         (kp, kn))
+    lap(start, "K5")
     fwd = check_forward(torch, _build, {"bipolar": demo, "unipolar": udemo}, frames)
     k6 = check_k6(torch, lk, XyloConfig, dev, udemo.xylo_config, u_spikes)
+    lap(start, "Demo.forward, K6")
     ustream_launches, ustream = check_streaming_unipolar(torch, sk, lk, _build, StreamingLocalizer, udemo,
                                                          frames, doas)
 
+    lap(start, "unipolar streaming")
     # ---- phases 15-17: K7, the roofline probes, the harness's measurements
     k7_launches, k7 = check_k7(torch, sk, peaks, _build, dev, cs.reshape(T, B * C),
                                (kp.reshape(T, B * C), kn.reshape(T, B * C)))
     check_probes(torch, rk, lk, dev, demo.xylo_config, (kp, kn))
     w, W = sk._windows(demo.robust_width, 2 * demo.robust_width)
     rf_launches, rf = run_roofline(torch, roofline, _build, demo.xylo_config, (kp, kn), w, card)
+    lap(start, "K7, the probes, the roofline harness")
 
     # stage and end-to-end times
     stage_ms = {
@@ -1350,12 +1526,27 @@ def main() -> int:
         print(f"{tag} stage {name}: {ms:.3f} ms")
     print(f"{tag} rzcc plain (torch ops on the card): {sup['rzcc_plain_ms']:.3f} ms")
     for name, k in (("K1", sup["k1"]), ("K2", sup["k2"]), ("pack", pack), ("K3 (pack included)", lif),
-                    ("K4 (pack included)", lif4), ("K5", k5), ("K6", k6), ("K7", k7)):
+                    ("K4 (pack included)", lif4), ("raster pack", rpack), ("K5 (raster pack included)", k5),
+                    ("K6 (raster pack included)", k6), ("K7", k7)):
         print(f"{tag} kernel {name}: {k['ms']:.3f} ms vs plain {k['plain_ms']:.3f} ms"
               + (f" (the LIF integers uploaded once: {k['params_ms']:.3f} ms)" if "params_ms" in k else "")
-              + (f" (the launch alone, outputs allocated once: {k['raw_ms']:.3f} ms)" if "raw_ms" in k else ""))
+              + (f" (the launch alone, outputs allocated once: {k['raw_ms']:.3f} ms)" if "raw_ms" in k else "")
+              + (f" (one PyTorch call of the same function: {k['library_ms']:.3f} ms)" if "library_ms" in k else ""))
     print(f"{tag} K3 with the LIF integers uploaded once: flagship masks {lif['params_ms']:.3f} ms; the same "
           f"with six set bits a chunk of {CHAIN_STAGE} (six slots read in every chunk) {lif['six_ms']:.3f} ms")
+    print(f"{tag} K5 with the LIF integers uploaded once: unipolar flagship masks as int8 {k5['params_ms']:.3f} ms, "
+          f"as bool {k5['bool_ms']:.3f} ms; a dense binary raster of the same size {k5['dense_binary_ms']:.3f} ms; "
+          f"dense with values -8..8 (clips {'kept' if k5['dense_clip'] else 'proven dead'}) {k5['dense_ms']:.3f} ms; "
+          f"the chain kernel's launch alone on the packed flagship raster {k5['chain_ms']:.3f} ms; the tensor-core "
+          f"fill's own bound {roofline.raster_fill_ms(T, B, u_spikes.shape[-1], udemo.xylo_config.w_in.shape[1]):.4f} ms")
+    print(f"{tag} the bipolar flagship through K5 (the combined raster of 2C = {2 * C} channels, counts == K3's): "
+          f"{k5['bipolar_ms']:.3f} ms, {k5['bipolar_cat_ms']:.3f} ms with the raster made from the two masks, "
+          f"against pack + K3 {lif['params_ms']:.3f} ms")
+    print(f"{tag} K5 at the flagship's size by channels (int8 weights, the fragments in registers, clips proven dead; "
+          f"integers uploaded once): C = {C} {k5['params_ms']:.3f} ms, {2 * C} {k5['bipolar_ms']:.3f} ms, "
+          + ", ".join(f"{c} {ms:.3f} ms" for c, ms in k5["channels_ms"].items())
+          + f"; the fragments read each group: two byte planes (one flagship weight set to 128; clips "
+          f"{'kept' if k5['planes_clip'] else 'proven dead'}) {k5['planes_ms']:.3f} ms")
     print(f"{tag} select_by_distance_tm on the flagship maxima ({k7_launches['suppress_k7']} K7 launches): "
           f"{k7['call_ms']:.3f} ms vs plain {k7['call_plain_ms']:.3f} ms")
     print(f"{tag} forward_batch(matched) {batch_ms:.3f} ms per {B} x {frame} s batch = "
@@ -1405,9 +1596,11 @@ def main() -> int:
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:275", "lif_k3", lif),
         ("lif_k4", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:468", "lif_k4", lif4),
-        ("lif_k5", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+        ("lif_pack_raster", "haghighatshoarmuir2024_tpu_torch/csrc/lif_raster.cu",
+         "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:109", "lif_pack_raster", rpack),
+        ("lif_k5", "haghighatshoarmuir2024_tpu_torch/csrc/lif_raster.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:76", "lif_k5", k5),
-        ("lif_k6", "haghighatshoarmuir2024_tpu_torch/csrc/lif.cu",
+        ("lif_k6", "haghighatshoarmuir2024_tpu_torch/csrc/lif_raster.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/lif_kernel.py:666", "lif_k6", k6),
         ("suppress_k7", "haghighatshoarmuir2024_tpu_torch/csrc/suppress.cu",
          "haghighatshoarmuir2024_tpu/ops/pallas/suppress_kernel.py:124", "suppress_k7", k7),
@@ -1419,10 +1612,12 @@ def main() -> int:
          "experiments/vpu_roofline.py:226", "probe_p3", probe_res["probe_p3"]),
     ):
         # launches: K1-K3 and the pack pass from the bipolar forward_batch
-        # run, K4 from the bipolar streaming run, K5 from the unipolar forward_batch run, K6
+        # run, K4 from the bipolar streaming run, the raster pack pass and K5
+        # from the unipolar forward_batch run, K6
         # from the unipolar streaming run, K7 from one select_by_distance_tm
         # call, P1-P3 from the roofline run
-        path = {"lif_k4": stream_launches, "lif_k5": uni["launches"], "lif_k6": ustream_launches,
+        path = {"lif_k4": stream_launches, "lif_pack_raster": uni["launches"], "lif_k5": uni["launches"],
+                "lif_k6": ustream_launches,
                 "suppress_k7": k7_launches}.get(key, rf_launches if key.startswith("probe") else launches)
         (ops, nbytes), (bound_ms, bound_by) = work[key], bounds[key]
         print(f"{tag} bound {name}: {res['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}: "
@@ -1431,8 +1626,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None,
+                        "bound_by": bound_by, "library_ms": res.get("library_ms"),
                         **{k: res[k] for k in ("params_ms", "raw_ms") if k in res}})
+    lap(start, "the times")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

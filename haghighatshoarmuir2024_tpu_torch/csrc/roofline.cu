@@ -141,7 +141,7 @@ constexpr int P3_TC = 128;   // steps staged per chunk
 constexpr int P3_NW = 8;     // 32-bit words of the packed (2C) int8 input: 2C <= 32
 constexpr int P3_MAX_C = 2 * P3_NW;  // channels per polarity
 
-// csrc/lif.cu's lif_step<false>: decay first, input, threshold, subtract.
+// csrc/lif_common.cuh's lif_step<false>: decay first, input, threshold, subtract.
 __device__ __forceinline__ bool lif_step(int& isyn, int& vmem, int cur, int ds, int dm, int th,
                                          bool live) {
   isyn = isyn - (isyn >> ds) + cur;

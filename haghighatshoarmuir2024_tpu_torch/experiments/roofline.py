@@ -14,8 +14,8 @@ measures:
    a share of the ceiling;
 2. P3 at k = 2 and 4: exact against K3, and its time against K3's;
 3. P2, the shift-max chains on K2/K7's tile;
-4. K1-K7 and K3/K4's pack pass at their flagship shapes, each beside its
-   bound.
+4. K1-K7, K3/K4's pack pass and K5/K6's raster pack pass at their flagship
+   shapes, each beside its bound.
 
 P1 and P2 are held against their plain versions at the shapes timed.
 
@@ -27,7 +27,10 @@ maximum SM clock ``nvidia-smi`` reports:
 
 - the LIF kernels count 32-bit integer operations as P1 counts them (10 per
   neuron and step) plus one add per nonzero input and neuron, against 64
-  per SM and clock or P1's ceiling;
+  per SM and clock or P1's ceiling.  The count is the function's, whatever
+  computes it: K5/K6 make their currents on the int8 tensor cores
+  (2·B·T·N·Cpad int8 operations, :func:`raster_fill_ms` at the data sheet's
+  dense int8 rate), and those are not in the int32 count;
 - the suppression kernels count compares: a sliding max, min or any over a
   window of L samples needs min(3, doubling steps of L) per element (van
   Herk / Gil-Werman: a prefix and a suffix scan per block of L, and one
@@ -58,11 +61,12 @@ from ..ops.cuda import roofline_kernel as rk
 from ..ops.cuda import suppress_kernel as sk
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT8_TENSOR_OPS_PER_S = 1.979e15  # H100 SXM data sheet: dense int8 on the tensor cores
 INT32_PER_CLK_SM = 64  # CUDA Programming Guide, cc 9.0: 32-bit integer add, shift, compare
 CMP_PER_CLK_SM = 64  # CUDA Programming Guide, cc 9.0: compare, minimum, maximum
 # the peak each kernel's operations are priced at
 UNIT = {"rzcc_k1": "compares", "rzcc_k2": "compares", "suppress_k7": "compares", "probe_p2": "compares",
-        "lif_pack": "int32", "lif_k3": "int32", "lif_k4": "int32", "lif_k5": "int32", "lif_k6": "int32",
+        "lif_pack": "int32", "lif_pack_raster": "int32", "lif_k3": "int32", "lif_k4": "int32", "lif_k5": "int32", "lif_k6": "int32",
         "probe_p1": "int32", "probe_p3": "int32"}
 
 
@@ -239,6 +243,22 @@ def pack_work(T: int, B: int, C: int) -> tuple[float, float]:
     return float(4 * T * B * C), float(2 * T * B * C + word * T * B)
 
 
+def pack_raster_work(T: int, B: int, C: int) -> tuple[float, float]:
+    """(operations, bytes) of K5/K6's raster pack pass: one move per 32-bit
+    word written; the (T, B, C) one-byte raster in and its (B, T, Cpad) copy
+    out, Cpad = C rounded up to the mma's k-tile."""
+    c_pad = lk.padded_channels(C)
+    return float(T * B * c_pad // 4), float(T * B * C + T * B * c_pad)
+
+
+def raster_fill_ms(T: int, B: int, C: int, N: int) -> float:
+    """Least milliseconds of K5/K6's tensor-core fill alone: the int8
+    multiply-adds of the (B·T, Cpad) × (Cpad, N) product, two operations
+    each, over the data sheet's dense int8 rate."""
+    c_pad = lk.padded_channels(C)
+    return 2.0 * B * T * N * c_pad / INT8_TENSOR_OPS_PER_S * 1e3
+
+
 def k1_work(T: int, R: int, w: int, W: int) -> tuple[float, float]:
     """(compares, bytes) of K1: the extrema and one round of both polarities
     over every element; cs in, four masks out."""
@@ -293,7 +313,7 @@ def flagship_work(cs_tm, w: int, W: int, kp, kn, u_spikes, N: int, p1: dict, p2:
     masks; K3/K4 and P3 on the (T, B, C) polarity masks ``kp``/``kn``; K5/K6
     on the unipolar (T, B, C) int8 raster (K3/K4 counted as their function
     needs, the masks read once; the pack pass they run first has its own
-    entry); K7's first round on the maxima of ``cs_tm`` with heights
+    entry, and so has K5/K6's raster pack pass); K7's first round on the maxima of ``cs_tm`` with heights
     ``cs_tm``; P1 at the sweep's best point ``p1``; P2 on its tiles ``p2``.
     Masks come from the plain versions."""
     T, R = cs_tm.shape
@@ -312,6 +332,7 @@ def flagship_work(cs_tm, w: int, W: int, kp, kn, u_spikes, N: int, p1: dict, p2:
         "lif_pack": pack_work(T, B, C),
         "lif_k3": lif_work(nnz, T, B, N, 2 * C),
         "lif_k4": lif_work(nnz, T, B, N, 2 * C, stateful=True),
+        "lif_pack_raster": pack_raster_work(T, B, Cu),
         "lif_k5": lif_work(u_nnz, T, B, N, Cu),
         "lif_k6": lif_work(u_nnz, T, B, N, Cu, stateful=True),
         "suppress_k7": round_work((maxima,), w, int(kept7.sum())),
@@ -376,6 +397,7 @@ def run(reps: int, batch: int) -> dict:
         # repeating the round on the same masks sets the same kept bits again
         "rzcc_k2": timed_ms(lambda: sk.rzcc_k2(cs_tm, *k1, w), reps),
         "lif_pack": timed_ms(lambda: lk.pack_bipolar_masks(kp, kn), reps),
+        "lif_pack_raster": timed_ms(lambda: lk.pack_raster(u_spikes), reps),
         "lif_k3": p3["k3_ms"],
         "lif_k4": timed_ms(lambda: lk.lif_count_stateful_bipolar(cfg, kp2, kn2, *first[1:]), reps),
         "lif_k5": timed_ms(lambda: lk.lif_count_rates(ucfg, u_spikes, time_major=True, spike_bound=1), reps),
@@ -392,6 +414,7 @@ def run(reps: int, batch: int) -> dict:
         kernels[name] = dict(ms=ms[name], ops=ops, unit=UNIT[name], bytes=nbytes, bound_ms=b_ms, bound_by=by,
                              share=b_ms / ms[name])
     return dict(card=card_line(), batch=B, T=T, rows=B * C, neurons=N, guide=ceil["guide"], p1=ceil["p1"],
+                raster_fill_bound_ms=raster_fill_ms(T, B, u_spikes.shape[-1], N),
                 p2=ceil["p2"], peaks=ceil["peaks"], p3=p3, kernels=kernels,
                 select_by_distance_tm_ms=timed_ms(lambda: sk.select_by_distance_tm(maxima, cs_tm, w + 1), reps))
 

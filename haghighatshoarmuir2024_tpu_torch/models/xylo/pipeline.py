@@ -18,7 +18,7 @@ Inference, time-major on ``device``:
    plane;
 3. integer-LIF spike counts (``ops/cuda/lif_kernel.py``): kernel K3 from the
    two polarity masks (bipolar :meth:`forward_batch`), kernel K5 from one
-   int8 raster (unipolar :meth:`forward_batch`, and :meth:`forward` for both
+   raster, the bool masks as they are (unipolar :meth:`forward_batch`, and :meth:`forward` for both
    polarities);
 4. rate, fold over bands, matched-profile (or peak) argmax on the DoA grid.
 
@@ -320,7 +320,8 @@ class Demo:
         return kp.reshape(T, B, C), kn.reshape(T, B, C)
 
     def lif_params(self) -> lif_kernel.LifParams:
-        """The config's LIF integers on ``device``, uploaded once; the
+        """The config's LIF integers on ``device``, uploaded once (the
+        weights as K5 reads them at its first call, :meth:`forward`); the
         no-saturation proof is made for binary spikes (``spike_bound=1``)."""
         if self._lif is None:
             self._lif = lif_kernel.lif_params(self.xylo_config, self.device, spike_bound=1)
@@ -328,13 +329,12 @@ class Demo:
 
     def lif_counts(self, kp: torch.Tensor, kn: torch.Tensor) -> torch.Tensor:
         """Polarity masks → hidden spike counts (B, N) int32.  Bipolar: the
-        two masks straight into K3; unipolar: the positive plane as an int8
+        two masks straight into K3; unipolar: the positive plane as a bool
         raster into K5 (JAX ``pipeline.py:822-843``).  RZCC masks are binary,
         so spike_bound=1 lets the kernel drop provably dead clips."""
         if self.bipolar_spikes:
             return lif_kernel.lif_count_rates_bipolar(self.lif_params(), kp, kn, spike_bound=1)
-        return lif_kernel.lif_count_rates(self.lif_params(), kp.to(torch.int8), time_major=True,
-                                          spike_bound=1)
+        return lif_kernel.lif_count_rates(self.lif_params(), kp, time_major=True, spike_bound=1)
 
     def estimate(self, counts: torch.Tensor, T: int, method: str = "peak"):
         """Counts → (doa (B,), folded rate (B, G)) (JAX ``pipeline.py:776-786,
@@ -387,7 +387,7 @@ class Demo:
     # -------------------------------------------------------------- entries
     def forward(self, sig_in):
         """One frame: (T, M) audio → (doa, rate (G,)) by the peak estimator
-        (JAX ``pipeline.py:666-722``).  The spikes go to K5 as one int8
+        (JAX ``pipeline.py:666-722``).  The spikes go to K5 as one bool
         raster (T, 1, C'): ``[kp & ~kn, kn]`` (2C channels) for a bipolar
         model, ``kp`` for a unipolar one; spike_bound=1 as the masks are
         binary."""
@@ -398,8 +398,7 @@ class Demo:
         cs = self.encode(x[None])
         kp, kn = self.rzcc(cs)
         spikes = torch.cat([kp & ~kn, kn], dim=-1) if self.bipolar_spikes else kp
-        counts = lif_kernel.lif_count_rates(self.lif_params(), spikes.to(torch.int8), time_major=True,
-                                            spike_bound=1)
+        counts = lif_kernel.lif_count_rates(self.lif_params(), spikes, time_major=True, spike_bound=1)
         doa, rate_doa = self.estimate(counts, cs.shape[0], "peak")
         return doa[0], rate_doa[0]
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, at first use, with ``nvcc`` for ``sm_90a``: one compiler process
-per source, all started together, then one link:
+All ``csrc/*.cu`` files (``csrc/*.cuh`` are headers they share) compile
+into one shared library with a plain C interface, at first use, with
+``nvcc`` for ``sm_90a``: one compiler process per source, all started
+together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c -o <source>.o csrc/<source>.cu
@@ -10,8 +11,8 @@ per source, all started together, then one link:
          -o build/hm_kernels_<hash>.so *.o
 
 The library lands in ``haghighatshoarmuir2024_tpu_torch/build/`` (git-ignored),
-named by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once.  It is loaded with ``ctypes``; pointers and the
+named by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one loads at once.  It is loaded with ``ctypes``; pointers and the
 stream pass as ``c_void_p``.  Nothing here depends on PyTorch's headers.
 
 ``launch_counts`` counts kernel launches by name; each wrapper adds one where
@@ -59,8 +60,9 @@ _SIGNATURES = {
     "hm_lif_count_bipolar": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "hm_lif_count_stateful_bipolar": ([_P] * 14 + [_I] * 7 + [_P], _I),
     "hm_lif_max_raster_channels": ([], _I),
-    "hm_lif_count": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "hm_lif_count_stateful": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "hm_lif_pack_raster": ([_P] * 2 + [_I] * 4 + [_P], _I),
+    "hm_lif_count": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "hm_lif_count_stateful": ([_P] * 12 + [_I] * 8 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -76,9 +78,13 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _headers():
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"hm_kernels_{h.hexdigest()[:16]}.so"

@@ -1,4 +1,5 @@
-"""Integer-LIF spike counts: wrappers of kernels K3-K6 (``csrc/lif.cu``).
+"""Integer-LIF spike counts: wrappers of kernels K3/K4 (``csrc/lif.cu``)
+and K5/K6 (``csrc/lif_raster.cu``).
 
 - K3, :func:`lif_count_rates_bipolar`: counterpart of
   ``lif_count_rates_bipolar`` in
@@ -20,6 +21,17 @@
 - K6, :func:`lif_count_stateful`: counterpart of ``lif_count_stateful``
   (``:802``, Pallas kernel ``_lif_kernel_stateful``, ``:666``), K5 with the
   (B, N) state: the unipolar streaming step.
+- K5 and K6 first launch the raster pack pass, :func:`pack_raster`: the
+  (T, B, C) raster becomes row-major (B, Tp, Cpad) int8, a step's channels
+  side by side and zero-padded to whole k-tiles of 16.  The chain kernel
+  then computes the input current as the Pallas body does (``:106-115``),
+  an int8 x int8 -> int32 product on the tensor cores (``mma.sync``) ahead
+  of the step loop, 32 neurons x 16 steps a warp at a time; the weights
+  reach it as mma fragments (:func:`weight_fragments`), made once a
+  :class:`LifParams` at its first K5/K6 call: one int8 plane where ``w_in`` fits int8 (the Pallas
+  wrapper's ``int8_mm`` route, ``:252-255``), else two to four byte planes
+  of the same product (its float32 route's counterpart), exact for any
+  int32 weights in wrapping int32 arithmetic.
 
 All take the uniform recurrence ``w_rec = c·ones``; a dense ``w_rec``
 raises.  On CPU tensors a wrapper runs the plain simulator
@@ -29,6 +41,8 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -39,7 +53,8 @@ from ._build import check, launch_counts, library, require_cuda, stream_handle
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
 _SPIKE_DTYPES = (torch.int8, torch.bool)
-PACK_STEPS = 32  # csrc/lif.cu's PACK_T: the words' row length Tp is T rounded up to it
+PACK_STEPS = 32  # csrc/lif_common.cuh's PACK_T: the packed rows' length Tp is T rounded up to it
+RASTER_K = 16  # csrc/lif_raster.cu's RASTER_K: channels of one k-tile of K5/K6's mma (m16n8k16, int8)
 PACK_SLOTS = 6  # csrc/lif.cu's SLOTS: set bits a step's word of slots names
 
 
@@ -53,7 +68,8 @@ class PackedMasks(NamedTuple):
     most: torch.Tensor  # (B, Tp / PACK_STEPS) int32: the most set bits a step of [b, k]'s 32 has
 
 
-class LifParams(NamedTuple):
+@dataclasses.dataclass(frozen=True, eq=False)
+class LifParams:
     """A config's LIF integers as tensors on one device, made once by
     :func:`lif_params` so that a caller launching every step uploads
     nothing per launch."""
@@ -64,6 +80,14 @@ class LifParams(NamedTuple):
     threshold: torch.Tensor  # (N,) int32
     rec_coef: int
     no_sat: bool  # the 16-bit clips are proven dead for the spike bound given
+    w_host: np.ndarray  # w_in on the host, which w_frag is laid out from
+
+    @functools.cached_property
+    def w_frag(self) -> torch.Tensor:
+        """:func:`weight_fragments` of ``w_in`` on its device,
+        (ceil(N/32), P, KT, 4, 32) int32: what K5/K6 read in place of
+        ``w_in``.  Laid out and uploaded at its first use, once."""
+        return torch.as_tensor(weight_fragments(self.w_host), device=self.w_in.device).contiguous()
 
 
 def _no_saturation_possible(config, spike_bound: int, rec_coef: int) -> bool:
@@ -103,7 +127,37 @@ def lif_params(config, device, spike_bound: int | None = 1) -> LifParams:
         dash_mem=as_dev(config.dash_mem), threshold=as_dev(config.threshold),
         rec_coef=rec_coef,
         no_sat=spike_bound is not None and _no_saturation_possible(config, spike_bound, rec_coef),
+        w_host=np.asarray(config.w_in),
     )
+
+
+def weight_planes(w_in: np.ndarray) -> int:
+    """Byte planes K5/K6's product takes for these weights: 1 where they fit
+    int8 (one signed plane, the tensor cores' int8 x int8 product as it
+    is), else the fewest of 2-4 (a signed top plane over unsigned lower
+    ones) that hold their range."""
+    lo, hi = (int(w_in.min()), int(w_in.max())) if w_in.size else (0, 0)
+    return next(p for p in (1, 2, 3, 4) if -(1 << (8 * p - 1)) <= lo and hi < (1 << (8 * p - 1)))
+
+
+def weight_fragments(w_in: np.ndarray) -> np.ndarray:
+    """``w_in`` (C, N) int32 as the A fragments (16 neurons x 16 channels)
+    of K5/K6's ``mma.m16n8k16``: (ceil(N/32), P, KT, 4, 32) int32 with P =
+    :func:`weight_planes` and KT = ceil(C/16).  The word of warp ``w``,
+    plane ``p``, k-tile ``kt``, index ``i`` and lane ``l`` holds, from its
+    low byte, byte ``p`` of ``w_in[16 kt + 4 (l % 4) + j, 32 w + 8 i +
+    l // 4]`` for j = 0..3 (m-tile ``i // 2``; its rows ``l // 4`` for even
+    ``i``, ``l // 4 + 8`` for odd), zero past C and N: ``w = sum_p plane_p
+    << 8p`` with the top plane signed and the lower ones unsigned."""
+    w_in = np.asarray(w_in, dtype=np.int32)
+    C, N = w_in.shape
+    P, KT, NW = weight_planes(w_in), -(-C // RASTER_K), -(-N // 32)
+    w = np.zeros((KT * RASTER_K, NW * 32), dtype=np.int32)
+    w[:C, :N] = w_in
+    planes = np.stack([(w >> (8 * p)) & 0xFF for p in range(P)]).astype(np.uint8)  # the top byte keeps the sign
+    # (P, KT, lane % 4, j, NW, i, lane // 4) -> (NW, P, KT, i, lane // 4, lane % 4, j)
+    frag = planes.reshape(P, KT, 4, 4, NW, 4, 8).transpose(4, 0, 1, 5, 6, 2, 3)
+    return np.ascontiguousarray(frag).view("<u4").reshape(NW, P, KT, 4, 32).view(np.int32)
 
 
 def _rec_coef(config) -> int:
@@ -146,6 +200,24 @@ def pack_bipolar_masks_plain(kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> Pack
     slots_p[:, :T] = slots.T
     return PackedMasks(words=_as_int32(words) if _word_dtype(C) == torch.int32 else words,
                        slots=slots_p, most=most)
+
+
+def padded_channels(C: int) -> int:
+    """C rounded up to whole k-tiles of :data:`RASTER_K` channels: the row
+    width of K5/K6's packed raster."""
+    return -(-C // RASTER_K) * RASTER_K
+
+
+def pack_raster_plain(spikes_tbc: torch.Tensor) -> torch.Tensor:
+    """What K5/K6's pack pass computes from the (T, B, C) raster (int8 or
+    bool): row-major (B, Tp, Cpad) int8 with Tp = T rounded up to
+    :data:`PACK_STEPS` and Cpad = :func:`padded_channels`, zeros past T and
+    C."""
+    T, B, C = spikes_tbc.shape
+    packed = torch.zeros((B, _words_steps(T), padded_channels(C)), dtype=torch.int8,
+                         device=spikes_tbc.device)
+    packed[:, :T, :C] = spikes_tbc.to(torch.int8).transpose(0, 1)
+    return packed
 
 
 def _as_int32(x: torch.Tensor) -> torch.Tensor:
@@ -328,6 +400,31 @@ def _check_raster(params: LifParams, spikes_tbc: torch.Tensor):
     return T, B, C, N
 
 
+def pack_raster(spikes_tbc: torch.Tensor) -> torch.Tensor:
+    """K5/K6's pack pass: the time-major (T, B, C) raster (int8, or bool
+    read as 0/1) → (B, Tp, Cpad) int8, see :func:`pack_raster_plain`."""
+    if spikes_tbc.device.type == "cpu":
+        return pack_raster_plain(spikes_tbc)
+    require_cuda(spikes_tbc, "spikes", _SPIKE_DTYPES, 3)
+    T, B, C = spikes_tbc.shape
+    if C > library().hm_lif_max_raster_channels():
+        raise ValueError(f"{C} input channels exceed the kernel's {library().hm_lif_max_raster_channels()}")
+    packed = torch.empty((B, _words_steps(T), padded_channels(C)), dtype=torch.int8,
+                         device=spikes_tbc.device)
+    with torch.cuda.device(spikes_tbc.device):
+        rc = library().hm_lif_pack_raster(spikes_tbc.data_ptr(), packed.data_ptr(), T, packed.shape[1], B, C,
+                                          stream_handle(spikes_tbc.device))
+    check(rc, "lif_pack_raster")
+    launch_counts["lif_pack_raster"] += 1
+    return packed
+
+
+def _raster_args(params: LifParams, packed: torch.Tensor, T: int, N: int):
+    """The integer arguments both K5 and K6 take after their pointers."""
+    _, P, KT, _, _ = params.w_frag.shape
+    return T, packed.shape[1], packed.shape[0], KT, P, N, params.rec_coef, int(not params.no_sat)
+
+
 def lif_count_rates(config, spikes: torch.Tensor, time_major: bool = False,
                     spike_bound: int | None = None) -> torch.Tensor:
     """Hidden-layer spike counts (B, N_hid) int32 of the quantized LIF
@@ -347,12 +444,13 @@ def lif_count_rates(config, spikes: torch.Tensor, time_major: bool = False,
         return lif_count_stateful_plain(config, spikes_tbc)[0]
     params = lif_params(config, spikes_tbc.device, spike_bound)
     T, B, C, N = _check_raster(params, spikes_tbc)
+    packed = pack_raster(spikes_tbc)
     counts = torch.empty((B, N), dtype=torch.int32, device=spikes_tbc.device)
     with torch.cuda.device(spikes_tbc.device):
         rc = library().hm_lif_count(
-            spikes_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            packed.data_ptr(), params.w_frag.data_ptr(), params.dash_syn.data_ptr(),
             params.dash_mem.data_ptr(), params.threshold.data_ptr(), counts.data_ptr(),
-            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(spikes_tbc.device),
+            *_raster_args(params, packed, T, N), stream_handle(spikes_tbc.device),
         )
     check(rc, "lif_k5")
     launch_counts["lif_k5"] += 1
@@ -377,13 +475,14 @@ def lif_count_stateful(config, spikes: torch.Tensor, isyn0: torch.Tensor, vmem0:
     params = lif_params(config, spikes_tbc.device, spike_bound)
     T, B, C, N = _check_raster(params, spikes_tbc)
     _check_state(B, N, spikes_tbc.device, isyn0, vmem0, spk0)
+    packed = pack_raster(spikes_tbc)
     out = tuple(torch.empty((B, N), dtype=torch.int32, device=spikes_tbc.device) for _ in range(4))
     with torch.cuda.device(spikes_tbc.device):
         rc = library().hm_lif_count_stateful(
-            spikes_tbc.data_ptr(), params.w_in.data_ptr(), params.dash_syn.data_ptr(),
+            packed.data_ptr(), params.w_frag.data_ptr(), params.dash_syn.data_ptr(),
             params.dash_mem.data_ptr(), params.threshold.data_ptr(), isyn0.data_ptr(),
             vmem0.data_ptr(), spk0.data_ptr(), *(o.data_ptr() for o in out),
-            T, B, C, N, params.rec_coef, int(not params.no_sat), stream_handle(spikes_tbc.device),
+            *_raster_args(params, packed, T, N), stream_handle(spikes_tbc.device),
         )
     check(rc, "lif_k6")
     launch_counts["lif_k6"] += 1

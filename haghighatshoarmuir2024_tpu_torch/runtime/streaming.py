@@ -21,7 +21,7 @@ encoder and neuron state carried on the device:
   the decisions over ``[guard, guard + Tc)`` are kept.
 * Integer LIF: isyn/vmem/spk carried exactly through kernel K4 from the two
   polarity masks (bipolar model), or through kernel K6 from the positive
-  plane as an int8 raster (unipolar model; JAX ``streaming.py:264-271,
+  plane as a bool raster (unipolar model; JAX ``streaming.py:264-271,
   316-328``, its TPU form).
 
 Emitted spikes lag the input by ``pending`` samples.  A single stream is a
@@ -210,8 +210,7 @@ class StreamingLocalizer:
         else:
             kn = None
             counts, isyn, vmem, spk = lif_count_stateful(
-                self._lif, kp.to(torch.int8), state.isyn, state.vmem, state.spk, spike_bound=1,
-                time_major=True)
+                self._lif, kp, state.isyn, state.vmem, state.spk, spike_bound=1, time_major=True)
         new = StreamState(
             fir_tail=fir_tail, delay_line=delay_line, iir_state=iir_state, int_carry=int_carry,
             pending=analysis[Tc:], isyn=isyn, vmem=vmem, spk=spk,

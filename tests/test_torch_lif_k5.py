@@ -3,9 +3,11 @@ behind ``lif_count_rates`` / ``lif_count_stateful`` (``ops/cuda/lif_kernel``)
 against the JAX package's Pallas kernels ``_lif_count_impl`` /
 ``_lif_count_stateful_impl`` in interpret mode, on the cases that
 ``chip_smoke.py`` holds the CUDA kernels to, at small sizes: binary and
-multi-count rasters, negative values, the clip path, C = 84 and 128, ragged
-T (the Pallas ``has_tail`` path), rec_coef = -1, carried state.  All
-integers: bit-exact."""
+multi-count rasters, negative values, the clip path, C = 33, 65, 84 and 128
+(across the CUDA kernels' k-tiles of 16 channels), weights outside int8 (the
+Pallas float32 product, the CUDA kernels' byte planes), ragged T (the Pallas
+``has_tail`` path), rec_coef = -1, carried state.  All integers: bit-exact.
+``tests/test_torch_lif_mma.py`` holds a model of the CUDA body itself."""
 
 import numpy as np
 import pytest
@@ -71,6 +73,14 @@ def pallas_k6(cfg, spikes_tbc, state, no_sat=False):
         int8_mm=bool(np.all(np.abs(cfg.w_in) <= 127)), no_sat=no_sat)]
 
 
+def wide(seed, C, w_max, **kw):
+    """A config whose weights reach ±``w_max``, outside int8."""
+    cfg = make_config(seed, C, w_scale=w_max, **kw)
+    cfg.w_in[0, 0], cfg.w_in[1, 1] = w_max, -w_max
+    assert lif_kernel.weight_planes(cfg.w_in) > 1
+    return cfg
+
+
 def saturating(seed, C):
     cfg = make_config(seed, C, w_scale=5000)
     cfg.threshold[:] = 25_000
@@ -88,6 +98,10 @@ K5_CASES = [
     ("ragged T=37 (has_tail)", lambda: make_config(6, 14), lambda: make_raster(6, 37, 2, 14, 0.2), 1),
     ("rec_coef=-1", lambda: make_config(7, 14, rec_coef=-1), lambda: make_raster(7, 45, 4, 14, 0.2), 1),
     ("B=3, rec_coef=-2, ragged T=29", lambda: make_config(8, 14, rec_coef=-2), lambda: make_raster(8, 29, 3, 14, 0.2), 1),
+    ("C=33", lambda: make_config(18, 33), lambda: make_raster(18, 40, 2, 33, 0.2, -5, 6), None),
+    ("C=65", lambda: make_config(19, 65, w_scale=8), lambda: make_raster(19, 33, 2, 65, 0.1, -3, 4), 3),
+    ("|w| up to 128: two byte planes", lambda: wide(20, 14, 128), lambda: make_raster(20, 40, 2, 14, 0.3, 0, 4), None),
+    ("|w| up to 20000, rec_coef=-1", lambda: wide(21, 14, 20_000, rec_coef=-1), lambda: make_raster(21, 35, 3, 14, 0.3), None),
 ]
 
 
@@ -137,6 +151,9 @@ K6_CASES = [
     ("clip path from a saturated state", lambda: saturating(13, 14), 33, 0.9, 30, None),
     ("rec_coef=-1, carried", lambda: make_config(14, 14, rec_coef=-1), 45, 0.2, 24, 1),
     ("multi-count, negative, C=84", lambda: make_config(15, 84), 32, 0.05, 24, None),
+    ("C=33, mid-stream", lambda: make_config(22, 33), 40, 0.2, 24, 1),
+    ("C=65, rec_coef=-1", lambda: make_config(23, 65, rec_coef=-1, w_scale=8), 33, 0.1, 24, 1),
+    ("|w| up to 300, carried", lambda: wide(24, 14, 300), 47, 0.3, 30, None),
 ]
 
 
@@ -184,3 +201,8 @@ def test_torch_k5_wrappers_reject_bad_inputs_before_launch():
         lif_kernel.lif_count_rates(dense, torch.zeros((5, 1, 14), dtype=torch.int8), time_major=True)
     with pytest.raises(ValueError):  # a CUDA kernel takes CUDA tensors only
         lif_kernel._check_raster(lif_kernel.lif_params(cfg, "cpu"), torch.zeros((5, 1, 14), dtype=torch.int8))
+    # the fragments K5/K6 read are laid out at first use and kept, whatever made the params
+    p = lif_kernel.lif_params(cfg, "cpu")
+    assert "w_frag" not in vars(p) and lif_kernel.lif_params(p, "cpu") is p
+    assert tuple(p.w_frag.shape) == (1, 1, 1, 4, 32) and p.w_frag is p.w_frag
+    np.testing.assert_array_equal(p.w_frag.numpy(), lif_kernel.weight_fragments(np.asarray(cfg.w_in)))

@@ -106,6 +106,35 @@ def test_torch_unipolar_counts_bitexact_on_same_masks(models):
     assert ref.sum() > 0
 
 
+def test_torch_unipolar_entry_points_pass_bool_masks(models, monkeypatch):
+    """``forward_batch``, ``forward`` and the streaming step hand K5/K6 the
+    bool masks as they are (no int8 copy); the counts equal those of the
+    int8 raster."""
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel
+    from haghighatshoarmuir2024_tpu_torch.runtime import streaming
+
+    td, frames = models["td"], torch.as_tensor(models["frames"][:2])
+    seen = []
+
+    def spy(real):
+        def call(config, spikes, *args, **kw):
+            got = real(config, spikes, *args, **kw)
+            as_int8 = real(config, spikes.to(torch.int8), *args, **kw)
+            for a, b in zip(got if isinstance(got, tuple) else (got,), as_int8 if isinstance(got, tuple) else (as_int8,)):
+                assert torch.equal(a, b)
+            seen.append(spikes.dtype)
+            return got
+        return call
+
+    monkeypatch.setattr(lif_kernel, "lif_count_rates", spy(lif_kernel.lif_count_rates))
+    monkeypatch.setattr(streaming, "lif_count_stateful", spy(streaming.lif_count_stateful))
+    td.forward_batch(frames)
+    td.forward(frames[0])
+    sl = StreamingLocalizer(td)
+    sl.process_chunk(sl.init_state(2), frames[:, :TC], return_spikes=False)
+    assert seen == [torch.bool] * 3
+
+
 def test_torch_unipolar_forward_matches_jax(models):
     jd, td = models["jd"], models["td"]
     for frame in models["frames"]:
