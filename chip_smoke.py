@@ -27,8 +27,10 @@ Phases, each failing the run with a non-zero exit:
    dense masks at the flagship width, C = 32 (64-bit mask words) and
    C = 1, B = 1, uint8 and int8 masks of any nonzero values, masks at an odd
    byte offset, rec_coef = -1 (C = 32, and N = 1000 in one block); the
-   pack kernel bit-exact against ``pack_bipolar_masks_plain`` on every
-   case;
+   128-bit mask words at C = 33, 42 (the three-band model's), 63 and 64,
+   dense at 64 (every chunk on the out-of-line word loop), rec_coef = -1 at
+   42, and C = 65 raising ``ValueError``; the pack kernel bit-exact against
+   ``pack_bipolar_masks_plain`` on every case;
 5. slice: the flagship ``Demo.forward_batch(method="matched")`` at B = 96,
    T = 12 000 (bench.py's frames): every kernel's launch count (the pack
    pass's too) must rise,
@@ -105,7 +107,29 @@ Phases, each failing the run with a non-zero exit:
 17. one short run of the roofline harness's measurements
     (``haghighatshoarmuir2024_tpu_torch.experiments.roofline``): P1's and
     P2's ceilings beside the guide's peaks, P1 at K3's launch shape, P3 at
-    k = 2 and 4 against K3; every kernel's bound and share of it.
+    k = 2 and 4 against K3; every kernel's bound and share of it;
+18. 24 kHz: the flagship at ``fs=24_000`` on its bundled design and table,
+    bench.py's frames decimated by ``decimate_fir(x, 2)``:
+    ``forward_batch(method="matched")`` (K1, the pack pass and K3 once; DoAs
+    = the plain path's; doa-ok-frac 1.00 @5°) and the 96-stream step over
+    two carried 6000-sample chunks (lifted block 48; spikes, counts and
+    state = the plain path's and = one K4 pass over both chunks' masks; the
+    gate); batch and step times;
+19. three bands (``experiments/multiband_bench.py``'s config: 1600-2000,
+    2000-2300, 2300-2600 Hz, 449-point grid, C = 42, N = 1347) at 48 and at
+    24 kHz: designed on the card (``use_cache=False``, timed), calibrated
+    folded and band-stacked from the wideband template; ``forward_batch``
+    with ``matched`` (gate 1.00 @5°), ``peak`` (its ok-fraction @25°
+    printed, ungated as phase 5's), ``matched_stacked`` and
+    ``matched_auto``, the frames outside each tolerance listed, every DoA =
+    the plain path's
+    (the plain LIF 32 rows at a time, over all 96 rows); K1/K2 at R = 4032,
+    the pack pass and K3 at C = 42, N = 1347 bit-exact; one 96-stream step
+    (K4) bit-exact in spikes, counts and state; at 48 kHz one daemon round
+    by ``matched_stacked`` (answers = the direct step's); the set bits K3
+    meets, its times against K5 on the combined raster, and each kernel's
+    bound at F = 3 (``experiments/roofline.rzcc_work`` and
+    ``lif_bipolar_work``).
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -468,7 +492,23 @@ def lif_cases(torch, make, rand, flagship_config, flagship_masks):
         # a row of 1000 neurons in one block: its stages take more than 48 KB
         ("rec_coef=-1, N=1000", make(17, C=14, N=1000, rec=-1, w_scale=49), rand(17, 1500, 3, 14, 0.05), False),
         ("rec_coef=-1, flagship width", with_rec(flagship_config, -1), flagship_masks, False),
+        # 128-bit mask words: C = 33, the three-band model's 42, 63 and 64 (bit 127 and slot bytes up to
+        # 128), dense at 64 (every chunk on the out-of-line word loop), the uniform recurrence at 42
+        ("C=33", make(18, C=33, N=300, w_scale=12), rand(18, 1500, 3, 33, 0.05), False),
+        ("C=42", make(19, C=42, N=300, w_scale=12), rand(19, 1500, 3, 42, 0.05), False),
+        ("C=63", make(20, C=63, N=200, w_scale=8), rand(20, 1500, 3, 63, 0.05), False),
+        ("C=64", make(21, C=64, N=200, w_scale=8), rand(21, 1500, 3, 64, 0.05), False),
+        ("C=64 dense", make(22, C=64, N=100, w_scale=2), rand(22, 300, 2, 64, 0.8), False),
+        ("rec_coef=-1, C=42", make(23, C=42, N=150, rec=-1, w_scale=12), rand(23, 700, 2, 42, 0.05), False),
     ]
+
+
+def lk_max_channels(lk) -> int:
+    """The widest channels a polarity K3/K4 take; 64 since the 128-bit mask word."""
+    c = lk.library().hm_lif_max_channels()
+    if c < 64:
+        fail(f"K3/K4 take {c} channels a polarity; the three-band model needs 42 and the port promises 64")
+    return c
 
 
 def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
@@ -487,10 +527,15 @@ def check_lif(torch, lk, XyloConfig, dev, flagship_config, flagship_masks):
             fail(f"K3 {label}: {bad} counts differ from the plain simulator")
         if int(ref.sum()) == 0:
             fail(f"K3 {label}: no neuron fired, the case checks nothing")
+    # one channel past the widest mask word: the wrappers raise, no other route
+    too_wide = masks(torch, dev, 65, 40, 2, lk_max_channels(lk) + 1, 0.1)
+    must_raise_too_wide(lambda: lk.lif_count_rates_bipolar(make(65, C=65, N=20), *too_wide), "K3 C=65")
+    must_raise_too_wide(lambda: lk.pack_bipolar_masks(*too_wide), "pack C=65")
     print(f"[K3] {len(cases)} cases bit-exact vs plain sim_hidden, the pack kernel bit-exact vs its plain "
           "version on each (incl. saturating clip path, ragged T = 1, 7, 9, 513, 12001, flagship config and "
-          "masks, the flagship masks with six set bits a chunk, dense masks, C = 32 and 1, B = 1, uint8/int8 values, an odd byte offset, rec_coef = -1)",
-          flush=True)
+          "masks, the flagship masks with six set bits a chunk, dense masks, C = 32 and 1, B = 1, uint8/int8 "
+          "values, an odd byte offset, rec_coef = -1; 128-bit words at C = 33, 42, 63, 64, dense at 64, "
+          f"rec_coef = -1 at 42); C = {lk_max_channels(lk) + 1} raises", flush=True)
     kp, kn = flagship_masks
     T, B, _ = kp.shape
     # what the chain meets: steps (of B*T) by set bits, and chunks of
@@ -588,7 +633,8 @@ def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_mas
     print(f"[K4] {n_cases} cases bit-exact vs plain sim_hidden on counts and final isyn/vmem/spk, the pack "
           f"kernel on each (flagship B={B} Tc={T}, two chunks carried == one pass of {2 * T}, chunks of 1001, "
           "1, 7, 9, 3001 carried == one pass, ragged T, dense masks, C = 32 and 1, B = 1, uint8/int8 values, "
-          "an odd byte offset, clip path, rec_coef = -1)", flush=True)
+          "an odd byte offset, clip path, rec_coef = -1; C = 33, 42, 63, 64, dense at 64, rec_coef = -1 at 42)",
+          flush=True)
     params = lk.lif_params(flagship_config, dev, spike_bound=1)  # as the streaming runtime passes them
     ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(flagship_config, kp2, kn2, *first[1:]), 20)
     params_ms = timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(params, kp2, kn2, *first[1:]), 20)
@@ -599,6 +645,22 @@ def check_lif_stateful(torch, lk, XyloConfig, dev, flagship_config, flagship_mas
 def ok_frac(est, doas, tol_deg):
     err = np.abs(np.arcsin(np.abs(np.sin(np.asarray(est) - doas))))
     return float(np.mean(np.rad2deg(err) < tol_deg))
+
+
+def plain_bipolar_rows(torch, lk, cfg, kp, kn, state=None):
+    """The plain K3/K4 (``lif_count_stateful_bipolar_plain``) as many batch
+    rows at a time as keep its float64 input currents (T, rows, N) within
+    4 GiB, the rows being independent: every row at once at the flagship,
+    32 at the three-band model's N = 1347, where one pass over 96 rows
+    would hold 19 GB."""
+    T, N = kp.shape[0], np.asarray(cfg.w_in).shape[1]
+    rows = max(1, (4 << 30) // (8 * max(T, 1) * N))
+    outs = []
+    for lo in range(0, kp.shape[1], rows):
+        s = slice(lo, lo + rows)
+        st = (None, None, None) if state is None else tuple(x[s] for x in state)
+        outs.append(lk.lif_count_stateful_bipolar_plain(cfg, kp[:, s], kn[:, s], *st))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def plain_step(torch, sk, lk, sl, state, chunks):
@@ -613,8 +675,7 @@ def plain_step(torch, sk, lk, sl, state, chunks):
     kn = kn[sl.guard:sl.guard + Tc].reshape(Tc, B, sl.C)
     cfg = sl.demo.xylo_config
     if sl.bipolar:
-        counts, isyn, vmem, spk = lk.lif_count_stateful_bipolar_plain(
-            cfg, kp, kn, state.isyn, state.vmem, state.spk)
+        counts, isyn, vmem, spk = plain_bipolar_rows(torch, lk, cfg, kp, kn, (state.isyn, state.vmem, state.spk))
         spikes = torch.cat([kp & ~kn, kn], dim=-1).to(torch.int8)
     else:
         spikes = kp.to(torch.int8)
@@ -677,17 +738,19 @@ def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doa
 
 
 # ------------------------------------------------------------------ phase 8
-def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=4):
+def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=4,
+                  wires=(("f32", 1), ("u4", 4)), method=None):
     """8 TCP clients through the daemon; each answer must equal the DoA of
-    the direct streaming step at the same batch width on the same chunks.
-    The serve-step times leave out the first round of chunks: a new serving
-    thread pays one-off CUDA library set-up on its first step."""
+    the direct streaming step at the same batch width on the same chunks
+    (by the server's estimator, ``method`` where given).  The serve-step
+    times leave out the first round of chunks: a new serving thread pays
+    one-off CUDA library set-up on its first step."""
     os.environ["HM2024_SERVE_TIMING"] = "1"
     B, Tc, M = frames.shape
     sids = list(range(0, B, B // 8))[:8]
     audio = frames.cpu().numpy()
     out = {}
-    for wire, up in (("f32", 1), ("u4", 4)):
+    for wire, up in wires:
         if wire == "f32":
             sent = {s: [audio[s]] * n_chunks for s in sids}
         else:
@@ -697,7 +760,7 @@ def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, de
                 x = audio[s] / np.abs(audio[s]).max() * 0.98
                 sent[s] = [enc.encode(x) for _ in range(n_chunks)]
         with server.LocalizationServer(demo, max_streams=B, chunk_sec=Tc / demo.fs,
-                                       wire_dtype=wire, wire_upsample=up) as srv:
+                                       wire_dtype=wire, wire_upsample=up, method=method) as srv:
             srv.start()
             clients = {s: server.StreamClient(srv.port, s) for s in sids}
             _build.launch_counts.clear()
@@ -747,8 +810,8 @@ def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, de
         steps = max(stage["steps"], 1)
         out[wire] = dict(steps=stage["steps"],
                          **{f"{k}_ms": stage[k] / steps * 1e3 for k in ("wait", "device", "route")})
-        print(f"[serve] wire {wire} x{up}: {len(sids)} clients x {n_chunks} chunks answered, every DoA equal "
-              f"to the direct streaming step; launches {launches}", flush=True)
+        print(f"[serve] wire {wire} x{up}, {srv.method}: {len(sids)} clients x {n_chunks} chunks answered, every "
+              f"DoA equal to the direct streaming step; launches {launches}", flush=True)
     return out
 
 
@@ -799,11 +862,11 @@ def check_unipolar(torch, sk, lk, _build, Demo, flagship, frames, doas):
     accuracy."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    udemo = Demo(**{**flagship, "bipolar_spikes": False})
+    udemo = Demo(**{**flagship, "bipolar_spikes": False}, use_cache=False)
     torch.cuda.synchronize()
     design_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    udemo.calibrate_profiles()
+    udemo.calibrate_profiles(use_cache=False)
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
     cfg = udemo.xylo_config
@@ -1363,6 +1426,272 @@ def run_roofline(torch, roofline, _build, flagship_config, flagship_masks, w, ca
     return launches, dict(ceil=ceil, p3=p3)
 
 
+# ------------------------------------------------------------------ phase 18
+def decimated(torch, resample, frames, factor: int = 2):
+    """(B, T, M) frames decimated by ``decimate_fir(x, factor)`` frame by
+    frame, as the JAX package's reduced-rate experiment feeds its 24 kHz
+    model."""
+    x = frames.cpu().numpy()
+    return torch.as_tensor(np.stack([resample.decimate_fir(f, factor) for f in x]), device=frames.device)
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` by the host clock around ``reps`` calls
+    that end in a synchronize, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t1) / reps * 1e3
+
+
+def plain_estimates(torch, sk, lk, demo, frames, methods):
+    """The plain path on the same frames and card: encode, the plain RZCC,
+    the plain LIF (by rows); {method: DoAs}, ``cs``, the plain masks and
+    counts, and the plain LIF's milliseconds."""
+    cs = demo.encode(frames)
+    T, B, C = cs.shape
+    kp, kn = sk.rzcc_encode_bipolar_tm_plain(cs.reshape(T, B * C), demo.robust_width, 2 * demo.robust_width)
+    kp, kn = kp.reshape(T, B, C), kn.reshape(T, B, C)
+    (counts, *_), plain_ms = timed_once(torch, lambda: plain_bipolar_rows(torch, lk, demo.xylo_config, kp, kn))
+    return {m: demo.estimate(counts, T, m)[0] for m in methods}, cs, (kp, kn), counts, plain_ms
+
+
+def check_24k(torch, sk, lk, _build, Demo, StreamingLocalizer, resample, flagship, frames48, doas):
+    """The bipolar flagship at 24 kHz on the bundled design and table:
+    ``forward_batch(matched)`` on bench.py's frames decimated by 2 (DoAs =
+    the plain path's, the gate 1.00 @5 deg), and the 96-stream step over two
+    carried 6000-sample chunks (spikes, counts and state = the plain path's
+    and = one K4 pass over the same masks; the gate)."""
+    demo = Demo(**{**flagship, "fs": 24_000})  # the bundled 24 kHz design
+    demo.calibrate_profiles()  # the bundled 24 kHz table
+    frames = decimated(torch, resample, frames48)
+    B, T, _ = frames.shape
+    demo.forward_batch(frames, method="matched")  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    doa, rate = demo.forward_batch(frames, method="matched")
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches.get("rzcc_k1") != 1 or launches.get("lif_pack") != 1 or launches.get("lif_k3") != 1:
+        fail(f"the 24 kHz batch launched {launches}; expected K1, the pack pass and K3 once each")
+    p_doa, *_ = plain_estimates(torch, sk, lk, demo, frames, ("matched",))
+    if not torch.equal(doa, p_doa["matched"]):
+        fail("24 kHz: the DoAs differ from the plain path's")
+    ok = ok_frac(doa.cpu().numpy(), doas, 5.0)
+    print(f"[24k] B={B} T={T} (bench.py's frames decimated by 2): launches {launches}; DoAs identical to the plain "
+          f"path; doa-ok-frac {ok:.2f} @5deg (matched)", flush=True)
+    if ok < 1.0:
+        fail(f"24 kHz accuracy gate failed: doa-ok-frac {ok:.2f} @5deg")
+
+    sl = StreamingLocalizer(demo)
+    Tc = T
+    if sl.block_size(Tc) != 48:
+        fail(f"24 kHz: chunks of {Tc} samples take the lifted block size {sl.block_size(Tc)}, not 48")
+    sl.process_chunk(sl.init_state(B), frames, return_spikes=False)  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    state, spikes = sl.init_state(B), []
+    for _ in range(2):
+        state, sp = sl.process_chunk(state, frames)
+        spikes.append(sp)
+    torch.cuda.synchronize()
+    s_launches = dict(_build.launch_counts)
+    if s_launches.get("lif_k4") != 2 or s_launches.get("lif_pack") != 2 or s_launches.get("rzcc_k1") != 2:
+        fail(f"the 24 kHz streaming run launched {s_launches}; expected K1, the pack pass and K4 once per chunk")
+    pstate = sl.init_state(B)
+    for k in range(2):
+        pstate, psp = plain_step(torch, sk, lk, sl, pstate, frames)
+        if mismatches(spikes[k], psp):
+            fail(f"24 kHz streaming chunk {k}: spikes differ from the plain RZCC")
+    fields = ("counts", "isyn", "vmem", "spk")
+    bad = sum(mismatches(getattr(state, f), getattr(pstate, f)) for f in fields)
+    raster = torch.cat(spikes)
+    C = raster.shape[-1] // 2
+    zeros = tuple(torch.zeros_like(state.isyn) for _ in range(3))
+    one = lk.lif_count_stateful_bipolar(demo.lif_params(), (raster[..., :C] != 0).contiguous(),
+                                        (raster[..., C:] != 0).contiguous(), *zeros)
+    bad_one = sum(mismatches(getattr(state, f), o) for f, o in zip(fields, one))
+    if bad or bad_one:
+        fail(f"24 kHz streaming: the counts/state differ from the plain path in {bad} elements, from one K4 pass "
+             f"over the two chunks' masks in {bad_one}")
+    s_ok = ok_frac(sl.estimate_doa(state, "matched").cpu().numpy(), doas, 5.0)
+    print(f"[24k] streaming B={B} 2 x Tc={Tc} (lifted block 48): launches {s_launches}; spikes, counts and state "
+          f"identical to the plain path and to one K4 pass over both chunks; doa-ok-frac {s_ok:.2f} @5deg (matched)",
+          flush=True)
+    if s_ok < 1.0:
+        fail(f"24 kHz streaming accuracy gate failed: doa-ok-frac {s_ok:.2f} @5deg")
+    st = [sl.process_chunk(sl.init_state(B), frames, return_spikes=False)]
+
+    def step():
+        st[0] = sl.process_chunk(st[0], frames, return_spikes=False)
+
+    return dict(batch_ms=host_ms(torch, lambda: demo.forward_batch(frames, method="matched"), 20),
+                step_ms=host_ms(torch, step, 20), ok=ok, stream_ok=s_ok, B=B, T=T)
+
+
+# ------------------------------------------------------------------ phase 19
+STACKED_METHODS = ("matched", "peak", "matched_stacked", "matched_auto")
+
+
+def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, resample, mulaw, roofline, mb,
+                    dev, fs, peaks_per_s, serve: bool):
+    """The three-band model of experiments/multiband_bench.py at ``fs``:
+    designed on the card (``use_cache=False``, timed), calibrated folded and
+    band-stacked from the wideband template; ``forward_batch`` with the four
+    estimators (DoAs = the plain path's; gate 1.00 @5 deg matched, the
+    others' ok-fractions printed); K1/K2 at R = B·C =
+    4032 and the pack pass and K3 at C = 42, N = 1347 bit-exact against their
+    plain versions (all 96 rows, the plain LIF 32 rows at a time); one
+    96-stream step (K4) bit-exact in spikes, counts and state; with
+    ``serve`` one daemon round by ``matched_stacked``."""
+    cfg = mb.multiband_config(dev, fs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    demo = Demo(**cfg, use_cache=False)
+    torch.cuda.synchronize()
+    design_s = time.perf_counter() - t0
+    frames, doas, template = mb.multiband_frames(demo, 96, seed=SEED)
+    t0 = time.perf_counter()
+    demo.calibrate_profiles(template=template, use_cache=False)
+    demo.calibrate_profiles(template=template, use_cache=False, band_stacked=True)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    B, T, _ = frames.shape
+    N = demo.xylo_config.w_in.shape[1]
+    tag = f"[3-band {fs // 1000} kHz]"
+
+    demo.forward_batch(frames, method="matched")  # warm-up
+    torch.cuda.synchronize()
+    got, launches = {}, {}
+    for m in STACKED_METHODS:
+        _build.launch_counts.clear()
+        got[m] = demo.forward_batch(frames, method=m)
+        torch.cuda.synchronize()
+        launches[m] = dict(_build.launch_counts)
+        if launches[m].get("rzcc_k1") != 1 or launches[m].get("lif_pack") != 1 or launches[m].get("lif_k3") != 1:
+            fail(f"{tag} forward_batch({m}) launched {launches[m]}; expected K1, the pack pass and K3 once each")
+    p_doa, cs, (p_kp, p_kn), p_counts, k3_plain_ms = plain_estimates(torch, sk, lk, demo, frames, STACKED_METHODS)
+    bad = [m for m in STACKED_METHODS if not torch.equal(got[m][0], p_doa[m])]
+    if bad:
+        fail(f"{tag}: the DoAs of {bad} differ from the plain path's")
+    tol = {m: 25.0 if m == "peak" else 5.0 for m in STACKED_METHODS}
+    ok = {m: ok_frac(got[m][0].cpu().numpy(), doas, tol[m]) for m in STACKED_METHODS}
+    # the frames outside each estimator's tolerance: (frame, folded error in degrees)
+    misses = {}
+    for m in STACKED_METHODS:
+        err = np.rad2deg(np.abs(np.arcsin(np.abs(np.sin(got[m][0].cpu().numpy() - doas)))))
+        misses[m] = [(int(i), round(float(err[i]), 1)) for i in np.flatnonzero(err >= tol[m])]
+
+    # K1/K2 at R = 4032: the wrapper's masks, K1 and one K2 launch against the plain versions
+    C = cs.shape[-1]
+    cs_tm = cs.reshape(T, B * C)
+    w, W = sk._windows(demo.robust_width, 2 * demo.robust_width)
+    kp, kn = demo.rzcc(cs)
+    k1 = sk.rzcc_k1(cs_tm, w, W)
+    k1_ref = sk._k1_plain(cs_tm, w, W)
+    kept_p, kept_n = k1[2].clone(), k1[3].clone()
+    ap, an, _ = sk.rzcc_k2(cs_tm, k1[0], k1[1], kept_p, kept_n, w)
+    k2_ref = sk._k2_plain(cs_tm, *k1_ref, w)
+    rz_bad = (mismatches(kp, p_kp) + mismatches(kn, p_kn), sum(mismatches(a, b) for a, b in zip(k1, k1_ref)),
+              sum(mismatches(a, b) for a, b in zip((ap, an, kept_p, kept_n), k2_ref)))
+    if any(rz_bad):
+        fail(f"{tag} K1/K2 at R={B * C}: the wrapper's masks, K1 and one K2 launch differ from the plain "
+             f"versions in {rz_bad} elements")
+    # the pack pass and K3 at C = 42, N = 1347 (the kernels' counts on all rows)
+    params = demo.lif_params()
+    check_pack(torch, lk, kp, kn, f"{tag} C={C}")
+    counts = lk.lif_count_rates_bipolar(params, kp, kn)
+    if mismatches(counts, p_counts):
+        fail(f"{tag} K3 at C={C} N={N}: counts differ from the plain simulator")
+    print(f"{tag} designed on the card in {design_s:.3f} s (w_in {tuple(demo.xylo_config.w_in.shape)}), calibrated "
+          f"folded and band-stacked in {calib_s:.3f} s; B={B} T={T}: launches {launches['matched']}; DoAs of "
+          f"{', '.join(STACKED_METHODS)} identical to the plain path; K1/K2 at R={B * C}, the pack pass and K3 at "
+          f"C={C} N={N} bit-exact on all rows; doa-ok-frac {ok['matched']:.2f} @5deg (matched), {ok['peak']:.2f} "
+          f"@25deg (peak), matched_stacked {ok['matched_stacked']:.2f} @5deg, matched_auto "
+          f"{ok['matched_auto']:.2f} @5deg", flush=True)
+    print(f"{tag} frames outside the tolerance (frame, folded error deg): {misses}", flush=True)
+    # the gate is the matched estimator's, as bench.py's; the reference-parity peak estimator is held to
+    # the plain path's DoAs above and its ok-fraction printed (as phase 5 does for the flagship's): the
+    # JAX package's 1.00 @25deg at F = 3 (RESULTS.md:17) was one noise realization
+    if ok["matched"] < 1.0:
+        fail(f"{tag} accuracy gate failed: doa-ok-frac {ok['matched']:.2f} @5deg (matched)")
+
+    # one 96-stream step on the 0.25 s frames: K4 from zero against the plain step
+    sl = StreamingLocalizer(demo)
+    sl.process_chunk(sl.init_state(B), frames, return_spikes=False)  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    state, spikes = sl.process_chunk(sl.init_state(B), frames)
+    torch.cuda.synchronize()
+    s_launches = dict(_build.launch_counts)
+    if s_launches.get("lif_k4") != 1 or s_launches.get("lif_pack") != 1:
+        fail(f"{tag} streaming step launched {s_launches}; expected the pack pass and K4 once")
+    pstate, psp = plain_step(torch, sk, lk, sl, sl.init_state(B), frames)
+    bad = mismatches(spikes, psp) + sum(mismatches(getattr(state, f), getattr(pstate, f))
+                                        for f in ("counts", "isyn", "vmem", "spk"))
+    if bad:
+        fail(f"{tag} streaming step: {bad} elements of the spikes/counts/state differ from the plain step")
+    st_doa = sl.estimate_doa(state, "matched_stacked")
+    print(f"{tag} 96-stream step: launches {s_launches}; spikes, counts and state identical to the plain step; "
+          f"doa-ok-frac {ok_frac(st_doa.cpu().numpy(), doas, 5.0):.2f} @5deg (matched_stacked, after one chunk "
+          f"of {T} samples, {sl.pending} of them still pending)", flush=True)
+    if serve:
+        check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=1,
+                      wires=(("f32", 1),), method="matched_stacked")
+
+    # what the chain meets at C = 42: steps by set bits, tiles of 32 and chunks of CHAIN_STAGE steps by the most
+    # set bits a step of theirs has (at most 4: four slots a step; 5-6: six; more: the mask words)
+    packed = lk.pack_bipolar_masks(kp, kn)
+    bits = (torch.cat([kp & ~kn, kn], dim=-1) != 0).sum(dim=-1)
+    tiles = packed.most[:, :-(-T // 32)]
+    chunks = torch.zeros((B, -(-T // CHAIN_STAGE) * (CHAIN_STAGE // 32)), dtype=tiles.dtype, device=dev)
+    chunks[:, :tiles.shape[1]] = tiles
+    chunks = chunks.reshape(B, -1, CHAIN_STAGE // 32).amax(dim=-1)
+    hist = dict(steps_by_bits=torch.bincount(bits.flatten()).tolist(), tiles=tiles.numel(),
+                tiles_over_6=int((tiles > 6).sum()), tiles_5_6=int(((tiles > 4) & (tiles <= 6)).sum()),
+                chunks=chunks.numel(), chunks_words=int((chunks > 6).sum()),
+                chunks_six=int(((chunks > 4) & (chunks <= 6)).sum()))
+    print(f"{tag} K3's input: steps (of B*T) by set bits {hist['steps_by_bits']}; tiles of 32 steps {hist['tiles']}, "
+          f"with a step of 5-6 set bits {hist['tiles_5_6']}, of more than 6 (the word loop) {hist['tiles_over_6']}; "
+          f"chunks of {CHAIN_STAGE} steps {hist['chunks']}, on six slots {hist['chunks_six']}, on the mask words "
+          f"{hist['chunks_words']}", flush=True)
+
+    # times and bounds
+    k4_state = tuple(torch.zeros((B, N), dtype=torch.int32, device=dev) for _ in range(3))
+    combined = torch.cat([kp & ~kn, kn], dim=-1)
+    if mismatches(lk.lif_count_rates(params, combined, time_major=True), counts):
+        fail(f"{tag}: K5 on the combined raster differs from K3's counts")
+    st = [sl.init_state(B)]
+
+    def step():
+        st[0] = sl.process_chunk(st[0], frames, return_spikes=False)
+
+    k1_ms = timed_ms(torch, lambda: sk.rzcc_k1(cs_tm, w, W), 20)
+    k2_ms = timed_ms(torch, lambda: sk.rzcc_k2(cs_tm, k1[0], k1[1], k1[2], k1[3], w), 20)
+    times = dict(
+        design_s=design_s, calib_s=calib_s,
+        batch_ms=host_ms(torch, lambda: demo.forward_batch(frames, method="matched"), 10),
+        stacked_batch_ms=host_ms(torch, lambda: demo.forward_batch(frames, method="matched_stacked"), 10),
+        step_ms=host_ms(torch, step, 10),
+        k1_ms=k1_ms, k2_ms=k2_ms,
+        pack_ms=timed_ms(torch, lambda: lk.pack_bipolar_masks(kp, kn), 20),
+        k3_ms=timed_ms(torch, lambda: lk.lif_count_rates_bipolar(demo.xylo_config, kp, kn, spike_bound=1), 10),
+        k3_params_ms=timed_ms(torch, lambda: lk.lif_count_rates_bipolar(params, kp, kn), 10),
+        k3_plain_ms=k3_plain_ms,
+        k4_ms=timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(demo.xylo_config, kp, kn, *k4_state), 10),
+        k4_params_ms=timed_ms(torch, lambda: lk.lif_count_stateful_bipolar(params, kp, kn, *k4_state), 10),
+        k5_combined_ms=timed_ms(torch, lambda: lk.lif_count_rates(params, combined, time_major=True), 10),
+        k5_cat_ms=timed_ms(torch, lambda: lk.lif_count_rates(params, torch.cat([kp & ~kn, kn], dim=-1),
+                                                             time_major=True), 10),
+    )
+    work = {**roofline.rzcc_work(cs_tm, w, W), **roofline.lif_bipolar_work(kp, kn, N)}
+    times["bounds"] = {k: dict(zip(("bound_ms", "bound_by", "ops", "bytes"), (*b, *work[k])))
+                       for k, b in roofline.bounds(work, peaks_per_s).items()}
+    return times
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     try:
@@ -1402,6 +1731,7 @@ def main() -> int:
     lap(start, "build")
 
     from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import multiband as mb
     from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import FRAME, GRID, flagship_config, flagship_frames
     from haghighatshoarmuir2024_tpu_torch.ops import peaks
     from haghighatshoarmuir2024_tpu_torch.experiments import roofline
@@ -1499,6 +1829,15 @@ def main() -> int:
     rf_launches, rf = run_roofline(torch, roofline, _build, demo.xylo_config, (kp, kn), w, card)
     lap(start, "K7, the probes, the roofline harness")
 
+    # ---- phases 18-19: the 24 kHz mode; the three-band model at 48 and 24 kHz
+    r24 = check_24k(torch, sk, lk, _build, Demo, StreamingLocalizer, resample, flagship, frames, doas)
+    lap(start, "24 kHz")
+    three = {}
+    for fs in (48_000, 24_000):
+        three[fs] = check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, resample, mulaw,
+                                    roofline, mb, dev, fs, rf["ceil"]["peaks"], serve=fs == 48_000)
+        lap(start, f"three bands at {fs // 1000} kHz")
+
     # stage and end-to-end times
     stage_ms = {
         "encode": timed_ms(torch, lambda: demo.encode(frames), 10),
@@ -1506,21 +1845,8 @@ def main() -> int:
         "lif (pack + K3)": lif["ms"],
         "estimate": timed_ms(torch, lambda: demo.estimate(p_counts, T, "matched"), 20),
     }
-    n_rep = 20
-    demo.forward_batch(frames, method="matched")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(n_rep):
-        demo.forward_batch(frames, method="matched")
-    torch.cuda.synchronize()
-    batch_ms = (time.perf_counter() - t1) / n_rep * 1e3
-    udemo.forward_batch(frames, method="matched")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(n_rep):
-        udemo.forward_batch(frames, method="matched")
-    torch.cuda.synchronize()
-    ubatch_ms = (time.perf_counter() - t1) / n_rep * 1e3
+    batch_ms = host_ms(torch, lambda: demo.forward_batch(frames, method="matched"), 20)
+    ubatch_ms = host_ms(torch, lambda: udemo.forward_batch(frames, method="matched"), 20)
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -1567,6 +1893,26 @@ def main() -> int:
         print(f"{tag} serve step ({wire} wire, {r['steps']} steps after the first round): "
               f"device {r['device_ms']:.3f} ms, "
               f"wait {r['wait_ms']:.3f} ms, route {r['route_ms']:.3f} ms per step", flush=True)
+    print(f"{tag} 24 kHz (bench.py's frames decimated by 2, T = {r24['T']}): forward_batch(matched) "
+          f"{r24['batch_ms']:.3f} ms per {r24['B']} x {frame} s batch = {r24['B'] * frame / (r24['batch_ms'] / 1e3):.1f} "
+          f"audio-sec/sec; streaming step {r24['step_ms']:.3f} ms per {r24['B']} streams x {frame} s chunk")
+    for fs, r in three.items():
+        t3 = f"{tag} three bands at {fs // 1000} kHz:"
+        print(f"{t3} design on the card {r['design_s']:.3f} s, calibration folded + band-stacked "
+              f"{r['calib_s']:.3f} s; forward_batch(matched) {r['batch_ms']:.3f} ms, (matched_stacked) "
+              f"{r['stacked_batch_ms']:.3f} ms per {B} x {frame} s batch = {B * frame / (r['batch_ms'] / 1e3):.1f} "
+              f"audio-sec/sec; streaming step {r['step_ms']:.3f} ms per {B} streams x {frame} s chunk")
+        print(f"{t3} K1 {r['k1_ms']:.4f} ms, K2 {r['k2_ms']:.4f} ms, pack {r['pack_ms']:.4f} ms, K3 (pack included) "
+              f"{r['k3_ms']:.4f} ms (the LIF integers uploaded once: {r['k3_params_ms']:.4f} ms; plain, 32 rows at a "
+              f"time {r['k3_plain_ms']:.1f} ms), K4 (pack included) {r['k4_ms']:.4f} ms (uploaded once: "
+              f"{r['k4_params_ms']:.4f} ms); K5 on the combined raster (2C = 84, counts == K3's) "
+              f"{r['k5_combined_ms']:.4f} ms, {r['k5_cat_ms']:.4f} ms with the raster made from the two masks")
+        for name, b in r["bounds"].items():
+            ms = {"rzcc_k1": r["k1_ms"], "rzcc_k2": r["k2_ms"], "lif_pack": r["pack_ms"],
+                  "lif_k3": r["k3_params_ms"], "lif_k4": r["k4_params_ms"]}[name]
+            print(f"{t3} bound {name}: {ms:.4f} ms against a bound of {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                  f"{b['ops']:.4g} ops, {b['bytes']:.4g} bytes); the bound is {100 * b['bound_ms'] / ms:.1f} % of the "
+                  "kernel's time")
 
     # every kernel's bound, from the harness's one table of what each kernel
     # is counted for: its least operations over the higher of the probe's
@@ -1623,11 +1969,16 @@ def main() -> int:
         print(f"{tag} bound {name}: {res['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}: "
               f"{ops:.4g} {noun[roofline.UNIT[key]]}, {nbytes:.4g} bytes); the bound is "
               f"{100 * bound_ms / res['ms']:.1f} % of the kernel's time")
+        # the three-band model's times and bounds of the kernels it runs with other inputs (48 kHz)
+        f3 = three[48_000]
+        f3_ms = {"rzcc_k1": f3["k1_ms"], "rzcc_k2": f3["k2_ms"], "lif_pack": f3["pack_ms"],
+                 "lif_k3": f3["k3_params_ms"], "lif_k4": f3["k4_params_ms"]}
+        extra = {} if key not in f3_ms else {"f3_ms": f3_ms[key], "f3_bound_ms": f3["bounds"][key]["bound_ms"]}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": res.get("library_ms"),
-                        **{k: res[k] for k in ("params_ms", "raw_ms") if k in res}})
+                        **{k: res[k] for k in ("params_ms", "raw_ms") if k in res}, **extra})
     lap(start, "the times")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,11 +14,15 @@ entry points (``Demo``, ``Demo.load``, ``SNNBeamformer``,
 Ported so far:
 
 - the quantized SNN localizer ``models.xylo.Demo`` with bipolar or unipolar
-  RZCC spikes: its design on the demo's device (``models.snn_beamformer``)
-  and calibration, ``forward`` (one frame: kernel K5) and ``forward_batch``
-  — encode → fused RZCC (kernels K1, K2) → integer LIF spike counts (K3
-  from the two polarity masks, or K5 from the unipolar raster) → fold +
-  matched/peak DoA;
+  RZCC spikes, one band or several (the three-band model,
+  ``models.xylo.multiband``), at 48 kHz or 24 kHz: its design on the demo's
+  device (``models.snn_beamformer``) and calibration, folded or
+  band-stacked, kept in a writable design cache (``utils.cache``),
+  ``forward`` (one frame: kernel K5) and ``forward_batch`` — encode → fused
+  RZCC (kernels K1, K2) → integer LIF spike counts (K3 from the two
+  polarity masks, or K5 from the unipolar raster) → fold + matched/peak
+  DoA, or the band-stacked ``matched_stacked``/``matched_auto`` on the
+  unfolded rates;
 - the streaming runtime ``runtime.StreamingLocalizer`` (carried-state chunks
   of B streams: K1, K2 and the stateful LIF kernel K4, or K6 for a unipolar
   model) and the serving daemon ``runtime.LocalizationServer`` over the

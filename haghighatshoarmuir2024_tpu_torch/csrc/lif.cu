@@ -28,10 +28,11 @@
 //   pack   lif_pack_bipolar_kernel reads the two byte masks once, coalesced,
 //          as 32-bit words, and writes row-major (B, Tp) arrays, Tp = T
 //          rounded up to PACK_T: one mask word per (b, t), bit c kp & ~kn and
-//          bit C + c kn (32 bits where 2C <= 32, else 64: a template
-//          parameter); one 64-bit word of slots per (b, t), its SLOTS lowest
-//          set bits c as bytes c + 1; and per PACK_T steps the most set bits
-//          a step has.  It is the counterpart of the Pallas kernel's mask
+//          bit C + c kn (32 bits where 2C <= 32, 64 where 2C <= 64, else two
+//          64-bit words, Word128: a template parameter); one 64-bit word of
+//          slots per (b, t), its SLOTS lowest set bits c as bytes c + 1 (up
+//          to 128: a byte); and per PACK_T steps the most set bits a step
+//          has.  It is the counterpart of the Pallas kernel's mask
 //          combination (lif_kernel.py:300-307); K3's and K4's times include
 //          it.
 //   chain  each warp copies its row's slots into shared memory STAGE steps
@@ -56,15 +57,54 @@
 namespace {
 
 constexpr int NT = 64;             // neurons per block when rec == 0
-constexpr int BIPOLAR_MAX_C = 32;  // channels per polarity, one 64-bit word
+constexpr int BIPOLAR_MAX_C = 64;  // channels per polarity: 2C bits in a Word128
 constexpr int SLOTS = 6;           // set bits a step's 64-bit word of slots names
 
-// ------------------------------------------------------------ K3/K4: pack
+// ------------------------------------------------------------ mask words
+// The mask word of 64 < 2C <= 128 bits: bit c in lo for c < 64, else bit
+// c - 64 of hi.  The three word types share the operations below, so that
+// the pack's slot loop and the out-of-line word loop are written once.
+struct __align__(16) Word128 {
+  unsigned long long lo, hi;
+};
+
 // The lowest set bit of m plus one, 0 for none.
 __device__ __forceinline__ int lowest(uint32_t m) { return __ffs((int)m); }
 __device__ __forceinline__ int lowest(unsigned long long m) { return __ffsll((long long)m); }
+__device__ __forceinline__ int lowest(Word128 m) {
+  return m.lo ? __ffsll((long long)m.lo) : m.hi ? 64 + __ffsll((long long)m.hi) : 0;
+}
 __device__ __forceinline__ int popcount(uint32_t m) { return __popc(m); }
 __device__ __forceinline__ int popcount(unsigned long long m) { return __popcll(m); }
+__device__ __forceinline__ int popcount(Word128 m) { return __popcll(m.lo) + __popcll(m.hi); }
+// m without its lowest set bit
+template <typename W>
+__device__ __forceinline__ W clear_lowest(W m) { return m & (m - 1); }
+__device__ __forceinline__ Word128 clear_lowest(Word128 m) {
+  return m.lo ? Word128{m.lo & (m.lo - 1), m.hi} : Word128{0, m.hi & (m.hi - 1)};
+}
+template <typename W>
+__device__ __forceinline__ bool any_set(W m) { return m != 0; }
+__device__ __forceinline__ bool any_set(Word128 m) { return (m.lo | m.hi) != 0; }
+// m |= v << s for the low four bits of v (the pack's four channels), s < 2C
+template <typename W>
+__device__ __forceinline__ void set_bits(W& m, uint32_t v, int s) { m |= (W)v << s; }
+__device__ __forceinline__ void set_bits(Word128& m, uint32_t v, int s) {
+  if (s < 64) {
+    m.lo |= (unsigned long long)v << s;
+    if (s > 60) m.hi |= (unsigned long long)v >> (64 - s);  // the bits past 63
+  } else {
+    m.hi |= (unsigned long long)v << (s - 64);
+  }
+}
+template <typename W>
+__device__ __forceinline__ W load_word(const W* p) { return __ldg(p); }
+__device__ __forceinline__ Word128 load_word(const Word128* p) {
+  const ulonglong2 x = __ldg(reinterpret_cast<const ulonglong2*>(p));
+  return Word128{x.x, x.y};
+}
+
+// ------------------------------------------------------------ K3/K4: pack
 
 // One block per tile of PACK_T steps x PACK_B rows, PACK_B warps of 32
 // lanes.  A step's tile row, the PACK_B rows' C bytes, is span contiguous
@@ -85,7 +125,10 @@ __global__ void lif_pack_bipolar_kernel(const uint8_t* __restrict__ kp,
                                         const uint8_t* __restrict__ kn, W* __restrict__ words,
                                         unsigned long long* __restrict__ slots,
                                         int* __restrict__ most, int T, int Tp, int B, int C) {
-  constexpr int MAX_W = PACK_B * BIPOLAR_MAX_C / 4 + 2;  // words covering a step's tile row
+  // the channels a tile row is sized for: 64 for Word128 (33.5 KB of static
+  // shared memory), 32 for the narrower words, the flagship's as before
+  constexpr int TILE_C = sizeof(W) > 8 ? BIPOLAR_MAX_C : 32;
+  constexpr int MAX_W = PACK_B * TILE_C / 4 + 2;  // words covering a step's tile row
   constexpr int S = MAX_W + 1;
   constexpr int STEPS = PACK_T / PACK_B;  // step rows per warp
   constexpr int PER = (MAX_W + 31) / 32;  // words per lane and step row
@@ -127,7 +170,7 @@ __global__ void lif_pack_bipolar_kernel(const uint8_t* __restrict__ kp,
   __syncthreads();
   if (r >= rows) return;
   const int t = t0 + lane;
-  W m = 0;
+  W m{};
   if (t < T) {
     const int op = (int)(row_start(kp, t) & 3) + r * C, on = (int)(row_start(kn, t) & 3) + r * C;
     const uint32_t* p = s_p + lane * S;
@@ -140,8 +183,8 @@ __global__ void lif_pack_bipolar_kernel(const uint8_t* __restrict__ kp,
       const uint32_t neg = __vcmpne4(y, 0) & keep;
       const uint32_t pos = __vcmpne4(x, 0) & keep & ~neg;  // -1 wins on collision
       // four 0/1 bytes -> four bits: v * 0x01020408 puts byte j's bit at 24 + j
-      m |= (W)((pos * 0x01020408u) >> 24) << (4 * k);
-      m |= (W)((neg * 0x01020408u) >> 24) << (C + 4 * k);
+      set_bits(m, (pos * 0x01020408u) >> 24, 4 * k);
+      set_bits(m, (neg * 0x01020408u) >> 24, C + 4 * k);
     }
   }
   const size_t at = (size_t)(b0 + r) * Tp + t;
@@ -149,7 +192,7 @@ __global__ void lif_pack_bipolar_kernel(const uint8_t* __restrict__ kp,
   const int bits = __reduce_max_sync(0xffffffffu, (unsigned)popcount(m));
   unsigned long long sl = 0;
 #pragma unroll
-  for (int k = 0; k < SLOTS; ++k, m &= m - 1) sl |= (unsigned long long)lowest(m) << (8 * k);
+  for (int k = 0; k < SLOTS; ++k, m = clear_lowest(m)) sl |= (unsigned long long)lowest(m) << (8 * k);
   slots[at] = sl;
   if (lane == 0) most[(size_t)(b0 + r) * (Tp / PACK_T) + blockIdx.x] = bits;
 }
@@ -244,7 +287,7 @@ __device__ __noinline__ void chunk_from_words(ChainState& s, const W* __restrict
                                               int rec) {
   for (int t = 0; t < len; ++t) {
     int cur = REC ? rec * s.row_spikes : 0;
-    for (W m = __ldg(&words[t]); m; m &= m - 1) cur += wt((uint32_t)lowest(m) << 8);
+    for (W m = load_word(&words[t]); any_set(m); m = clear_lowest(m)) cur += wt((uint32_t)lowest(m) << 8);
     const bool fired = lif_step<CLIP>(s.isyn, s.vmem, cur, ds, dm, th, wt.live);
     s.cnt += fired ? 1 : 0;
     s.spk = fired ? 1 : 0;
@@ -429,8 +472,9 @@ int dispatch_bipolar(const BipolarArgs& a, int clip, void* stream) {
   if (a.C < 1 || a.C > BIPOLAR_MAX_C || a.Tp % PACK_T != 0 || a.Tp < a.T)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return 2 * a.C <= 32 ? dispatch_bipolar_w<STATEFUL, uint32_t>(a, clip, st)
-                       : dispatch_bipolar_w<STATEFUL, unsigned long long>(a, clip, st);
+  if (2 * a.C <= 32) return dispatch_bipolar_w<STATEFUL, uint32_t>(a, clip, st);
+  if (2 * a.C <= 64) return dispatch_bipolar_w<STATEFUL, unsigned long long>(a, clip, st);
+  return dispatch_bipolar_w<STATEFUL, Word128>(a, clip, st);
 }
 
 }  // namespace
@@ -449,7 +493,8 @@ void hm_lif_launch_shape(int B, int C, int N, int rec, int* out) {
 }
 
 // K3/K4's pack pass: (T, B, C) masks -> (B, Tp) mask words (32 bits where
-// 2C <= 32, else 64), (B, Tp) slots, (B, Tp / PACK_T) most set bits a tile.
+// 2C <= 32, 64 where 2C <= 64, else 128), (B, Tp) slots, (B, Tp / PACK_T)
+// most set bits a tile.
 int hm_lif_pack_bipolar(const uint8_t* kp, const uint8_t* kn, void* words,
                         unsigned long long* slots, int* most, int T, int Tp, int B, int C,
                         void* stream) {
@@ -460,9 +505,12 @@ int hm_lif_pack_bipolar(const uint8_t* kp, const uint8_t* kn, void* words,
   if (2 * C <= 32)
     lif_pack_bipolar_kernel<uint32_t>
         <<<grid, block, 0, st>>>(kp, kn, (uint32_t*)words, slots, most, T, Tp, B, C);
-  else
+  else if (2 * C <= 64)
     lif_pack_bipolar_kernel<unsigned long long>
         <<<grid, block, 0, st>>>(kp, kn, (unsigned long long*)words, slots, most, T, Tp, B, C);
+  else
+    lif_pack_bipolar_kernel<Word128>
+        <<<grid, block, 0, st>>>(kp, kn, (Word128*)words, slots, most, T, Tp, B, C);
   return (int)cudaGetLastError();
 }
 

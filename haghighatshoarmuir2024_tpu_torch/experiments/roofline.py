@@ -236,10 +236,10 @@ def pack_work(T: int, B: int, C: int) -> tuple[float, float]:
     """(operations, bytes) of K3/K4's pack pass, as its function needs them:
     per step, row and channel a test of each mask, an and-not and an or into
     the word; the two (T, B, C) one-byte masks in and per step and row one
-    mask word out (4 bytes where 2C <= 32, else 8).  The slots and the most
+    mask word out (4 bytes where 2C <= 32, 8 where 2C <= 64, else 16).  The slots and the most
     set bits the kernel also writes are its design's, not its function's:
     the bound leaves them out."""
-    word = 4 if 2 * C <= 32 else 8
+    word = 4 if 2 * C <= 32 else 8 if 2 * C <= 64 else 16
     return float(4 * T * B * C), float(2 * T * B * C + word * T * B)
 
 
@@ -307,6 +307,30 @@ def p2_work(shape, w: int, rep: int) -> tuple[float, float]:
     return float(2 * rep * window_compares(w + 1) * n), float(8 * n)
 
 
+def rzcc_work(cs_tm, w: int, W: int) -> dict:
+    """{kernel: (operations, bytes)} of K1 on ``cs_tm`` (T, rows) and of one
+    K2 round on K1's masks, counted from the plain versions' masks."""
+    T, R = cs_tm.shape
+    k1 = sk._k1_plain(cs_tm, w, W)
+    k2 = sk._k2_plain(cs_tm, *k1, w)
+    new_kept = int(k2[2].sum() + k2[3].sum() - k1[2].sum() - k1[3].sum())
+    return {"rzcc_k1": k1_work(T, R, w, W), "rzcc_k2": round_work((k1[0], k1[1]), w, new_kept)}
+
+
+def lif_bipolar_work(kp, kn, N: int) -> dict:
+    """{kernel: (operations, bytes)} of K3/K4's pack pass, K3 and K4 on the
+    (T, B, C) polarity masks ``kp``/``kn`` and N neurons, as their function
+    needs them (the masks read once): the flagship's C = 14 and the
+    three-band model's C = 42 alike."""
+    T, B, C = kp.shape
+    nnz = int((kp & ~kn).sum()) + int(kn.sum())
+    return {
+        "lif_pack": pack_work(T, B, C),
+        "lif_k3": lif_work(nnz, T, B, N, 2 * C),
+        "lif_k4": lif_work(nnz, T, B, N, 2 * C, stateful=True),
+    }
+
+
 def flagship_work(cs_tm, w: int, W: int, kp, kn, u_spikes, N: int, p1: dict, p2: dict) -> dict:
     """{kernel: (operations, bytes)} of each kernel's timed launch at the
     flagship, counted from its inputs: K1 on ``cs_tm`` (T, rows); K2 on K1's
@@ -316,29 +340,23 @@ def flagship_work(cs_tm, w: int, W: int, kp, kn, u_spikes, N: int, p1: dict, p2:
     entry, and so has K5/K6's raster pack pass); K7's first round on the maxima of ``cs_tm`` with heights
     ``cs_tm``; P1 at the sweep's best point ``p1``; P2 on its tiles ``p2``.
     Masks come from the plain versions."""
-    T, R = cs_tm.shape
-    _, B, C = kp.shape
-    k1 = sk._k1_plain(cs_tm, w, W)
-    k2 = sk._k2_plain(cs_tm, *k1, w)
-    new_kept = int(k2[2].sum() + k2[3].sum() - k1[2].sum() - k1[3].sum())
+    T, _ = cs_tm.shape
+    _, B, _ = kp.shape
     maxima = peaks.local_extrema_mask_bounded(cs_tm.T, W)[0].T.contiguous()
     _, kept7 = sk._k7_plain(cs_tm, maxima, torch.zeros_like(maxima), w)
-    nnz = int((kp & ~kn).sum()) + int(kn.sum())
     u_nnz = int((u_spikes != 0).sum())
     Cu = u_spikes.shape[-1]
+    lif = lif_bipolar_work(kp, kn, N)
     return {
-        "rzcc_k1": k1_work(T, R, w, W),
-        "rzcc_k2": round_work((k1[0], k1[1]), w, new_kept),
-        "lif_pack": pack_work(T, B, C),
-        "lif_k3": lif_work(nnz, T, B, N, 2 * C),
-        "lif_k4": lif_work(nnz, T, B, N, 2 * C, stateful=True),
+        **rzcc_work(cs_tm, w, W),
+        **lif,
         "lif_pack_raster": pack_raster_work(T, B, Cu),
         "lif_k5": lif_work(u_nnz, T, B, N, Cu),
         "lif_k6": lif_work(u_nnz, T, B, N, Cu, stateful=True),
         "suppress_k7": round_work((maxima,), w, int(kept7.sum())),
         "probe_p1": (float(p1["ops"]), 8.0 * p1["n"]),
         "probe_p2": p2_work(p2["shape"], p2["w"], p2["rep"]),
-        "probe_p3": lif_work(nnz, T, B, N, 2 * C),
+        "probe_p3": lif["lif_k3"],
     }
 
 
@@ -375,7 +393,7 @@ def run(reps: int, batch: int) -> dict:
     cs_tm = cs.reshape(T, B * C)
     w, W = sk._windows(demo.robust_width, 2 * demo.robust_width)
     kp, kn = demo.rzcc(cs)
-    udemo = Demo(**flagship_config(dev, bipolar=False))  # designed on the card
+    udemo = Demo(**flagship_config(dev, bipolar=False), use_cache=False)  # designed on the card
     u_spikes = udemo.rzcc(udemo.encode(frames))[0].to(torch.int8)
     cfg, ucfg = demo.xylo_config, udemo.xylo_config
 

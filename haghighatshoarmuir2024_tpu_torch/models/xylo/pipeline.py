@@ -4,10 +4,12 @@ micloc/xylo_snn_localization.py:74-542).
 
 Construction (JAX ``pipeline.py:216-331``): per frequency band an
 :class:`~..snn_beamformer.SNNBeamformer` designed from a sinusoid template at
-the band centre, on ``device`` — or the design bundled with the JAX package
-for this configuration — becomes the input weights of a 2-layer SNN,
-quantized to Xylo-A2 integers.  :meth:`calibrate_profiles` reads the bundled
-matched-profile table or computes it through :meth:`forward_batch`.
+the band centre, on ``device`` — or the design the :class:`DesignCache`
+holds for this configuration (the user directory, then the files bundled
+with the JAX package) — becomes the input weights of a 2-layer SNN,
+quantized to Xylo-A2 integers.  :meth:`calibrate_profiles` reads a cached
+matched-profile table or computes it through :meth:`rates_batch`, folded or
+band-stacked.
 
 Inference, time-major on ``device``:
 
@@ -20,7 +22,9 @@ Inference, time-major on ``device``:
    two polarity masks (bipolar :meth:`forward_batch`), kernel K5 from one
    raster, the bool masks as they are (unipolar :meth:`forward_batch`, and :meth:`forward` for both
    polarities);
-4. rate, fold over bands, matched-profile (or peak) argmax on the DoA grid.
+4. the unfolded (B, F·G) rates; fold over bands and the matched (or peak)
+   argmax on the DoA grid, or the band-stacked estimators on the unfolded
+   rates (``matched_stacked``, ``matched_auto``).
 
 CPU tensors run the kernels' plain versions.
 """
@@ -38,12 +42,71 @@ from ...ops.fir import full_fp32
 from ...ops.iir import iir_cumsum_blocked
 from ...ops.interp import signal_from_template
 from ...ops.stht import stht
-from ...utils.cache import design_cache_key, load_bundled
+from ...utils.cache import DesignCache, design_cache_key
 from ..snn_beamformer import SNNBeamformer
 from .quantize import XyloConfig, global_quantize, validate_config
 from .spec import build_localization_spec
 
-_MULTIBAND = "is multiband, not ported yet (ROADMAP queue 1 item 9)"
+METHODS = ("peak", "periodic_ml", "trimmed_periodic_ml", "matched", "matched_stacked", "matched_auto")
+STACKED = ("matched_stacked", "matched_auto")  # the estimators of the unfolded (F·G) rates
+
+
+# ----------------------------------------------------- band-stacked scoring
+def _blockcos(x: torch.Tensor, G: int) -> torch.Tensor:
+    """Mean-remove and unit-normalize each G-wide band block of the trailing
+    axis (JAX ``_blockcos``, ``pipeline.py:33-45``): a noise-dominated band
+    then adds a bounded cosine to the summed score."""
+    xb = x.reshape(*x.shape[:-1], -1, G)
+    xb = xb - xb.mean(dim=-1, keepdim=True)
+    n = torch.linalg.vector_norm(xb, dim=-1, keepdim=True)
+    return (xb / n.clamp_min(1e-12)).reshape(x.shape)
+
+
+def _cos1(x: torch.Tensor) -> torch.Tensor:
+    """Mean-remove and unit-normalize the trailing axis (JAX ``_cos1``,
+    ``pipeline.py:48-54``)."""
+    xc = x - x.mean(dim=-1, keepdim=True)
+    return xc / torch.linalg.vector_norm(xc, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """The median of the trailing axis as ``jnp.median`` takes it: the mean
+    of the two middle values of an even length (``torch.median`` returns the
+    lower one)."""
+    s = x.sort(dim=-1).values
+    n = x.shape[-1]
+    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+
+
+def _auto_blend_scores(rate: torch.Tensor, prof_stacked: torch.Tensor, G: int,
+                       weight: str = "peak2") -> torch.Tensor:
+    """The SNR-adaptive blend of the band-stacked matched scores (JAX
+    ``_auto_blend_scores``, ``pipeline.py:57-102``): the F per-band cosine
+    score vectors and the folded-profile cosine, each weighted by its own
+    peak (``"peak"``), squared peak (``"peak2"``, the default) or peak over
+    the median (``"contrast"``), summed.  ``rate`` (..., F·G) unfolded,
+    ``prof_stacked`` (P, F·G) → (..., P) scores, float32 products (TF32
+    off)."""
+    full_fp32()
+    F = rate.shape[-1] // G
+    P = prof_stacked.shape[0]
+    cb = _blockcos(rate, G).reshape(*rate.shape[:-1], F, G)
+    pb = _blockcos(prof_stacked, G).reshape(P, F, G)
+    Sb = torch.einsum("...fg,pfg->...fp", cb, pb)
+    rf = _cos1(rate.reshape(*rate.shape[:-1], F, G).mean(dim=-2))
+    pf = _cos1(prof_stacked.reshape(P, F, G).mean(dim=-2))
+    Sf = torch.matmul(rf, pf.T)
+    comp = torch.cat([Sb, Sf[..., None, :]], dim=-2)  # (..., F + 1, P)
+    pk = comp.amax(dim=-1)
+    if weight == "peak":
+        w = pk
+    elif weight == "peak2":
+        w = pk**2
+    elif weight == "contrast":
+        w = torch.clamp_min(pk - _median(comp), 0.0)
+    else:
+        raise ValueError(f"unknown auto-blend weight {weight!r}")
+    return (comp * w[..., None]).sum(dim=-2)
 
 
 class Demo:
@@ -53,9 +116,10 @@ class Demo:
     The constructor has the JAX signature plus ``device``, where the design
     runs and the tensors live: the card (``"cuda"``) by default, the CPU only
     with ``device="cpu"``; without a GPU the default raises.
-    ``use_cache=True`` takes the design bundled with the JAX package for this
-    configuration where there is one; anything else is designed (a writable
-    on-disk design cache is not ported).
+    ``use_cache=True`` takes the design the :class:`DesignCache` holds for
+    this configuration (the port's user directory, then the files bundled
+    with the JAX package) and saves one it had to compute there;
+    ``use_cache=False`` designs and saves nothing.
     """
 
     def __init__(
@@ -98,7 +162,8 @@ class Demo:
             fs=fs,
             version=1,
         )
-        cached = load_bundled(key) if use_cache else None
+        cache = DesignCache() if use_cache else None
+        cached = cache.load(key) if cache is not None else None
         # per-band beamformer design (micloc/xylo_snn_localization.py:115-145)
         bf_mats = []
         for i, (band, beamf) in enumerate(zip(self.freq_bands, self.beamfs)):
@@ -113,6 +178,8 @@ class Demo:
         for i, m in enumerate(bf_mats):
             if not np.all(np.isfinite(m)):
                 raise FloatingPointError(f"beamforming design for band {i} contains non-finite values")
+        if cache is not None and cached is None:
+            cache.save(key, {f"bf_{i}": m for i, m in enumerate(bf_mats)})
         self.bf_mats = bf_mats
         self._initialize_snn_module(target_dt)
 
@@ -141,6 +208,8 @@ class Demo:
         self._profiles = None
         self._profiles_t = None
         self._profiles_stacked = None
+        self._stacked_t = None
+        self._stacked_cos_t = None
         self._lif = None
 
     def _initialize_snn_module(self, target_dt: float) -> None:
@@ -202,8 +271,7 @@ class Demo:
     def load(cls, path: str, device=None) -> "Demo":
         """A Demo from the ``.npz`` that either package's ``Demo.save`` writes
         (JAX ``pipeline.py:502-561``): geometry, ``bf_i``, the quantized
-        config's integers, the profiles and the band-stacked profiles (kept
-        for :meth:`save`; no estimator of the port reads them yet), restored
+        config's integers, the profiles and the band-stacked profiles, restored
         verbatim, on ``device`` (the card unless ``"cpu"`` is asked for)."""
         device = resolve_device(device)
         z = np.load(path, allow_pickle=False)
@@ -233,7 +301,7 @@ class Demo:
         if "profiles" in z:
             self._set_profiles(z["profiles"])
         if "profiles_stacked" in z:
-            self._profiles_stacked = np.asarray(z["profiles_stacked"])
+            self._set_profiles_stacked(z["profiles_stacked"])
         return self
 
     # ------------------------------------------------------- matched profiles
@@ -241,25 +309,38 @@ class Demo:
         self._profiles = np.asarray(profiles)
         self._profiles_t = torch.as_tensor(self._profiles, dtype=torch.float32, device=self.device)
 
+    def _set_profiles_stacked(self, profiles) -> None:
+        """The G×(F·G) table, on the device as it is (``matched_auto``) and
+        block-normalized once in numpy float32 (``matched_stacked``; JAX
+        ``pipeline.py:883-887``)."""
+        self._profiles_stacked = np.asarray(profiles)
+        prof = np.asarray(profiles, np.float32)
+        G = len(self.doa_list)
+        pb = prof.reshape(prof.shape[0], -1, G)
+        pb = pb - pb.mean(axis=-1, keepdims=True)
+        pb = pb / np.maximum(np.linalg.norm(pb, axis=-1, keepdims=True), 1e-12)
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=self.device)  # noqa: E731
+        self._stacked_t = as_t(prof)
+        self._stacked_cos_t = as_t(pb.reshape(prof.shape))
+
     def calibrate_profiles(self, template=None, batch: int = 32, use_cache: bool = True,
                            band_stacked: bool = False):
-        """The G×G matched-profile table: row g is the rate profile of the
-        quantized pipeline for a noiseless source at grid DoA g, mean-removed
-        and unit-normalized (JAX ``pipeline.py:564-650``).
+        """The matched-profile table: row g is the rate profile of the
+        quantized pipeline for a noiseless source at grid DoA g,
+        mean-removed and unit-normalized (JAX ``pipeline.py:564-650``).
+        G×G of the folded rates, or with ``band_stacked=True`` G×(F·G) of
+        the unfolded per-band rates (``matched_stacked``, ``matched_auto``).
 
-        ``use_cache=True`` reads the table bundled for this configuration and
-        template where there is one; otherwise it is computed, ``batch``
-        DoAs per :meth:`forward_batch`.  ``band_stacked=True`` (the unfolded
-        per-band table) raises ``NotImplementedError``."""
-        if band_stacked:
-            raise NotImplementedError("calibrate_profiles(band_stacked=True) " + _MULTIBAND)
+        ``use_cache=True`` reads the table the :class:`DesignCache` holds for
+        this configuration and template, and saves one it had to compute;
+        it is computed ``batch`` DoAs per :meth:`rates_batch`."""
         if template is None:
             t = np.arange(0, self.recording_duration, 1.0 / self.fs)
             f_mid = float(np.mean(self.freq_bands[0]))
             template = (t, np.sin(2 * np.pi * f_mid * t))
         t, sig = template
         key = design_cache_key(
-            kind="profiles",
+            kind="profiles_stacked" if band_stacked else "profiles",
             r_vec=self.geometry.r_vec,
             theta_vec=self.geometry.theta_vec,
             freq_bands=self.freq_bands,
@@ -271,24 +352,30 @@ class Demo:
             sig=np.asarray(sig, np.float32),
             version=1,
         )
-        cached = load_bundled(key) if use_cache else None
+        cache = DesignCache() if use_cache else None
+        cached = cache.load(key) if cache is not None else None
         if cached is not None:
-            self._set_profiles(cached["profiles"])
-            return self._profiles
-
-        # float32 synthesis, as the JAX package runs it on the TPU
-        t_dev = torch.as_tensor(np.asarray(t), dtype=torch.float32, device=self.device)
-        sig_dev = torch.as_tensor(np.asarray(sig), dtype=torch.float32, device=self.device)
-        profs = []
-        for start in range(0, len(self.doa_list), batch):
-            frames = torch.stack([
-                signal_from_template(self.geometry, t_dev, sig_dev, float(d), fs=self.fs)
-                for d in self.doa_list[start:start + batch]
-            ])
-            profs.append(self.forward_batch(frames)[1].cpu().numpy())
-        profiles = np.concatenate(profs, axis=0)
-        profiles = profiles - profiles.mean(axis=1, keepdims=True)
-        profiles = profiles / np.maximum(np.linalg.norm(profiles, axis=1, keepdims=True), 1e-12)
+            profiles = cached["profiles"]
+        else:
+            # float32 synthesis, as the JAX package runs it on the TPU
+            t_dev = torch.as_tensor(np.asarray(t), dtype=torch.float32, device=self.device)
+            sig_dev = torch.as_tensor(np.asarray(sig), dtype=torch.float32, device=self.device)
+            profs = []
+            for start in range(0, len(self.doa_list), batch):
+                frames = torch.stack([
+                    signal_from_template(self.geometry, t_dev, sig_dev, float(d), fs=self.fs)
+                    for d in self.doa_list[start:start + batch]
+                ])
+                rate = self.rates_batch(frames)
+                profs.append((rate if band_stacked else self.fold(rate)).cpu().numpy())
+            profiles = np.concatenate(profs, axis=0)
+            profiles = profiles - profiles.mean(axis=1, keepdims=True)
+            profiles = profiles / np.maximum(np.linalg.norm(profiles, axis=1, keepdims=True), 1e-12)
+            if cache is not None:
+                cache.save(key, {"profiles": profiles})
+        if band_stacked:
+            self._set_profiles_stacked(profiles)
+            return self._profiles_stacked
         self._set_profiles(profiles)
         return self._profiles
 
@@ -336,16 +423,30 @@ class Demo:
             return lif_kernel.lif_count_rates_bipolar(self.lif_params(), kp, kn, spike_bound=1)
         return lif_kernel.lif_count_rates(self.lif_params(), kp, time_major=True, spike_bound=1)
 
+    def fold(self, rate: torch.Tensor) -> torch.Tensor:
+        """Unfolded (..., F·G) rates → the band-averaged (..., G) profile
+        (micloc/xylo_snn_localization.py:379-398)."""
+        return rate.reshape(*rate.shape[:-1], -1, len(self.doa_list)).mean(dim=-2)
+
     def estimate(self, counts: torch.Tensor, T: int, method: str = "peak"):
         """Counts → (doa (B,), folded rate (B, G)) (JAX ``pipeline.py:776-786,
-        854-859``)."""
-        G = len(self.doa_list)
+        854-932``): the stacked estimators score the unfolded rates, the
+        others the folded ones."""
         rate = counts.to(torch.float32) / T * self.fs
-        rate_doa = rate.reshape(rate.shape[0], -1, G).mean(dim=1)
-        return self.estimate_doa_from_rate(rate_doa, method), rate_doa
+        rate_doa = self.fold(rate)
+        return self.estimate_doa_from_rate(rate if method in STACKED else rate_doa, method), rate_doa
 
-    def estimate_doa_from_rate(self, rate_doa: torch.Tensor, method: str = "peak") -> torch.Tensor:
-        """Folded rates (B, G) → DoAs (B,) (JAX ``estimate_doa_from_rate``,
+    def extract_rate(self, spikes, fold: bool = True) -> torch.Tensor:
+        """A time-major hidden raster (T, ..., F·G) → its spike rates, folded
+        over the bands to (..., G), or with ``fold=False`` the unfolded
+        (..., F·G) rates that ``matched_stacked``/``matched_auto`` take (JAX
+        ``extract_rate``, ``pipeline.py:385-394``)."""
+        rate = torch.as_tensor(spikes, device=self.device).to(torch.float32).mean(dim=0) * self.fs
+        return self.fold(rate) if fold else rate
+
+    def estimate_doa_from_rate(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:
+        """Rates (..., G), or (..., F·G) unfolded for the stacked
+        estimators, → DoAs (...) (JAX ``estimate_doa_from_rate``,
         ``pipeline.py:396-463``, row by row; micloc/xylo_snn_localization.py:400-444):
 
         - ``"peak"``: the reference-parity argmax;
@@ -355,34 +456,46 @@ class Demo:
           reference's index quirk kept; indices wrap once and then clamp,
           as JAX's gather does;
         - ``"matched"``: the argmax of the correlation with the calibrated
-          profiles.
+          profiles;
+        - ``"matched_stacked"``: per-band cosine scores of the unfolded rates
+          against the band-stacked table (:func:`_blockcos`);
+        - ``"matched_auto"``: :func:`_auto_blend_scores` of the same.
 
-        The multiband ``matched_stacked`` and ``matched_auto`` raise."""
-        if method == "matched":
-            if self._profiles_t is None:
-                raise ValueError("call calibrate_profiles() before the matched estimator")
+        The matched estimators need their table (``calibrate_profiles()``,
+        or with ``band_stacked=True``) and raise ``ValueError`` without it or
+        for rates of another width than the table's."""
+        if method not in METHODS:
+            raise ValueError(f"only the following estimation methods are supported:\n{list(METHODS)}")
+        G = len(self.doa_list)
+        if method in ("matched",) + STACKED:
+            table = self._profiles_t if method == "matched" else self._stacked_t
+            if table is None:
+                raise ValueError(
+                    "call calibrate_profiles() before method='matched' / calibrate_profiles(band_stacked=True) "
+                    "before method='matched_stacked' / 'matched_auto'")
+            if rate.shape[-1] != table.shape[-1]:
+                raise ValueError(
+                    f"rate length {rate.shape[-1]} does not match the profile table width {table.shape[-1]} — "
+                    "matched_stacked/matched_auto take extract_rate(..., fold=False)")
             full_fp32()  # f32-exact: a TF32 product can flip near-tie argmaxes
-            r = rate_doa - rate_doa.mean(dim=-1, keepdim=True)
-            return self._doa_t[torch.argmax(torch.matmul(r, self._profiles_t.T), dim=-1)]
+            if method == "matched_auto":
+                scores = _auto_blend_scores(rate, table, G)
+            elif method == "matched_stacked":
+                scores = torch.matmul(_blockcos(rate, G), self._stacked_cos_t.T)
+            else:
+                scores = torch.matmul(rate - rate.mean(dim=-1, keepdim=True), table.T)
+            return self._doa_t[torch.argmax(scores, dim=-1)]
         if method == "peak":
-            return self._doa_t[torch.argmax(rate_doa, dim=-1)]
-        if method in ("periodic_ml", "trimmed_periodic_ml"):
-            G = len(self.doa_list)
-            rate = rate_doa.to(torch.float64)
-            phase = torch.exp(1j * self._doa_t)
-            if method == "periodic_ml":
-                return torch.angle((rate * phase).mean(dim=-1))
-            n = G // 2
-            window = torch.arange(-n // 2, n // 2 + 1, device=rate.device)
-            idx = window[None, :] - torch.argmax(rate, dim=-1, keepdim=True)
-            idx = torch.clamp(torch.where(idx < 0, idx + G, idx), 0, G - 1)
-            return torch.angle((torch.gather(rate, -1, idx) * phase[idx]).mean(dim=-1))
-        if method in ("matched_stacked", "matched_auto"):
-            raise NotImplementedError(f"method={method!r} " + _MULTIBAND)
-        raise ValueError(
-            "method must be 'peak', 'periodic_ml', 'trimmed_periodic_ml' or 'matched' "
-            f"(got {method!r})"
-        )
+            return self._doa_t[torch.argmax(rate, dim=-1)]
+        rate = rate.to(torch.float64)
+        phase = torch.exp(1j * self._doa_t)
+        if method == "periodic_ml":
+            return torch.angle((rate * phase).mean(dim=-1))
+        n = G // 2
+        window = torch.arange(-n // 2, n // 2 + 1, device=rate.device)
+        idx = window - torch.argmax(rate, dim=-1, keepdim=True)
+        idx = torch.clamp(torch.where(idx < 0, idx + G, idx), 0, G - 1)
+        return torch.angle((torch.gather(rate, -1, idx) * phase[idx]).mean(dim=-1))
 
     # -------------------------------------------------------------- entries
     def forward(self, sig_in):
@@ -402,12 +515,21 @@ class Demo:
         doa, rate_doa = self.estimate(counts, cs.shape[0], "peak")
         return doa[0], rate_doa[0]
 
-    def forward_batch(self, sig_batch, method: str = "peak"):
-        """Batched chain: (B, T, M) audio → (doa (B,), rate (B, G)).
-
-        ``method`` is any of :meth:`estimate_doa_from_rate`'s; ``"matched"``
-        requires :meth:`calibrate_profiles`."""
+    def rates_batch(self, sig_batch) -> torch.Tensor:
+        """(B, T, M) audio → the unfolded hidden rates (B, F·G), band-major
+        (JAX ``_rates_batch_jit``, ``pipeline.py:790-846``): the shared body
+        of :meth:`forward_batch` and of the calibration."""
         cs = self.encode(sig_batch)
         kp, kn = self.rzcc(cs)
-        counts = self.lif_counts(kp, kn)
-        return self.estimate(counts, cs.shape[0], method)
+        return self.lif_counts(kp, kn).to(torch.float32) / cs.shape[0] * self.fs
+
+    def forward_batch(self, sig_batch, method: str = "peak"):
+        """Batched chain: (B, T, M) audio → (doa (B,), folded rate (B, G)).
+
+        ``method`` is any of :meth:`estimate_doa_from_rate`'s; ``"matched"``
+        requires :meth:`calibrate_profiles`, ``"matched_stacked"`` and
+        ``"matched_auto"`` ``calibrate_profiles(band_stacked=True)``, and
+        score the unfolded rates (JAX ``pipeline.py:747-765, 863-932``)."""
+        rate = self.rates_batch(sig_batch)
+        rate_doa = self.fold(rate)
+        return self.estimate_doa_from_rate(rate if method in STACKED else rate_doa, method), rate_doa

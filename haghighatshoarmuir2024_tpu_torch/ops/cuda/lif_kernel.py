@@ -61,9 +61,12 @@ PACK_SLOTS = 6  # csrc/lif.cu's SLOTS: set bits a step's word of slots names
 class PackedMasks(NamedTuple):
     """The pack pass's outputs, row-major with Tp = T rounded up to
     :data:`PACK_STEPS` steps (zeros past T).  Unsigned words held as int32
-    (int64 for 64-bit mask words) of the same bits."""
+    (int64 for 64-bit mask words, two int64 for 128-bit ones) of the same
+    bits."""
 
-    words: torch.Tensor  # (B, Tp): bit c = kp & ~kn of channel c, bit C + c = kn; int32 where 2C <= 32
+    # bit c = kp & ~kn of channel c, bit C + c = kn: (B, Tp) int32 where 2C <= 32, (B, Tp) int64 where
+    # 2C <= 64, else (B, Tp, 2) int64, bits 0-63 then 64-127 (csrc/lif.cu's Word128)
+    words: torch.Tensor
     slots: torch.Tensor  # (B, Tp) int64: the PACK_SLOTS lowest set bits c as bytes c + 1 (0 for none)
     most: torch.Tensor  # (B, Tp / PACK_STEPS) int32: the most set bits a step of [b, k]'s 32 has
 
@@ -194,9 +197,11 @@ def pack_bipolar_masks_plain(kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> Pack
     most = torch.zeros((B, Tp), dtype=torch.int32, device=bits.device)
     most[:, :T] = bits.sum(dim=-1).T
     most = most.reshape(B, Tp // PACK_STEPS, PACK_STEPS).amax(dim=-1)
-    words = torch.zeros((B, Tp), dtype=torch.int64, device=bits.device)
-    words[:, :T] = (bits << c).sum(dim=-1).T  # distinct bits: the sum is their OR
-    slots_p = torch.zeros_like(words)
+    shifted = bits << (c % 64)  # each bit at its place in its 64-bit word; distinct bits: a sum is their OR
+    halves = [shifted[..., k:k + 64].sum(dim=-1) for k in range(0, 2 * C, 64)]  # (T, B) each
+    words = torch.zeros(_words_shape(B, Tp, C), dtype=torch.int64, device=bits.device)
+    words[:, :T] = (halves[0] if len(halves) == 1 else torch.stack(halves, dim=-1)).transpose(0, 1)
+    slots_p = torch.zeros((B, Tp), dtype=torch.int64, device=bits.device)
     slots_p[:, :T] = slots.T
     return PackedMasks(words=_as_int32(words) if _word_dtype(C) == torch.int32 else words,
                        slots=slots_p, most=most)
@@ -227,6 +232,11 @@ def _as_int32(x: torch.Tensor) -> torch.Tensor:
 
 def _word_dtype(C: int) -> torch.dtype:
     return torch.int32 if 2 * C <= 32 else torch.int64
+
+
+def _words_shape(B: int, Tp: int, C: int) -> tuple[int, ...]:
+    """The mask words' shape: one word per (b, t), two int64 where 2C > 64."""
+    return (B, Tp) if 2 * C <= 64 else (B, Tp, 2)
 
 
 def _words_steps(T: int) -> int:
@@ -303,7 +313,7 @@ def pack_bipolar_masks(kp_tbc: torch.Tensor, kn_tbc: torch.Tensor) -> PackedMask
     T, B, C = _check_mask_pair(kp_tbc, kn_tbc)
     Tp = _words_steps(T)
     new = lambda shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device=kp_tbc.device)  # noqa: E731
-    packed = PackedMasks(words=new((B, Tp), _word_dtype(C)), slots=new((B, Tp), torch.int64),
+    packed = PackedMasks(words=new(_words_shape(B, Tp, C), _word_dtype(C)), slots=new((B, Tp), torch.int64),
                          most=new((B, Tp // PACK_STEPS)))
     with torch.cuda.device(kp_tbc.device):
         rc = library().hm_lif_pack_bipolar(kp_tbc.data_ptr(), kn_tbc.data_ptr(),

@@ -13,13 +13,15 @@ stream's running DoA back to its client.
 One serve step, in plain tensor code (``server.py:488-530`` of the JAX
 package): zero the state of reclaimed slots, advance all B lanes (idle lanes
 compute on stale audio), merge the active lanes back with ``torch.where``,
-estimate.  Per step there is one host→device upload — the daemon's buffer and
-the two lane masks share one pinned staging buffer — and one (B,) DoA
-download.
+estimate: ``peak`` and ``matched`` on the folded rates, the band-stacked
+``matched_stacked`` and ``matched_auto`` on the unfolded ones (the counts,
+or the ``forget`` EMA where set), against the demo's table, block-normalized
+once on the host (``server.py:315-351, 426-452``).  Per step there is one
+host→device upload — the daemon's buffer and the two lane masks share one
+pinned staging buffer — and one (B,) DoA download.
 
 Not ported: ``mesh=`` (one GPU), ``track=True`` and ``sources > 1``
-(``utils/tracking``, ``peaks.top_k_peaks``) and the multiband
-``matched_stacked``/``matched_auto`` estimators; they raise
+(``utils/tracking``, ``peaks.top_k_peaks``); they raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -39,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..models.xylo.pipeline import STACKED
 from ..ops.mulaw import mulaw4_decode_table, mulaw4_encode, mulaw_decode_table, mulaw_encode, pack4
 from ..ops.resample import TAPS_PER_PHASE, decimate_fir, design_upsample_fir, phase_table, upsample_poly_stream
 from .streaming import StreamingLocalizer
@@ -114,10 +117,11 @@ class LocalizationServer:
         self.Tc = int(round(chunk_sec * demo.fs))
         self.M = len(demo.geometry)
         self.method = method or ("matched" if getattr(demo, "_profiles", None) is not None else "peak")
-        if self.method in ("matched_stacked", "matched_auto"):
-            raise NotImplementedError(f"method={self.method!r} is multiband, not ported yet (ROADMAP queue 1 item 9)")
-        if self.method not in ("peak", "matched"):
-            raise ValueError(f"method must be 'peak' or 'matched' (got {self.method!r})")
+        if self.method not in ("peak", "matched") + STACKED:
+            raise ValueError(f"method must be 'peak', 'matched', 'matched_stacked' or 'matched_auto' "
+                             f"(got {self.method!r})")
+        if self.method in STACKED and getattr(demo, "_profiles_stacked", None) is None:
+            raise ValueError(f"method={self.method!r} needs demo.calibrate_profiles(band_stacked=True)")
         if wire_dtype not in _WIRE:
             raise ValueError("wire_dtype must be 'f32', 'i16', 'u8' or 'u4'")
         if wire_upsample not in (1, 4):
@@ -215,7 +219,7 @@ class LocalizationServer:
         # the merged counts of idle lanes are their old counts: chunk counts 0
         chunk_counts = (self._state.counts - state.counts).to(torch.float32)
         self._ema = torch.where(active[:, None], self.forget * self._ema + chunk_counts, self._ema)
-        rate = self._ema.reshape(self.B, -1, len(self.demo.doa_list)).mean(dim=1)
+        rate = self._ema if self.method in STACKED else self.demo.fold(self._ema)
         return self.demo.estimate_doa_from_rate(rate, self.method)
 
     # ---- serving loop -----------------------------------------------------

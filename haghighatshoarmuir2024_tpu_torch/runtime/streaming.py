@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..geometry import resolve_device
+from ..models.xylo.pipeline import STACKED
 from ..models.xylo.sim import uniform_rec_coef
 from ..ops.cuda.lif_kernel import lif_count_stateful, lif_count_stateful_bipolar
 from ..ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
@@ -252,6 +253,8 @@ class StreamingLocalizer:
         return r.reshape(r.shape[0], -1, len(self.demo.doa_list)).mean(dim=1)
 
     def estimate_doa(self, state: StreamState, method: str = "peak") -> torch.Tensor:
-        """(B,) DoAs from the accumulated counts: ``"peak"`` or
-        ``"matched"`` (the latter needs ``demo.calibrate_profiles``)."""
-        return self.demo.estimate_doa_from_rate(self.rate(state), method)
+        """(B,) DoAs from the accumulated counts by any estimator of
+        ``demo.estimate_doa_from_rate``: the folded rates, the unfolded ones
+        for ``"matched_stacked"`` and ``"matched_auto"`` (JAX
+        ``streaming.py:418-425``)."""
+        return self.demo.estimate_doa_from_rate(self.rate(state, fold=method not in STACKED), method)

@@ -1,19 +1,27 @@
-"""Design cache keys and the read-only lookup of the bundled designs
-(counterpart of ``haghighatshoarmuir2024_tpu/utils/cache.py:144-179``).
+"""Design cache keys, the bundled designs and a writable design cache
+(counterpart of ``haghighatshoarmuir2024_tpu/utils/cache.py:144-186``).
 
 The flagship design and calibration tables are committed as ``.npz`` files
 inside the JAX package (``haghighatshoarmuir2024_tpu/data/designs/``).  They
-are read here by path: importing that package would import JAX.
+are read here by path, never written: importing that package would import
+JAX.  What the port designs or calibrates itself goes to its own user
+directory (:class:`DesignCache`), never to the JAX package's
+``~/.cache/hm2024_tpu``: a design computed in float32 on the card differs
+from the JAX package's by about 1e-5 per column, and neither package's
+parity may rest on the other's numbers.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
+import tempfile
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
+CACHE_ENV = "HM2024_TORCH_CACHE"  # the user directory's override
 BUNDLED_DIR = (
     Path(__file__).resolve().parent.parent.parent / "haghighatshoarmuir2024_tpu" / "data" / "designs"
 )
@@ -40,10 +48,37 @@ def bundled_path(key: str) -> Path:
     return BUNDLED_DIR / f"{key}.npz"
 
 
-def load_bundled(key: str) -> Optional[Dict[str, np.ndarray]]:
-    """Arrays of the bundled design ``key``, or None when it is not bundled."""
-    p = bundled_path(key)
-    if not p.exists():
+class DesignCache:
+    """Designs and calibration tables by :func:`design_cache_key`: the user
+    directory first, then the bundled files (JAX ``DesignCache``,
+    ``cache.py:160-186``).  :meth:`save` writes to the user directory only,
+    atomically (a file of its own, then ``os.replace``), so that processes
+    saving the same key at once leave one whole file.  The user directory
+    is ``cache_dir``, else ``$HM2024_TORCH_CACHE``, else
+    ``~/.cache/hm2024_torch``, read when the cache is made."""
+
+    def __init__(self, cache_dir=None):
+        self.dir = Path(cache_dir or os.environ.get(CACHE_ENV) or Path.home() / ".cache" / "hm2024_torch")
+
+    def path(self, key: str) -> Path:
+        return self.dir / f"{key}.npz"
+
+    def load(self, key: str) -> Optional[Dict[str, np.ndarray]]:
+        """The arrays of ``key`` from the user directory, else the bundled
+        file, else None."""
+        for p in (self.path(key), bundled_path(key)):
+            if p.exists():
+                with np.load(p, allow_pickle=False) as z:
+                    return {k: z[k] for k in z.files}
         return None
-    with np.load(p, allow_pickle=False) as z:
-        return {k: z[k] for k in z.files}
+
+    def save(self, key: str, arrays: Dict[str, np.ndarray]) -> None:
+        self.dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=self.dir, prefix=f".{key}.", suffix=".npz")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **{k: np.asarray(v) for k, v in arrays.items()})
+            os.replace(tmp, self.path(key))
+        except BaseException:
+            Path(tmp).unlink(missing_ok=True)
+            raise

@@ -189,7 +189,7 @@ def test_torch_demo_without_bundled_design_raises():
     """A configuration with no bundled design no longer raises: the port
     designs it (here on the CPU) and gets a finite (14, G) ``bf_0``."""
     geo = tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7)
-    demo = Demo(geometry=geo, **{**FLAGSHIP, "freq_bands": [[1000, 1300]]}, device="cpu")
+    demo = Demo(geometry=geo, **{**FLAGSHIP, "freq_bands": [[1000, 1300]]}, use_cache=False, device="cpu")
     bf = demo.bf_mats[0]
     assert bf.shape == (14, G) and bf.dtype == np.float32 and np.isfinite(bf).all()
     np.testing.assert_allclose(np.linalg.norm(bf, axis=0), 1.0, atol=1e-5)

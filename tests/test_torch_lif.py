@@ -84,10 +84,11 @@ def bipolar_masks(seed, T, B, C, p):
 
 
 # the families K3's words and groups of steps meet: dense masks (most of the
-# 2C bits set on every step), C = 32 (64-bit words) and C = 1, one batch row,
-# T around the chain's group of 8 steps
+# 2C bits set on every step), C = 32 (64-bit words), C = 33, 42 (the
+# three-band model's) and 64 (128-bit words) and C = 1, one batch row, T
+# around the chain's group of 8 steps
 BIPOLAR_CASES = ["random", "recurrent", "saturating", "collisions", "ragged", "dense", "C=32", "C=1",
-                 "B=1", "T=1", "T=7", "T=9", "T=33"]
+                 "B=1", "T=1", "T=7", "T=9", "T=33", "C=33", "C=42", "C=64"]
 
 
 def pallas_k3(cfg, kp, kn):
@@ -116,7 +117,7 @@ def test_torch_lif_count_bipolar_matches_jax(case):
         cfg, C, p = make_config(14, C=28, N=30, w_scale=3), 14, 0.9
     elif case.startswith("C="):
         C = int(case[2:])
-        cfg, p = make_config(15 + C, C=2 * C, N=24, w_scale=8), 0.1 if C == 32 else 0.5
+        cfg, p = make_config(15 + C, C=2 * C, N=24, w_scale=8), 0.1 if C >= 32 else 0.5
     elif case == "B=1":
         cfg, B = make_config(16), 1
     else:
@@ -137,20 +138,21 @@ def test_torch_lif_count_bipolar_matches_jax(case):
 
 
 def numpy_pack(kp, kn, steps):
-    """(T, B, C) masks → (B, steps) uint64 mask words (bit c = kp & ~kn, bit
-    C + c = kn), (B, steps) slots (the six lowest set bits c as bytes c + 1)
-    and (B, steps // 32) the most set bits a step of each 32 has; zeros past
-    T."""
+    """(T, B, C) masks → (B, steps, 2) uint64 mask words, bits 0-63 then
+    64-127 (bit c = kp & ~kn, bit C + c = kn), (B, steps) slots (the six
+    lowest set bits c as bytes c + 1) and (B, steps // 32) the most set bits
+    a step of each 32 has; zeros past T."""
     T, B, C = kp.shape
     kp, kn = kp != 0, kn != 0
     bits = np.concatenate([kp & ~kn, kn], axis=-1)  # (T, B, 2C)
-    words = np.zeros((B, steps), np.uint64)
+    words = np.zeros((B, steps, 2), np.uint64)
     slots = np.zeros((B, steps), np.uint64)
     count = np.zeros((B, steps), np.int64)
     for t in range(T):
         for b in range(B):
             set_bits = np.flatnonzero(bits[t, b])
-            words[b, t] = sum(np.uint64(1) << np.uint64(c) for c in set_bits) if len(set_bits) else 0
+            word = sum(1 << int(c) for c in set_bits)
+            words[b, t] = word & (2**64 - 1), word >> 64
             slots[b, t] = sum(int(c + 1) << (8 * k) for k, c in enumerate(set_bits[:6]))
             count[b, t] = len(set_bits)
     return words, slots, count.reshape(B, steps // 32, 32).max(axis=-1)
@@ -158,12 +160,15 @@ def numpy_pack(kp, kn, steps):
 
 @pytest.mark.parametrize("C,T,B,p,dtype", [(1, 40, 3, 0.5, np.bool_), (14, 100, 5, 0.1, np.uint8),
                                            (14, 70, 2, 0.5, np.bool_), (32, 33, 2, 0.5, np.int8),
-                                           (16, 64, 9, 0.5, np.bool_)])
+                                           (16, 64, 9, 0.5, np.bool_), (33, 40, 3, 0.5, np.bool_),
+                                           (42, 70, 2, 0.1, np.uint8), (64, 33, 2, 0.5, np.int8)])
 def test_torch_pack_bipolar_masks_plain_matches_numpy(C, T, B, p, dtype):
     """The pack pass's plain version against a numpy bit-pack with the
     collision rule: 32-bit mask words where 2C <= 32 (bit 31 set at C = 16),
-    else 64-bit (bit 63 set at C = 32); the slots of the six lowest set
-    bits; the most set bits of each 32 steps; rows T rounded up to PACK_STEPS."""
+    64-bit where 2C <= 64 (bit 63 set at C = 32), else two 64-bit words
+    (bit 127 set at C = 64); the slots of the six lowest set bits (bytes up
+    to 128); the most set bits of each 32 steps; rows T rounded up to
+    PACK_STEPS."""
     rng = np.random.default_rng(C)
     kp = (rng.random((T, B, C)) < p) * rng.integers(1, 100, size=(T, B, C))
     kn = (rng.random((T, B, C)) < p) * rng.integers(1, 100, size=(T, B, C))
@@ -171,18 +176,24 @@ def test_torch_pack_bipolar_masks_plain_matches_numpy(C, T, B, p, dtype):
     got = lif_kernel.pack_bipolar_masks(torch.as_tensor(kp), torch.as_tensor(kn))
     steps = -(-T // lif_kernel.PACK_STEPS) * lif_kernel.PACK_STEPS
     words, slots, most = numpy_pack(kp, kn, steps)
-    assert got.words.shape == got.slots.shape == (B, steps) and got.most.shape == (B, steps // 32)
+    assert got.slots.shape == (B, steps) and got.most.shape == (B, steps // 32)
     assert got.slots.dtype == torch.int64 and got.most.dtype == torch.int32
     as_u32 = lambda x: x.numpy().astype(np.int64) & 0xFFFFFFFF  # noqa: E731
     if 2 * C <= 32:
-        assert got.words.dtype == torch.int32
-        np.testing.assert_array_equal(as_u32(got.words), words.astype(np.int64))
+        assert got.words.dtype == torch.int32 and got.words.shape == (B, steps)
+        np.testing.assert_array_equal(as_u32(got.words), words[..., 0].astype(np.int64))
+    elif 2 * C <= 64:
+        assert got.words.dtype == torch.int64 and got.words.shape == (B, steps)
+        np.testing.assert_array_equal(got.words.numpy().view(np.uint64), words[..., 0])
     else:
-        assert got.words.dtype == torch.int64
+        assert got.words.dtype == torch.int64 and got.words.shape == (B, steps, 2)
         np.testing.assert_array_equal(got.words.numpy().view(np.uint64), words)
     np.testing.assert_array_equal(got.slots.numpy().view(np.uint64), slots)
     np.testing.assert_array_equal(got.most.numpy(), most)
-    assert (words >> np.uint64(2 * C - 1)).any()  # the top bit is exercised
+    top = 2 * C - 1  # the top bit is exercised
+    assert (words[..., top // 64] >> np.uint64(top % 64)).any()
+    if C > 32 and p < 0.5:  # sparse: some step's sixth slot names a bit of the high word
+        assert (slots >> np.uint64(40)).max() > 64
     assert (kp.astype(bool) & kn.astype(bool)).any()
     if 2 * C > 6 and p >= 0.5:
         assert most.max() > 6  # dense masks overflow the six slots

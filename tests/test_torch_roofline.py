@@ -223,17 +223,39 @@ def test_torch_roofline_flagship_work_table():
     assert roofline.bound(pack_ops, 31e12, pack_bytes)[1] == "bytes"  # at the card's integer rate
 
 
-@pytest.mark.parametrize("C, word", [(1, 4), (14, 4), (16, 4), (17, 8), (32, 8)])
+def test_torch_roofline_three_band_work_is_priced_as_the_flagship():
+    """The three-band model's K3/K4 (C = 42 a polarity, N = 1347) and its
+    K1/K2 (R = B·C rows) are counted by the functions that count the
+    flagship's: ``lif_work`` on 2C = 84 input channels, ``pack_work`` with a
+    16-byte mask word, ``k1_work`` on the rows."""
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import suppress_kernel as sk
+
+    r = np.random.default_rng(8)
+    T, B, C, N, w, W = 300, 2, 42, 1347, 11, 24
+    kp, kn = (torch.as_tensor(r.random((T, B, C)) < 0.04) for _ in range(2))
+    work = roofline.lif_bipolar_work(kp, kn, N)
+    nnz = int((kp & ~kn).sum() + kn.sum())
+    assert work["lif_k3"] == roofline.lif_work(nnz, T, B, N, 2 * C)
+    assert work["lif_k4"] == roofline.lif_work(nnz, T, B, N, 2 * C, stateful=True)
+    assert work["lif_pack"] == roofline.pack_work(T, B, C) == (4.0 * T * B * C, 2.0 * T * B * C + 16.0 * T * B)
+    assert work["lif_k3"][0] == rk.P1_OPS_PER_STEP * T * B * N + nnz * N
+    cs = torch.as_tensor(np.cumsum(r.standard_normal((T, B * C)).astype(np.float32), axis=0))
+    rz = roofline.rzcc_work(cs, w, W)
+    assert rz["rzcc_k1"] == roofline.k1_work(T, B * C, w, W) and rz["rzcc_k2"][0] > 0
+
+
+@pytest.mark.parametrize("C, word", [(1, 4), (14, 4), (16, 4), (17, 8), (32, 8), (33, 16), (42, 16), (64, 16)])
 def test_torch_roofline_pack_work_counts_the_function(C, word):
     """The pack pass's bytes are its function's: the two one-byte masks in
-    and one mask word per step and row out (32 bits while 2C <= 32), none of
-    the slots or counts its design adds."""
+    and one mask word per step and row out (32 bits while 2C <= 32, 64 while
+    2C <= 64, else 128), none of the slots or counts its design adds."""
     T, B = 12_000, 96
     ops, nbytes = roofline.pack_work(T, B, C)
     assert nbytes == 2 * T * B * C + word * T * B
     assert ops == 4 * T * B * C
     small = torch.zeros((40, 2, C), dtype=torch.bool)
-    assert lk.pack_bipolar_masks_plain(small, small).words.element_size() == word
+    words = lk.pack_bipolar_masks_plain(small, small).words
+    assert words[0, 0].numel() * words.element_size() == word
 
 
 @pytest.mark.parametrize("call", [

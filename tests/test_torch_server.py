@@ -142,7 +142,8 @@ def unipolar_demo():
     port itself."""
     return Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
                 freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 65),
-                recording_duration=0.25, kernel_duration=5e-3, bipolar_spikes=False, fs=FS, device="cpu")
+                recording_duration=0.25, kernel_duration=5e-3, bipolar_spikes=False, fs=FS, use_cache=False,
+                device="cpu")
 
 
 def test_torch_server_serves_unipolar_model(unipolar_demo):
@@ -158,6 +159,53 @@ def test_torch_server_serves_unipolar_model(unipolar_demo):
         for c in clients.values():
             c.close()
     assert got == direct_doas(unipolar_demo, 4, rounds)
+    for s, d in doas.items():
+        assert folded_deg(got[s][-1], d) < 25.0, (s, got[s], d)
+
+
+@pytest.fixture(scope="module")
+def multiband_demo():
+    """Two bands on a 17-point grid, designed and calibrated band-stacked by
+    the port itself (the small model of ``tests/test_xylo.py:443-500``)."""
+    d = Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
+             freq_bands=[[1600, 1900], [1900, 2200]], doa_list=np.linspace(-np.pi, np.pi, 17),
+             recording_duration=0.1, kernel_duration=5e-3, bipolar_spikes=True, fs=FS, design_chunk=16,
+             use_cache=False, device="cpu")
+    t = np.arange(0, 0.1, 1 / FS)
+    d.calibrate_profiles(template=(t, np.sin(2 * np.pi * 1750 * t) + np.sin(2 * np.pi * 2050 * t)),
+                         use_cache=False, band_stacked=True)
+    return d
+
+
+@pytest.mark.parametrize("method,forget", [("matched_stacked", None), ("matched_auto", 0.4)])
+def test_torch_server_band_stacked_matches_direct(multiband_demo, method, forget):
+    """The band-stacked estimators served: each answer equals the direct
+    streaming step's on the unfolded counts, or on the unfolded ``forget``
+    EMA of the chunk counts (JAX ``server.py:315-351, 426-452``)."""
+    demo = multiband_demo
+    doas = {0: 0.7, 3: -1.4}
+    sigs = {s: stream_signal(demo, d, 3, seed=s) for s, d in doas.items()}
+    rounds = [{s: sigs[s][k * TC:(k + 1) * TC] for s in doas} for k in range(3)]
+    with LocalizationServer(demo, max_streams=4, chunk_sec=CHUNK_SEC, method=method, forget=forget) as srv:
+        srv.start()
+        clients = {s: StreamClient(srv.port, s) for s in doas}
+        got = serve(srv, clients, rounds)
+        for c in clients.values():
+            c.close()
+    if forget is None:
+        assert got == direct_doas(demo, 4, rounds, method=method)
+    else:
+        sl = StreamingLocalizer(demo)
+        state, ema, want = sl.init_state(batch=4), torch.zeros((4, sl.n_hidden)), {}
+        for chunks in rounds:
+            x, _ = decode("f32", 1, 4, chunks, None)
+            new = sl.process_chunk(state, x, return_spikes=False)
+            ema = forget * ema + (new.counts - state.counts).to(torch.float32)
+            state = new
+            doa = demo.estimate_doa_from_rate(ema, method).to(torch.float32)
+            for s_ in chunks:
+                want.setdefault(s_, []).append(float(doa[s_]))
+        assert got == want
     for s, d in doas.items():
         assert folded_deg(got[s][-1], d) < 25.0, (s, got[s], d)
 
@@ -238,8 +286,10 @@ def test_torch_server_rejects_unported_options(demo):
         LocalizationServer(demo, track=True)
     with pytest.raises(NotImplementedError, match="tracking"):
         LocalizationServer(demo, sources=2)
-    with pytest.raises(NotImplementedError, match="multiband"):
+    with pytest.raises(ValueError, match="band_stacked"):  # a demo without the band-stacked table
         LocalizationServer(demo, method="matched_stacked")
+    with pytest.raises(ValueError, match="method"):
+        LocalizationServer(demo, method="periodic_ml")
     with pytest.raises(ValueError, match="wire_dtype"):
         LocalizationServer(demo, wire_dtype="f16")
     with pytest.raises(ValueError, match="forget"):

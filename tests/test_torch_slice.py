@@ -160,8 +160,8 @@ def test_torch_port_runs_without_jax(tmp_path):
         uni = Demo(geometry=CenterCircularArray(radius=4.5e-2, num_mic=7),
                    freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 17),
                    recording_duration=0.05, kernel_duration=5e-3, bipolar_spikes=False, fs=48_000,
-                   device="cpu")
-        prof = uni.calibrate_profiles()
+                   use_cache=False, device="cpu")
+        prof = uni.calibrate_profiles(use_cache=False)
         assert prof.shape == (17, 17) and np.isfinite(prof).all() and np.isfinite(uni.bf_mats[0]).all()
         udoa, urate = uni.forward(frame[:2400].float())
         assert urate.shape == (17,) and bool(torch.isfinite(urate).all()) and float(urate.sum()) > 0

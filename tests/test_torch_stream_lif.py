@@ -93,6 +93,10 @@ CASES = {
     "T=1": (make_config(9, w_scale=200), 1, 3, 0.5),
     "T=7": (make_config(10), 7, 3, 0.3),
     "T=9": (make_config(11), 9, 3, 0.3),
+    # 128-bit mask words: C = 33, the three-band model's C = 42, and C = 64
+    "C=33": (make_config(12, C=33, N=24, w_scale=8), 40, 2, 0.1),
+    "C=42": (make_config(13, C=42, N=30, w_scale=8), 40, 2, 0.1),
+    "C=64": (make_config(14, C=64, N=24, w_scale=4), 40, 2, 0.3),
 }
 
 

@@ -149,7 +149,7 @@ def bipolar_small():
     """A small bipolar model designed by the port itself."""
     return Demo(geometry=tpkg.CenterCircularArray(radius=4.5e-2, num_mic=7),
                 **{**SMALL, "bipolar_spikes": True, "doa_list": np.linspace(-np.pi, np.pi, 33),
-                   "recording_duration": 0.1}, device="cpu")
+                   "recording_duration": 0.1}, use_cache=False, device="cpu")
 
 
 @pytest.mark.parametrize("polarity", ["unipolar", "bipolar"])
@@ -188,7 +188,7 @@ def test_torch_unipolar_streaming_matches_jax_tpu_form(models):
 def test_torch_save_is_read_by_jax_load(models, bipolar_small, tmp_path):
     for demo in (models["td"], bipolar_small):
         if demo._profiles is None:
-            demo.calibrate_profiles()
+            demo.calibrate_profiles(use_cache=False)
         path = str(tmp_path / f"port_{demo.bipolar_spikes}.npz")
         demo.save(path)
         jl = JaxDemo.load(path)
