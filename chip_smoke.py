@@ -129,7 +129,26 @@ Phases, each failing the run with a non-zero exit:
     by ``matched_stacked`` (answers = the direct step's); the set bits K3
     meets, its times against K5 on the combined raster, and each kernel's
     bound at F = 3 (``experiments/roofline.rzcc_work`` and
-    ``lif_bipolar_work``).
+    ``lif_bipolar_work``);
+20. the classical families at the flagship's width (7 mics, 48 kHz, 0.25 s
+    frames, 1600-1900 Hz, 449 DoAs): the Hilbert beamformer designed on the
+    card, plain and with interference removal (seconds printed); bench.py's
+    96 frames through ``Beamformer.apply_to_signal``, ``MUSIC.beamforming``
+    (Bartlett, 2 active bins, nfft 2048) and batched ``SRPPHAT``: the
+    profiles equal the port's CPU path on the same frames within each
+    family's stated tolerance, the DoAs equal where the CPU profile's top-two
+    margin exceeds it and within a grid step elsewhere, the folded error
+    within the family's JAX test threshold; ms per frame batched and alone,
+    and the per-sample scan's share; two tones through MUSIC with
+    ``num_sources=2``, ``top_k_peaks`` and ``MultiDoaTracker``: two confirmed
+    tracks within 5 deg of the sources; ``tools.localize.main`` on a
+    7-channel wav written from a seed, each model with ``--track``, music and
+    xylo with ``--sources 2``: JSON lines well formed, every frame within 5
+    deg (folded), xylo's K1, K2, pack and K3 launched, ms per frame of each
+    estimator; one daemon round with ``sources=2, track=True`` over two TCP
+    streams of two tones: every K-float answer equal to the direct step +
+    top-K + tracker, K1, K2, pack and K4 launched, the final tracks within 25
+    deg (folded) of each stream's two sources.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -1692,6 +1711,301 @@ def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, res
                        for k, b in roofline.bounds(work, peaks_per_s).items()}
     return times
 
+# ------------------------------------------------------------------ phase 20
+# the accuracy each family's JAX test asks for, by the folded metric
+# arcsin|sin(est - true)| in degrees: tests/test_beamformer.py:110,
+# tests/test_music.py:127, tests/test_srp_phat.py:57
+FAMILY_GATE_DEG = {"hilbert": 3.0, "music": 4.0, "srp": 3.0}
+# the card's profiles against the port's CPU path on the same frames, as a
+# fraction of each row's peak: the Hilbert path's order-2 1600-1900 Hz
+# bandpass amplifies float32 rounding about a thousandfold (1e-4 between the
+# JAX package and the port on the CPU), MUSIC's order-1 one does not; the
+# SRP power is bounded by 1 and PHAT-whitens tiny cross-spectra
+FAMILY_RTOL = {"hilbert": 1e-3, "music": 1e-4, "srp": 5e-4}
+HILBERT_CHUNK = 48  # frames a Beamformer.apply_to_signal call: its (48, T, 449) complex64 output is 2.1 GB
+
+
+def folded_deg(a, b):
+    return np.rad2deg(np.arcsin(np.abs(np.sin(np.asarray(a) - np.asarray(b)))))
+
+
+def wrapped_deg(a, b):
+    d = np.asarray(a) - np.asarray(b)
+    return np.rad2deg(np.abs(np.arctan2(np.sin(d), np.cos(d))))
+
+
+def batched(torch, fn, frames, chunk):
+    return torch.cat([fn(frames[i:i + chunk]) for i in range(0, frames.shape[0], chunk)])
+
+
+def top_two_margin(prof):
+    """(B,) relative gap between each row's largest and second-largest value."""
+    top2 = prof.topk(2, dim=-1).values
+    return ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).numpy()
+
+
+def mix_frames(torch, interp, geo, sources, n, T, fs, seed, sign):
+    """(n, T, M) float32 frames of equal tones from ``sources`` [(doa, freq)]
+    plus 0.1 white noise, from a seed, synthesized in float64 on the host."""
+    rng = np.random.default_rng(seed)
+    t = torch.arange(T, dtype=torch.float64) / fs
+    out = []
+    for _ in range(n):
+        x = sum(interp.signal_from_template(geo, t, torch.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi)), d,
+                                            fs=fs, delay_sign=sign) for d, f in sources)
+        out.append(x.numpy() + 0.1 * rng.standard_normal(x.shape))
+    return np.stack(out).astype(np.float32)
+
+
+def run_cli(localize, argv):
+    """``localize.main(argv)`` → its exit code and JSON lines."""
+    import contextlib
+    import io as _io
+
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = localize.main(argv)
+    return rc, [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
+
+
+def check_families(torch, _build, server, StreamingLocalizer, demo, frames, doas, dev):
+    """Phase 20: the classical families, the trackers, the offline localizer
+    and multi-source serving on the card at the flagship's width."""
+    from haghighatshoarmuir2024_tpu_torch.models.beamformer import Beamformer, analytic
+    from haghighatshoarmuir2024_tpu_torch.models.music import MUSIC
+    from haghighatshoarmuir2024_tpu_torch.models.srp_phat import SRPPHAT
+    from haghighatshoarmuir2024_tpu_torch.ops import interp
+    from haghighatshoarmuir2024_tpu_torch.ops.iir import iir_filter
+    from haghighatshoarmuir2024_tpu_torch.ops.peaks import top_k_peaks
+    from haghighatshoarmuir2024_tpu_torch.tools import localize
+    from haghighatshoarmuir2024_tpu_torch.utils.tracking import MultiDoaTracker
+
+    geo, grid, fs, band = demo.geometry, demo.doa_list, int(demo.fs), [1600.0, 1900.0]
+    B, T, M = frames.shape
+    G = len(grid)
+    frame = T / fs
+    out = {}
+
+    # ---- the Hilbert design on the card, plain and with interference removal
+    tt = np.arange(0, frame, 1 / fs)
+    tpl = (tt, np.sin(2 * np.pi * 1750 * tt))
+    bf = Beamformer(geo, 10e-3, band, fs=fs, device=dev)
+    bf.design_from_template(tpl, grid)  # warm-up: cuFFT/cuSOLVER plans, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf_mat, _ = bf.design_from_template(tpl, grid)
+    torch.cuda.synchronize()
+    out["design_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf_ir, _ = bf.design_from_template(tpl, grid, interference_removal=True)
+    torch.cuda.synchronize()
+    out["design_ir_s"] = time.perf_counter() - t0
+    for name, m in (("plain", bf_mat), ("interference removal", bf_ir)):
+        norms = torch.linalg.vector_norm(m, dim=0)
+        if m.shape != (M, G) or not bool(torch.isfinite(torch.view_as_real(m)).all()) \
+                or float((norms - 1).abs().max()) > 1e-4:
+            fail(f"Hilbert design ({name}) malformed: shape {tuple(m.shape)}, norms {norms.min()}..{norms.max()}")
+
+    # ---- the three families on the flagship's 96 frames, card and CPU
+    music = MUSIC(geo, band, grid, frame_duration=frame, fs=fs, device=dev)
+    srp = SRPPHAT(geo, band, grid, fs=fs, frame_duration=frame, device=dev)
+    cpu = torch.device("cpu")
+    bf_cpu = Beamformer(geo, 10e-3, band, fs=fs, device=cpu)
+    music_cpu = MUSIC(geo, band, grid, frame_duration=frame, fs=fs, device=cpu)
+    srp_cpu = SRPPHAT(geo, band, grid, fs=fs, frame_duration=frame, device=cpu)
+    bf_mat_cpu = bf_mat.cpu()
+    power = lambda b, m: (lambda x: (b.apply_to_signal(m, x).abs() ** 2).mean(dim=1))
+    fams = {
+        "hilbert": (lambda x: batched(torch, power(bf, bf_mat), x, HILBERT_CHUNK),
+                    lambda x: batched(torch, power(bf_cpu, bf_mat_cpu), x, HILBERT_CHUNK)),
+        "music": (lambda x: music.beamforming(x, 2, 2048), lambda x: music_cpu.beamforming(x, 2, 2048)),
+        "srp": (srp.apply_to_signal, srp_cpu.apply_to_signal),
+    }
+    frames_cpu = frames.cpu()
+    for name, (on_card, on_cpu) in fams.items():
+        # warm-up: a frame of 2048 samples for the scanning families (their FFT and
+        # matmul shapes but a sixth of the scan), SRP's whole frame for its plans
+        on_card(frames[:1] if name == "srp" else frames[:1, :2048])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = on_card(frames)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        on_card(frames[:1])
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        prof_c = on_cpu(frames_cpu)
+        prof = prof.cpu()
+        if prof.shape != (B, G) or not bool(torch.isfinite(prof).all()):
+            fail(f"{name}: profiles malformed {tuple(prof.shape)}")
+        scale = prof_c.abs().amax(dim=-1, keepdim=True)
+        err = float(((prof - prof_c).abs() / scale).max())
+        if err > FAMILY_RTOL[name]:
+            fail(f"{name}: the card's profiles differ from the CPU path's by {err:.3e} of the row peak "
+                 f"(> {FAMILY_RTOL[name]})")
+        decided = top_two_margin(prof_c) > FAMILY_RTOL[name]
+        step = (prof.argmax(dim=-1) - prof_c.argmax(dim=-1)).abs().numpy()
+        same = step == 0
+        if not same[decided].all() or step.max() > 1:
+            fail(f"{name}: DoAs differ from the CPU path's on frames {np.flatnonzero(decided & ~same).tolist()} "
+                 f"whose top-two margin exceeds the tolerance, or by {step.max()} grid steps")
+        est = grid[prof.argmax(dim=-1).numpy()]
+        errs = folded_deg(est, doas)
+        if errs.max() > FAMILY_GATE_DEG[name]:
+            fail(f"{name}: folded error {errs.max():.2f} deg on frame {int(errs.argmax())} "
+                 f"(gate {FAMILY_GATE_DEG[name]} deg)")
+        out[name] = dict(batch_ms=batch_ms, frame_ms=batch_ms / B, one_ms=one_ms, err=err,
+                         undecided=int((~decided).sum()), max_err_deg=float(errs.max()))
+        print(f"[families] {name}: {B} frames, profiles = the CPU path's within {err:.2e} of the row peak "
+              f"(tolerance {FAMILY_RTOL[name]}), DoAs equal on the {int(decided.sum())} frames whose top-two margin "
+              f"exceeds it ({int((~decided).sum())} others, {int((~decided & ~same).sum())} of them a grid step off); "
+              f"folded error at most {errs.max():.2f} deg (gate {FAMILY_GATE_DEG[name]})", flush=True)
+
+    # the per-sample scan's share of one frame (the Hilbert and MUSIC apply paths)
+    x1 = frames[:1].movedim(1, 0)  # (T, 1, M)
+    h = analytic(x1, bf.kernel)
+    for key, ba, x in (("hilbert_scan_ms", bf.bandpass_filter, h), ("music_scan_ms", music.filterbank.ba_list[0], x1)):
+        t0 = time.perf_counter()
+        iir_filter(*ba, x, method="scan")
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) * 1e3
+
+    # ---- two sources: MUSIC's noise subspace, top-K peaks, the GNN tracker
+    src2 = [(1.0, 1700.0), (-1.3, 1820.0)]
+    mix = torch.as_tensor(mix_frames(torch, interp, geo, src2, 8, T, fs, seed=20, sign=-1), device=dev)
+    ps = music.beamforming(mix, 2, 2048, num_sources=2)
+    idx, _, ok = top_k_peaks(ps, 2, distance=max(G // 32, 2), rel_height=0.2)
+    trk = MultiDoaTracker(4, max_misses=4)
+    for i in range(mix.shape[0]):
+        thetas, confirmed = trk.update(grid[idx[i].cpu().numpy()], ok[i].cpu().numpy())
+    tracks = thetas[confirmed]
+    if tracks.size != 2 or max(min(wrapped_deg(tracks, d)) for d, _ in src2) > 5.0:
+        fail(f"two sources: confirmed tracks {np.rad2deg(tracks)} deg, the sources at "
+             f"{[round(float(np.rad2deg(d)), 1) for d, _ in src2]} deg (gate: two, each within 5 deg)")
+    print(f"[families] two sources (MUSIC, num_sources=2, 8 frames): confirmed tracks "
+          f"{np.round(np.rad2deg(tracks), 2).tolist()} deg for sources at "
+          f"{[round(float(np.rad2deg(d)), 2) for d, _ in src2]} deg", flush=True)
+
+    # ---- the offline localizer on a 7-channel wav written from a seed
+    import tempfile
+
+    from scipy.io import wavfile
+
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HM2024_TORCH_CACHE"] = tmp  # the xylo design and table the CLI makes stay in the temp dir
+        doa_cli = 0.9
+        n_cli = 3  # a track confirms on its third frame
+        x = mix_frames(torch, interp, geo, [(doa_cli, 1750.0)], 1, n_cli * T, fs, seed=21, sign=1)[0]
+        wav = os.path.join(tmp, "array.wav")
+        wavfile.write(wav, fs, (0.5 * x / np.abs(x).max() * 32767).astype(np.int16))
+        runs = [(m, "--track") for m in ("xylo", "hilbert", "music", "srp")] + \
+               [(m, "--sources 2") for m in ("music", "xylo")]
+        for model, opt in runs:
+            argv = [wav, "--model", model, *opt.split(), "--frame", str(frame), "--grid", "225", "--device", dev.type]
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            rc, recs = run_cli(localize, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launch_counts)
+            frames_out = [r for r in recs if "frame" in r]
+            key = "doa_tracked_rad" if opt == "--track" else "sources"
+            if rc != 0 or len(frames_out) != n_cli or recs[-1].get("frames") != n_cli \
+                    or any(not {"frame", "t_sec", "doa_rad", "doa_deg", key} <= r.keys() for r in frames_out):
+                fail(f"localize {model} {opt}: rc {rc}, lines {recs}")
+            errs = folded_deg([r["doa_rad"] for r in frames_out], doa_cli)
+            if errs.max() > 5.0:
+                fail(f"localize {model} {opt}: per-frame folded errors {np.round(errs, 2).tolist()} deg (gate 5)")
+            if model == "xylo":
+                for name in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3"):
+                    if launches.get(name, 0) < n_cli:
+                        fail(f"localize xylo: {name} launched {launches.get(name, 0)} times for {n_cli} frames")
+            cli[f"{model} {opt}"] = dict(wall_s=wall, max_err_deg=float(errs.max()), launches=launches)
+            print(f"[families] localize --model {model} {opt}: rc 0, {n_cli} frames, folded error at most "
+                  f"{errs.max():.2f} deg, {wall:.2f} s with the set-up"
+                  + (f"; launches {launches}" if model == "xylo" else ""), flush=True)
+        # ms per frame of each model's estimator, built as the CLI builds it
+        for model in ("xylo", "hilbert", "music", "srp"):
+            est = localize._build_estimator(model, geo, [band], np.linspace(-np.pi, np.pi, 225), frame,
+                                            float(fs), dev)
+            est(x[:T] if model in ("xylo", "srp") else x[:2048])  # warm-up, as above
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est(x[T:2 * T])
+            torch.cuda.synchronize()
+            cli[model] = (time.perf_counter() - t0) * 1e3
+        del os.environ["HM2024_TORCH_CACHE"]
+    out["cli"] = cli
+
+    # ---- one daemon round: two TCP streams of two sources each, sources=2, track=True.
+    # The chunks of the JAX package's two-source serving test (tests/test_server.py:595-612):
+    # equal tones of 1700 and 1850 Hz from phase 0, white noise at 20 dB from a seed per chunk.
+    # At 449 DoAs the folded rate's main lobe has local maxima 20-40 deg from its peak, so the
+    # picker keeps the second source 60 deg away (source_min_sep_deg; the default is 20)
+    streams = {0: [(np.deg2rad(90.0), 1700.0), (np.deg2rad(-45.0), 1850.0)],
+               1: [(np.deg2rad(60.0), 1700.0), (np.deg2rad(-70.0), 1850.0)]}
+    n_chunks = 8  # a track confirms on its third chunk and a stale one dies after four misses
+    t = torch.arange(T, dtype=torch.float64) / fs
+    audio = {}
+    for s, src in streams.items():
+        clean = sum(interp.signal_from_template(geo, t, torch.sin(2 * np.pi * f * t), d, fs=fs) for d, f in src).numpy()
+        sigma = np.sqrt((clean**2).mean() / 100.0)
+        audio[s] = [(clean + sigma * np.random.default_rng(40 + 10 * s + k).standard_normal(clean.shape))
+                    .astype(np.float32) for k in range(n_chunks)]
+    with server.LocalizationServer(demo, max_streams=4, chunk_sec=frame, sources=2, track=True, method="peak",
+                                   source_min_sep_deg=60.0) as srv:
+        srv.start()
+        clients = {s: server.StreamClient(srv.port, s, sources=2) for s in streams}
+        _build.launch_counts.clear()
+        answers = {s: [] for s in streams}
+        for k in range(n_chunks):
+            for s, c in clients.items():
+                c.send(audio[s][k])
+            for s, c in clients.items():
+                rid, v = c.recv_doa(timeout=120.0)
+                if rid != s or v.shape != (2,):
+                    fail(f"multi-source serving: stream {s} got {rid}, {v}")
+                answers[s].append(v)
+        time.sleep(0.2)
+        launches = dict(_build.launch_counts)
+        for c in clients.values():
+            c.close()
+    for name in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4"):
+        if launches.get(name, 0) < 1:
+            fail(f"multi-source serving never launched {name} (launch counts {launches})")
+    # the direct path: the streaming step's counts, top-K on the card, a tracker per stream
+    sl = StreamingLocalizer(demo)
+    state = sl.init_state(4)
+    trackers = {s: MultiDoaTracker(4, max_misses=4) for s in streams}
+    dist = max(int(round(60.0 / (360.0 / (G - 1)))), 1)
+    for k in range(n_chunks):
+        xk = np.zeros((4, T, M), np.float32)
+        for s in streams:
+            xk[s] = audio[s][k]
+        state = sl.process_chunk(state, torch.as_tensor(xk, device=dev), return_spikes=False)
+        idx, _, ok = top_k_peaks(demo.doa_scores(sl.rate(state), "peak"), 2, distance=dist, rel_height=0.2)
+        z = torch.where(ok, demo._doa_t.to(torch.float32)[idx], float("nan")).cpu().numpy()
+        for s in streams:
+            th, cf = trackers[s].update(z[s], valid=np.isfinite(z[s]))
+            want = np.full(2, np.nan, np.float32)
+            want[: cf.sum()] = th[cf][:2]
+            if not np.array_equal(answers[s][k], want, equal_nan=True):
+                fail(f"multi-source serving: stream {s} chunk {k} answered {answers[s][k]}, the direct path {want}")
+    for s, src in streams.items():
+        last = answers[s][-1]
+        if not np.isfinite(last).all() or max(min(folded_deg(last, d)) for d, _ in src) > 25.0:
+            fail(f"multi-source serving: stream {s} ends with tracks {np.rad2deg(last)} deg, its sources at "
+                 f"{[round(float(np.rad2deg(d)), 1) for d, _ in src]} deg (gate: two, each within 25 deg)")
+    out["serve_launches"] = launches
+    print(f"[families] serving sources=2 track=True: 2 streams x {n_chunks} chunks, every answer equal to the "
+          f"direct step + top-K + tracker; final tracks "
+          f"{ {s: np.round(np.rad2deg(a[-1]), 1).tolist() for s, a in answers.items()} } deg; launches {launches}",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     try:
@@ -1847,6 +2161,11 @@ def main() -> int:
     }
     batch_ms = host_ms(torch, lambda: demo.forward_batch(frames, method="matched"), 20)
     ubatch_ms = host_ms(torch, lambda: udemo.forward_batch(frames, method="matched"), 20)
+
+    # ---- phase 20: the classical families, the localizer, multi-source serving; after the
+    # main path's times, which its CPU-path comparisons and its daemon would otherwise precede
+    fam = check_families(torch, _build, server, StreamingLocalizer, demo, frames, doas, dev)
+    lap(start, "the classical families and the localizer")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -1979,7 +2298,20 @@ def main() -> int:
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": res.get("library_ms"),
                         **{k: res[k] for k in ("params_ms", "raw_ms") if k in res}, **extra})
+    for name in ("hilbert", "music", "srp"):
+        f = fam[name]
+        print(f"{tag} {name}: {f['frame_ms']:.3f} ms per frame in a batch of {B} ({f['batch_ms']:.1f} ms), one "
+              f"frame alone {f['one_ms']:.3f} ms")
+    print(f"{tag} Hilbert design on the card (449 DoAs, 0.25 s template): plain {fam['design_s']:.3f} s, "
+          f"interference removal {fam['design_ir_s']:.3f} s")
+    print(f"{tag} the per-sample bandpass scan of one frame (iir_filter method=scan, 12 000 steps): Hilbert "
+          f"(complex, order 2) {fam['hilbert_scan_ms']:.3f} ms = {100 * fam['hilbert_scan_ms'] / fam['hilbert']['one_ms']:.1f} % "
+          f"of its frame; MUSIC (real, order 1) {fam['music_scan_ms']:.3f} ms = "
+          f"{100 * fam['music_scan_ms'] / fam['music']['one_ms']:.1f} % of its frame")
+    print(f"{tag} localize per frame (the CLI's estimators, grid 225, B = 1): "
+          + ", ".join(f"{m} {fam['cli'][m]:.3f} ms" for m in ("xylo", "hilbert", "music", "srp")))
     lap(start, "the times")
+    print(f"[clock] the whole script: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

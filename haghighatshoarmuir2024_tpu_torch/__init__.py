@@ -8,8 +8,9 @@ Pallas kernel on a ported path is a hand-written CUDA kernel for Hopper
 (``ops/cuda/_build.py``).  On CPU tensors each kernel wrapper runs its plain
 PyTorch version; on CUDA tensors it launches its kernel or raises.  The
 entry points (``Demo``, ``Demo.load``, ``SNNBeamformer``,
-``StreamState.from_numpy``) run on the card unless the caller passes
-``device="cpu"``; without a GPU the default raises.
+``StreamState.from_numpy``, the classical families, ``tools.localize``) run
+on the card unless the caller passes ``device="cpu"``; without a GPU the
+default raises.
 
 Ported so far:
 
@@ -30,18 +31,26 @@ Ported so far:
 - the time-major suppression ops ``ops.cuda.suppress_kernel.select_by_distance_tm``
   (kernel K7) and ``rzcc_select_bipolar_tm`` (K2);
 - the Hopper roofline harness ``experiments.roofline`` with its probes P1–P3
-  (``ops.cuda.roofline_kernel``).
+  (``ops.cuda.roofline_kernel``);
+- the classical families ``models.beamformer.Beamformer``, ``models.music.MUSIC``
+  and ``models.srp_phat.SRPPHAT``, the DoA trackers ``utils.tracking``, the
+  audio sources ``io``, the offline localizer ``tools.localize`` (four
+  models, tracking, up to K sources) and the server's ``sources``/``track``.
 """
 
 __version__ = "0.1.0"
 
 from .config import FS, SOUND_SPEED_IN_OPEN_AIR
-from .geometry import ArrayGeometry, CenterCircularArray, resolve_device
+from .geometry import (ArrayGeometry, CenterCircularArray, CircularArray, LinearArray, Random2DArray,
+                       resolve_device)
 
 __all__ = [
     "FS",
     "SOUND_SPEED_IN_OPEN_AIR",
     "ArrayGeometry",
     "CenterCircularArray",
+    "CircularArray",
+    "LinearArray",
+    "Random2DArray",
     "resolve_device",
 ]

@@ -50,6 +50,12 @@
 //          What the loop still pays is issuing its slot and weight
 //          instructions beside the chain's ten, and the weight loads through
 //          shared memory (PERF.md).
+//
+// The three mask-word widths compile as three translation units, side by
+// side: this file builds the 32-bit words and the C interface; lif_w64.cu
+// and lif_w128.cu include it with HM_LIF_WORD_TU set to 64 or 128 and build
+// only that width's pack and K3/K4 instantiations, which this file reaches
+// through hm_lif_pack_w<bits> and hm_lif_bipolar_w<bits>.
 #include <type_traits>
 
 #include "lif_common.cuh"
@@ -466,15 +472,56 @@ int dispatch_bipolar_w(const BipolarArgs& a, int clip, cudaStream_t st) {
   return launch_bipolar<STATEFUL, W, false, false>(a, st);
 }
 
+template <typename W>
+int launch_pack(const uint8_t* kp, const uint8_t* kn, void* words, unsigned long long* slots, int* most,
+                int T, int Tp, int B, int C, cudaStream_t st) {
+  const dim3 grid(Tp / PACK_T, (B + PACK_B - 1) / PACK_B), block(32, PACK_B);
+  lif_pack_bipolar_kernel<W><<<grid, block, 0, st>>>(kp, kn, (W*)words, slots, most, T, Tp, B, C);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One width's pack pass and K3/K4 (``a`` points at a BipolarArgs, laid out
+// alike in every translation unit): defined by lif_w64.cu and lif_w128.cu.
+#define HM_LIF_WIDTH_API(bits)                                                                    \
+  extern "C" int hm_lif_pack_w##bits(const uint8_t* kp, const uint8_t* kn, void* words,          \
+                                     unsigned long long* slots, int* most, int T, int Tp, int B, \
+                                     int C, void* stream);                                        \
+  extern "C" int hm_lif_bipolar_w##bits(const void* a, int stateful, int clip, void* stream);
+HM_LIF_WIDTH_API(64)
+HM_LIF_WIDTH_API(128)
+
+#if defined(HM_LIF_WORD_TU)
+#if HM_LIF_WORD_TU == 64
+using TuWord = unsigned long long;
+#define HM_LIF_TU_FN(name) name##_w64
+#else
+using TuWord = Word128;
+#define HM_LIF_TU_FN(name) name##_w128
+#endif
+extern "C" int HM_LIF_TU_FN(hm_lif_pack)(const uint8_t* kp, const uint8_t* kn, void* words,
+                                         unsigned long long* slots, int* most, int T, int Tp, int B,
+                                         int C, void* stream) {
+  return launch_pack<TuWord>(kp, kn, words, slots, most, T, Tp, B, C, (cudaStream_t)stream);
+}
+extern "C" int HM_LIF_TU_FN(hm_lif_bipolar)(const void* a, int stateful, int clip, void* stream) {
+  const BipolarArgs& args = *static_cast<const BipolarArgs*>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return stateful ? dispatch_bipolar_w<true, TuWord>(args, clip, st)
+                  : dispatch_bipolar_w<false, TuWord>(args, clip, st);
+}
+#else
+namespace {
+
 // K3 (STATEFUL false) and K4 on words packed by lif_pack_bipolar_kernel.
 template <bool STATEFUL>
 int dispatch_bipolar(const BipolarArgs& a, int clip, void* stream) {
   if (a.C < 1 || a.C > BIPOLAR_MAX_C || a.Tp % PACK_T != 0 || a.Tp < a.T)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (2 * a.C <= 32) return dispatch_bipolar_w<STATEFUL, uint32_t>(a, clip, st);
-  if (2 * a.C <= 64) return dispatch_bipolar_w<STATEFUL, unsigned long long>(a, clip, st);
-  return dispatch_bipolar_w<STATEFUL, Word128>(a, clip, st);
+  if (2 * a.C <= 32) return dispatch_bipolar_w<STATEFUL, uint32_t>(a, clip, (cudaStream_t)stream);
+  if (2 * a.C <= 64) return hm_lif_bipolar_w64(&a, STATEFUL, clip, stream);
+  return hm_lif_bipolar_w128(&a, STATEFUL, clip, stream);
 }
 
 }  // namespace
@@ -500,18 +547,9 @@ int hm_lif_pack_bipolar(const uint8_t* kp, const uint8_t* kn, void* words,
                         void* stream) {
   if (C < 1 || C > BIPOLAR_MAX_C || Tp % PACK_T != 0 || Tp < T) return (int)cudaErrorInvalidValue;
   if (Tp == 0 || B == 0) return 0;
-  const dim3 grid(Tp / PACK_T, (B + PACK_B - 1) / PACK_B), block(32, PACK_B);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (2 * C <= 32)
-    lif_pack_bipolar_kernel<uint32_t>
-        <<<grid, block, 0, st>>>(kp, kn, (uint32_t*)words, slots, most, T, Tp, B, C);
-  else if (2 * C <= 64)
-    lif_pack_bipolar_kernel<unsigned long long>
-        <<<grid, block, 0, st>>>(kp, kn, (unsigned long long*)words, slots, most, T, Tp, B, C);
-  else
-    lif_pack_bipolar_kernel<Word128>
-        <<<grid, block, 0, st>>>(kp, kn, (Word128*)words, slots, most, T, Tp, B, C);
-  return (int)cudaGetLastError();
+  if (2 * C <= 32) return launch_pack<uint32_t>(kp, kn, words, slots, most, T, Tp, B, C, (cudaStream_t)stream);
+  if (2 * C <= 64) return hm_lif_pack_w64(kp, kn, words, slots, most, T, Tp, B, C, stream);
+  return hm_lif_pack_w128(kp, kn, words, slots, most, T, Tp, B, C, stream);
 }
 
 int hm_lif_max_rec_neurons() { return NT_MAX; }
@@ -542,3 +580,4 @@ int hm_lif_count_stateful_bipolar(const void* words, const unsigned long long* s
 }
 
 }  // extern "C"
+#endif  // HM_LIF_WORD_TU

@@ -1,6 +1,6 @@
 """Array geometries and the plane-wave delay model (counterpart of
 ``haghighatshoarmuir2024_tpu/geometry.py``; reference:
-micloc/array_geometry.py:17-94).
+micloc/array_geometry.py:17-131).
 
 ``r_vec``/``theta_vec`` stay float64 numpy arrays, byte-identical to the JAX
 package's: the design cache key hashes their bytes.
@@ -66,3 +66,43 @@ class CenterCircularArray(ArrayGeometry):
         r_vec = np.array([*(radius * np.ones(num_mic - 1)), 0.0])
         theta_vec = np.array([*np.linspace(0, 2 * np.pi, num_mic - 1, endpoint=endpoint), 0.0])
         super().__init__(r_vec=r_vec, theta_vec=theta_vec, speed=speed)
+
+
+class CircularArray(ArrayGeometry):
+    """Uniform circular array (micloc/array_geometry.py:64-78).  The
+    reference's ``np.linspace(0, 2π, num_mic)`` includes both endpoints, so
+    the first and last microphones coincide; ``endpoint=False`` gives the
+    physical layout."""
+
+    def __init__(self, radius, num_mic, speed=SOUND_SPEED_IN_OPEN_AIR, endpoint=True):
+        r_vec = radius * np.ones(num_mic)
+        theta_vec = np.linspace(0, 2 * np.pi, num_mic, endpoint=endpoint)
+        super().__init__(r_vec=r_vec, theta_vec=theta_vec, speed=speed)
+
+
+class LinearArray(ArrayGeometry):
+    """Uniform linear array, signed positions folded into polar form
+    (micloc/array_geometry.py:97-119)."""
+
+    def __init__(self, spacing, num_mic, radius=None, speed=SOUND_SPEED_IN_OPEN_AIR):
+        r_vec = spacing * (np.arange(-num_mic / 2, num_mic / 2) + 0.5)
+        theta_vec = np.zeros(num_mic)
+        theta_vec[r_vec < 0] += np.pi
+        super().__init__(r_vec=np.abs(r_vec), theta_vec=theta_vec, speed=speed)
+        self.radius = radius
+
+
+class Random2DArray(ArrayGeometry):
+    """Microphones uniform on a disk (micloc/array_geometry.py:122-131).
+    ``rng`` (a ``np.random.Generator`` or ``RandomState``) or ``seed`` makes
+    the draw reproducible; with neither it comes from NumPy's global RNG, as
+    in the reference."""
+
+    def __init__(self, radius, num_mic, speed=SOUND_SPEED_IN_OPEN_AIR, seed=None, rng=None):
+        if rng is None:
+            rng = np.random.default_rng(seed) if seed is not None else np.random
+        draw = rng.rand if hasattr(rng, "rand") else rng.random
+        r_vec = np.sqrt(draw(num_mic)) * radius
+        theta_vec = draw(num_mic) * 2 * np.pi
+        super().__init__(r_vec=r_vec, theta_vec=theta_vec, speed=speed)
+        self.radius = radius

@@ -444,49 +444,56 @@ class Demo:
         rate = torch.as_tensor(spikes, device=self.device).to(torch.float32).mean(dim=0) * self.fs
         return self.fold(rate) if fold else rate
 
+    def doa_scores(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:
+        """The (..., G) scores whose argmax is the DoA of the ``"peak"`` and
+        matched estimators (JAX server ``_scores``, ``server.py:426-452``):
+        the rates themselves (``"peak"``), their correlation with the
+        calibrated profiles (``"matched"``), the per-band cosine scores of
+        the unfolded rates against the band-stacked table
+        (``"matched_stacked"``, :func:`_blockcos`) or their SNR-adaptive
+        blend (``"matched_auto"``, :func:`_auto_blend_scores`).
+
+        The matched estimators need their table (``calibrate_profiles()``,
+        or with ``band_stacked=True``) and raise ``ValueError`` without it or
+        for rates of another width than the table's."""
+        if method == "peak":
+            return rate
+        if method not in ("matched",) + STACKED:
+            raise ValueError(f"method {method!r} has no score profile; use 'peak' or a matched estimator")
+        table = self._profiles_t if method == "matched" else self._stacked_t
+        if table is None:
+            raise ValueError(
+                "call calibrate_profiles() before method='matched' / calibrate_profiles(band_stacked=True) "
+                "before method='matched_stacked' / 'matched_auto'")
+        if rate.shape[-1] != table.shape[-1]:
+            raise ValueError(
+                f"rate length {rate.shape[-1]} does not match the profile table width {table.shape[-1]} — "
+                "matched_stacked/matched_auto take extract_rate(..., fold=False)")
+        full_fp32()  # f32-exact: a TF32 product can flip near-tie argmaxes
+        G = len(self.doa_list)
+        if method == "matched_auto":
+            return _auto_blend_scores(rate, table, G)
+        if method == "matched_stacked":
+            return torch.matmul(_blockcos(rate, G), self._stacked_cos_t.T)
+        return torch.matmul(rate - rate.mean(dim=-1, keepdim=True), table.T)
+
     def estimate_doa_from_rate(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:
         """Rates (..., G), or (..., F·G) unfolded for the stacked
         estimators, → DoAs (...) (JAX ``estimate_doa_from_rate``,
         ``pipeline.py:396-463``, row by row; micloc/xylo_snn_localization.py:400-444):
 
-        - ``"peak"``: the reference-parity argmax;
+        - ``"peak"``, ``"matched"``, ``"matched_stacked"``, ``"matched_auto"``:
+          the argmax of :meth:`doa_scores`;
         - ``"periodic_ml"``: the angle of ``mean_g rate_g·e^{iθ_g}``;
         - ``"trimmed_periodic_ml"``: the same over the window
           ``arange(-n // 2, n // 2 + 1) - argmax`` (n = G // 2), the
           reference's index quirk kept; indices wrap once and then clamp,
-          as JAX's gather does;
-        - ``"matched"``: the argmax of the correlation with the calibrated
-          profiles;
-        - ``"matched_stacked"``: per-band cosine scores of the unfolded rates
-          against the band-stacked table (:func:`_blockcos`);
-        - ``"matched_auto"``: :func:`_auto_blend_scores` of the same.
-
-        The matched estimators need their table (``calibrate_profiles()``,
-        or with ``band_stacked=True``) and raise ``ValueError`` without it or
-        for rates of another width than the table's."""
+          as JAX's gather does."""
         if method not in METHODS:
             raise ValueError(f"only the following estimation methods are supported:\n{list(METHODS)}")
+        if method in ("peak", "matched") + STACKED:
+            return self._doa_t[torch.argmax(self.doa_scores(rate, method), dim=-1)]
         G = len(self.doa_list)
-        if method in ("matched",) + STACKED:
-            table = self._profiles_t if method == "matched" else self._stacked_t
-            if table is None:
-                raise ValueError(
-                    "call calibrate_profiles() before method='matched' / calibrate_profiles(band_stacked=True) "
-                    "before method='matched_stacked' / 'matched_auto'")
-            if rate.shape[-1] != table.shape[-1]:
-                raise ValueError(
-                    f"rate length {rate.shape[-1]} does not match the profile table width {table.shape[-1]} — "
-                    "matched_stacked/matched_auto take extract_rate(..., fold=False)")
-            full_fp32()  # f32-exact: a TF32 product can flip near-tie argmaxes
-            if method == "matched_auto":
-                scores = _auto_blend_scores(rate, table, G)
-            elif method == "matched_stacked":
-                scores = torch.matmul(_blockcos(rate, G), self._stacked_cos_t.T)
-            else:
-                scores = torch.matmul(rate - rate.mean(dim=-1, keepdim=True), table.T)
-            return self._doa_t[torch.argmax(scores, dim=-1)]
-        if method == "peak":
-            return self._doa_t[torch.argmax(rate, dim=-1)]
         rate = rate.to(torch.float64)
         phase = torch.exp(1j * self._doa_t)
         if method == "periodic_ml":

@@ -1,11 +1,15 @@
-"""IIR bandpass with its integrator folded into a lifted blocked pass
-(counterpart of ``haghighatshoarmuir2024_tpu/ops/iir.py``).
+"""IIR filtering along the time axis (counterpart of
+``haghighatshoarmuir2024_tpu/ops/iir.py``; reference call sites:
+micloc/beamformer.py:137-138, micloc/music_beamformer.py:119-121).
 
 The float64 host builders are copied from the JAX package
-(``iir.py:34-205``); :func:`iir_cumsum_blocked` is the torch form of
+(``iir.py:34-205``).  :func:`iir_filter` is ``scipy.signal.lfilter`` with
+JAX's three evaluation methods, on real or complex input: the sequential
+transposed-DF2 scan (:func:`iir_scan`, one step of tensor ops per sample),
+the Hillis-Steele parallel prefix over host matrix powers, and the lifted
+block form.  :func:`iir_cumsum_blocked` is the torch form of
 ``_iir_cumsum_blocked_impl`` (``iir.py:375-517``), with the level-2 modal
-lifting, the exactly-carried integrator offset and the streaming state carry;
-:func:`iir_scan` is the sequential form the streaming encode falls back to.
+lifting, the exactly-carried integrator offset and the streaming state carry.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .fir import full_fp32
+from .fir import fir_block_matmul, full_fp32
 
 SB = 32  # default lifted block size: the TPU form's (``iir.py:375-396``)
 
@@ -88,6 +92,16 @@ def _modal_transform(A: np.ndarray):
     if np.linalg.cond(T) > 1e8:
         return None
     return T, np.linalg.inv(T)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_powers(key, log2T: int) -> np.ndarray:
+    """(log2T, N, N) host powers A^(2^k) of the TDF2 matrix (``iir.py:62-68``)."""
+    A = np.array(key, dtype=np.float64)
+    pows = [A]
+    for _ in range(log2T - 1):
+        pows.append(pows[-1] @ pows[-1])
+    return np.stack(pows)
 
 
 @functools.lru_cache(maxsize=64)
@@ -185,12 +199,16 @@ def _device_matrices(b_key, a_key, SB: int, Q: int, device: torch.device):
 def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
     """``lfilter(b, a, x)`` along dim 0 of ``x`` (T, ...) as the sequential
     transposed-DF2 recurrence (JAX ``iir_filter(method="scan")``,
-    ``iir.py:256-281``): ``y = b0 x + s_1``, ``s_i = b_i x − a_i y + s_{i+1}``.
+    ``iir.py:256-281``): ``y = b0 x + s_1``, ``s_i = (b_i x − a_i y) + s_{i+1}``,
+    in that order of operations, in ``x``'s dtype (real or complex).
 
     ``zi``: initial state, ``x.shape[1:] + (N,)`` (zeros when None).
-    Returns ``(y, final state)``.  One step of tensor ops per sample: the
-    fallback of the streaming encode for chunk lengths no lifted block size
-    divides.
+    Returns ``(y, final state)``.  Four tensor ops a sample: ``b0 x`` for all
+    samples and ``b_i x`` for a block of them are taken ahead of the
+    recurrence, and the state lives in two buffers of N + 1 columns whose
+    last stays 0, so the shift is a view.  The Hilbert and MUSIC apply
+    paths run it as JAX does; the streaming encode falls back to it for
+    chunk lengths no lifted block size divides.
     """
     b64 = np.asarray(b, np.float64)
     a64 = np.asarray(a, np.float64)
@@ -199,15 +217,123 @@ def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
     bp[: len(b64)] = b64 / a64[0]
     b_tail = torch.as_tensor(bp[1:], dtype=x.dtype, device=x.device)
     a_tail = torch.as_tensor(a64[1:] / a64[0], dtype=x.dtype, device=x.device)
-    s = x.new_zeros(x.shape[1:] + (N,)) if zi is None else zi.to(x.dtype)
-    ys = []
-    for x_t in x:
-        y_t = float(bp[0]) * x_t + s[..., 0]
-        s_shift = torch.cat([s[..., 1:], torch.zeros_like(s[..., :1])], dim=-1)
-        s = b_tail * x_t[..., None] - a_tail * y_t[..., None] + s_shift
-        ys.append(y_t)
-    y = torch.stack(ys) if ys else x.new_zeros(x.shape)
-    return y, s
+    T = x.shape[0]
+    buf = x.new_zeros((2,) + x.shape[1:] + (N + 1,))
+    if zi is not None:
+        buf[0, ..., :N] = zi.to(x.dtype)
+    first, shifted, head = ([v[..., k] for v in buf] for k in (0, slice(1, None), slice(None, N)))
+    y = torch.empty_like(x)
+    ys, ys_col = y.unbind(0), y[..., None].unbind(0)
+    b0xs = (float(bp[0]) * x).unbind(0)
+    block = max(1, (1 << 22) // max(x[:1].numel() * N, 1))  # b_i x of about 4M elements at a time
+    cur = 0
+    for t0 in range(0, T, block):
+        for t, bx in enumerate((x[t0:t0 + block, ..., None] * b_tail).unbind(0), start=t0):
+            torch.add(b0xs[t], first[cur], out=ys[t])
+            torch.add(bx - ys_col[t] * a_tail, shifted[cur], out=head[1 - cur])
+            cur = 1 - cur
+    return y, head[cur].clone()
+
+
+def _iir_parallel(A_np: np.ndarray, Bv: np.ndarray, b0: float, x: torch.Tensor) -> torch.Tensor:
+    """Hillis-Steele prefix over the time axis of ``x`` (T, ...): starting
+    from ``s[n] = B x[n]``, pass k adds ``A^(2^k) s[n - 2^k]`` (JAX
+    ``iir.py:324-348``), then ``y[n] = b0 x[n] + s[n-1][0]``."""
+    T = x.shape[0]
+    log2T = max(1, int(np.ceil(np.log2(max(T, 2)))))
+    pows = _cached_powers(tuple(map(tuple, A_np)), log2T)
+    s = x[..., None] * torch.as_tensor(Bv, dtype=x.dtype, device=x.device)
+    for k in range(log2T):
+        shift = 1 << k
+        if shift >= T:
+            break
+        Ak = torch.as_tensor(pows[k], dtype=x.dtype, device=x.device)
+        s_shifted = torch.cat([torch.zeros_like(s[:shift]), s[:-shift]], dim=0)
+        s = s + s_shifted @ Ak.T
+    return b0 * x + torch.cat([torch.zeros_like(s[:1]), s[:-1]], dim=0)[..., 0]
+
+
+def _iir_blocked(b, a, x: torch.Tensor, zi, return_state: bool, SB: int):
+    """The lifted SB-sample block form along dim 0 of ``x`` (T, ...) (JAX
+    ``iir.py:283-319``): in-block outputs and state increments as batched
+    matmuls, a sequential recurrence over the blocks only.  Safe for stable
+    filters: the lifted matrices round in the working dtype."""
+    G_np, H_np, Bm_np, ASB_np = _cached_block_matrices(
+        tuple(np.asarray(b, np.float64).tolist()), tuple(np.asarray(a, np.float64).tolist()), SB)
+    cast = lambda m: torch.as_tensor(m, dtype=x.dtype, device=x.device)
+    G, H, Bm, ASB = cast(G_np), cast(H_np), cast(Bm_np), cast(ASB_np)
+    N = ASB.shape[0]
+    T = x.shape[0]
+    rest = x.shape[1:]
+    xf = x.reshape(T, -1)
+    L = xf.shape[1]
+    pad = (-T) % SB
+    if pad and return_state:
+        raise ValueError("return_state with method='blocked' requires the time axis to be a multiple of "
+                         f"the block size {SB} (got T={T})")
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, L))], dim=0)
+    nb = xf.shape[0] // SB
+    xb = xf.reshape(nb, SB, L)
+    yP = torch.einsum("ji,bil->bjl", G, xb)
+    sP = torch.einsum("ni,bil->bnl", Bm, xb)
+    s = xf.new_zeros((N, L)) if zi is None else zi.to(x.dtype).reshape(L, N).T
+    s_prev = []
+    for i in range(nb):  # the block recurrence: one step per SB samples
+        s_prev.append(s)
+        s = ASB @ s + sP[i]
+    y = yP + torch.einsum("jn,bnl->bjl", H, torch.stack(s_prev))
+    y = y.reshape(nb * SB, L)[:T].reshape((T,) + rest)
+    if return_state:
+        return y, s.T.reshape(rest + (N,))
+    return y
+
+
+def iir_filter(b, a, x: torch.Tensor, axis: int = 0, method: str = "scan", zi: torch.Tensor | None = None,
+               return_state: bool = False, sb: int | None = None):
+    """``scipy.signal.lfilter(b, a, x, axis=axis)`` on real or complex
+    ``x`` with zero initial state, or ``zi`` (JAX ``iir_filter``,
+    ``iir.py:207-359``).  The arithmetic runs in ``x``'s dtype on its
+    device; TF32 stays off for the matrix forms.
+
+    Args:
+        b, a: host filter coefficients.
+        method: ``"scan"`` (the sequential recurrence, the form JAX's
+            Hilbert and MUSIC apply paths run), ``"parallel"`` (the
+            log2(T)-pass prefix) or ``"blocked"`` (the lifted ``sb``-sample
+            block form, ``sb`` = 32 when None).
+        zi: initial state, ``batch_shape + (N,)`` (scan, blocked).
+        return_state: also return the final state (scan, and blocked when
+            T is a multiple of the block).
+        sb: the block size of ``"blocked"``.  The scan and the prefix have
+            no block: a given ``sb`` raises for them rather than being
+            ignored.
+    """
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    if sb is not None and method in ("scan", "parallel"):
+        raise ValueError(f"sb is the block size of the blocked methods; method={method!r} has none")
+    full_fp32()
+    xm = x.movedim(axis, 0)
+    if len(a) == 1:  # a pure FIR
+        if return_state:
+            raise ValueError("return_state is not supported for pure-FIR filters")
+        taps = b / a[0]
+        y = (torch.complex(fir_block_matmul(taps, xm.real), fir_block_matmul(taps, xm.imag))
+             if xm.is_complex() else fir_block_matmul(taps, xm))
+        return y.movedim(0, axis)
+    if method == "scan":
+        y, s = iir_scan(b, a, xm, zi)
+        return (y.movedim(0, axis), s) if return_state else y.movedim(0, axis)
+    if method == "parallel":
+        if zi is not None or return_state:
+            raise ValueError("zi/return_state require method='scan'")
+        A_np, Bv, b0 = _tdf2_matrices(b, a)
+        return _iir_parallel(A_np, Bv, b0, xm).movedim(0, axis)
+    if method == "blocked":
+        out = _iir_blocked(b, a, xm, zi, return_state, SB if sb is None else int(sb))
+        return (out[0].movedim(0, axis), out[1]) if return_state else out.movedim(0, axis)
+    raise ValueError(f"unknown IIR method: {method}")
 
 
 def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,

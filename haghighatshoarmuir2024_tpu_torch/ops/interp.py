@@ -1,5 +1,5 @@
 """Fractional-delay interpolation — the plane-wave simulation model
-(counterpart of ``haghighatshoarmuir2024_tpu/ops/interp.py:18-118``;
+(counterpart of ``haghighatshoarmuir2024_tpu/ops/interp.py:18-153``;
 micloc/xylo_snn_localization.py:44-71).
 """
 from __future__ import annotations
@@ -51,14 +51,51 @@ def delayed_copies(sig: torch.Tensor, t0: float, delays: torch.Tensor, fs: float
 
 
 def signal_from_template(geometry, time_temp: torch.Tensor, sig_temp: torch.Tensor, doa,
-                         fs: Optional[float] = None) -> torch.Tensor:
-    """(T, M) array signal from a source at scalar DoA ``doa``: the template
-    evaluated at ``t + delay`` with non-normalized delays
-    (micloc/xylo_snn_localization.py:44-71).  Computed in ``time_temp``'s
-    dtype on its device."""
+                         fs: Optional[float] = None, delay_sign: int = 1) -> torch.Tensor:
+    """(T, M) array signal from a source at DoA ``doa``, a scalar or a
+    per-sample (T,) trajectory: the template evaluated at ``t + delay``
+    with non-normalized delays (micloc/xylo_snn_localization.py:44-71; JAX
+    ``interp.py:76-117``).
+
+    ``delay_sign=-1`` evaluates it at ``t - delay`` instead, the
+    reference's MUSIC synthesis convention (micloc/music_beamformer.py:
+    307-312): MUSIC's and SRP-PHAT's physical steering matches it, and
+    plus-convention audio mirrors their estimates by 180°.  Computed in
+    ``time_temp``'s dtype on its device."""
     if fs is None:
         fs = 1.0 / float(time_temp[1] - time_temp[0])
     doa = torch.as_tensor(doa, dtype=time_temp.dtype, device=time_temp.device)
-    delays = geometry.delays(doa)  # (M,)
-    tq = time_temp[:, None] + delays[None, :]
+    delays = delay_sign * geometry.delays(doa)  # (M,) or (T, M)
+    tq = time_temp[:, None] + (delays if delays.dim() == 2 else delays[None, :])
     return interp_uniform(tq, sig_temp, float(time_temp[0]), 1.0 / fs)
+
+
+def received_signal(geometry, time_temp: torch.Tensor, sig_temp: torch.Tensor, doa, snr_db=None,
+                    generator: Optional[torch.Generator] = None, fs: Optional[float] = None) -> torch.Tensor:
+    """Template → (T, M) array signal with optional white noise at ``snr_db``
+    per microphone, the simulation harness of every ``apply_to_template``
+    (micloc/beamformer.py:233-253; JAX ``interp.py:120-153``): delays
+    normalized together (their global minimum subtracted), the template
+    evaluated at ``t - delay`` with query times clamped at ``t0``, then AWGN
+    of sigma ``rms(sig) / sqrt(snr)``.
+
+    ``doa`` is a scalar or a per-sample (T,) trajectory.  The noise comes
+    from ``generator`` (a ``torch.Generator`` on ``time_temp``'s device),
+    which must be given with ``snr_db``."""
+    if fs is None:
+        fs = 1.0 / float(time_temp[1] - time_temp[0])
+    doa = torch.as_tensor(doa, dtype=time_temp.dtype, device=time_temp.device)
+    delays = geometry.delays(doa.reshape(-1))  # (Td, M)
+    delays = delays - delays.min()
+    if delays.shape[0] != time_temp.shape[0]:
+        delays = delays[:1]
+    t0 = float(time_temp[0])
+    tq = torch.clamp(time_temp[:, None] - delays, min=t0)
+    sig = interp_uniform(tq, sig_temp, t0, 1.0 / fs)
+    if snr_db is None:
+        return sig
+    if generator is None:
+        raise ValueError("pass a torch.Generator `generator` when snr_db is given")
+    sigma = torch.sqrt(torch.mean(sig**2)) / np.sqrt(10.0 ** (float(snr_db) / 10.0))
+    noise = torch.randn(sig.shape, generator=generator, dtype=sig.dtype, device=sig.device)
+    return sig + sigma * noise

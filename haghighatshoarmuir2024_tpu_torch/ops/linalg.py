@@ -1,5 +1,6 @@
 """Batched linear algebra of the beamforming design (counterpart of
 ``haghighatshoarmuir2024_tpu/ops/linalg.py:14-126``; reference:
+micloc/beamformer.py:157-190,
 micloc/snn_beamformer.py:181-203, 372-422).
 
 Every routine takes a batch of matrices in its leading dims (the DoA grid).
@@ -79,3 +80,23 @@ def unfold_complex_vec(u: torch.Tensor) -> torch.Tensor:
     """Complex M-vector → real 2M beamforming vector [Re(u) || Im(u)]
     (micloc/snn_beamformer.py:203)."""
     return torch.cat([u.real, u.imag], dim=-1)
+
+
+def generalized_top_eigvec(C: torch.Tensor, B: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Unit-norm top eigenvector of the pencil ``C v = λ B v`` by Cholesky
+    whitening (JAX ``linalg.py:80-105``; micloc/beamformer.py:165-190 takes
+    the last column of ``scipy.linalg.eigh(C, B)``): ``B = L Lᴴ``,
+    ``M = L⁻¹ C L⁻ᴴ`` by two triangular solves, symmetrized, its top
+    eigenvector ``u`` by ``eigh``, back-substituted ``v = L⁻ᴴ u``.  B must
+    be positive definite (the reference loads its diagonal); ``eps`` adds
+    ``eps·I`` to it.  Batched over leading dims; the phase of ``v`` is the
+    solver's."""
+    if eps:
+        B = B + eps * torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+    L = torch.linalg.cholesky(B)
+    Linv_C = torch.linalg.solve_triangular(L, C, upper=False)
+    M = torch.linalg.solve_triangular(L, Linv_C.mH, upper=False).mH
+    M = (M + M.mH) / 2
+    u = torch.linalg.eigh(M)[1][..., :, -1]
+    v = torch.linalg.solve_triangular(L.mH, u[..., None], upper=True)[..., 0]
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)

@@ -13,7 +13,8 @@ the JAX originals, and are bit-exact with them:
 * :func:`select_by_distance` — scipy's greedy height-ordered suppression as a
   fixed point of rounds: window-maxima win, exact ties go to the rightmost
   index, winners delete their window, repeat until no candidates remain;
-* :func:`find_peaks_mask` — candidates, then the suppression.
+* :func:`find_peaks_mask` — candidates, then the suppression;
+* :func:`top_k_peaks` — the k highest peaks, for the multi-source pickers.
 """
 from __future__ import annotations
 
@@ -162,3 +163,26 @@ def find_peaks_mask(x: torch.Tensor, distance=None, max_plateau=None) -> torch.T
     if distance is None or distance <= 1:
         return cand
     return select_by_distance(cand, x, distance)
+
+
+def top_k_peaks(x: torch.Tensor, k: int, distance=None, max_plateau=None, rel_height: float = 0.0):
+    """The ``k`` highest peaks of a profile along its last axis, (G,) or
+    batched (B, G) (JAX ``peaks.py:309-338``; the multi-target harnesses of
+    the reference pick the best-separated maxima by hand,
+    paper_plots/multiple_targets_snn.py:194-246): :func:`find_peaks_mask`
+    with ``distance``/``max_plateau``, peaks below ``rel_height`` times the
+    row's maximum dropped, then the ``k`` highest survivors.
+
+    Returns ``(idx, height, valid)``, each (..., k).  Equal heights come
+    lower index first, as ``lax.top_k`` gives them: the selection is a
+    stable descending sort.  Entries past the last peak have
+    ``valid=False``, ``idx=0`` and height ``-inf``."""
+    mask = find_peaks_mask(x, distance=distance, max_plateau=max_plateau)
+    if rel_height > 0.0:
+        mask = mask & (x >= rel_height * x.amax(dim=-1, keepdim=True))
+    xf = x if x.is_floating_point() else x.to(torch.float32)
+    vals = torch.where(mask, xf, torch.full_like(xf, -math.inf))
+    height, idx = torch.sort(vals, dim=-1, descending=True, stable=True)
+    height, idx = height[..., :k], idx[..., :k]
+    valid = torch.isfinite(height)
+    return torch.where(valid, idx, torch.zeros_like(idx)), height, valid

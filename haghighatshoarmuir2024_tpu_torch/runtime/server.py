@@ -16,13 +16,17 @@ compute on stale audio), merge the active lanes back with ``torch.where``,
 estimate: ``peak`` and ``matched`` on the folded rates, the band-stacked
 ``matched_stacked`` and ``matched_auto`` on the unfolded ones (the counts,
 or the ``forget`` EMA where set), against the demo's table, block-normalized
-once on the host (``server.py:315-351, 426-452``).  Per step there is one
-host→device upload — the daemon's buffer and the two lane masks share one
-pinned staging buffer — and one (B,) DoA download.
+once on the host (``server.py:315-351, 426-452``).  With ``sources=K`` > 1
+the estimate is the top-K peaks of each lane's scores, picked on the device
+(``ops.peaks.top_k_peaks``, ``server.py:455-475``), and every result frame
+carries K floats, NaN-padded.  Per step there is one host→device upload —
+the daemon's buffer and the two lane masks share one pinned staging buffer
+— and one (B,) or (B, K) DoA download.  ``track=True`` runs a host tracker
+per slot over its answers (``utils.tracking``: ``DoaTracker``, or
+``MultiDoaTracker`` with K + 2 slots when K > 1), reset when the slot is
+reclaimed (``server.py:207-240, 595-625``).
 
-Not ported: ``mesh=`` (one GPU), ``track=True`` and ``sources > 1``
-(``utils/tracking``, ``peaks.top_k_peaks``); they raise
-``NotImplementedError``.
+Not ported: ``mesh=`` (one GPU); it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,7 +47,9 @@ import torch
 
 from ..models.xylo.pipeline import STACKED
 from ..ops.mulaw import mulaw4_decode_table, mulaw4_encode, mulaw_decode_table, mulaw_encode, pack4
+from ..ops.peaks import top_k_peaks
 from ..ops.resample import TAPS_PER_PHASE, decimate_fir, design_upsample_fir, phase_table, upsample_poly_stream
+from ..utils.tracking import DoaTracker, MultiDoaTracker
 from .streaming import StreamingLocalizer
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
@@ -78,6 +84,7 @@ def _load() -> ctypes.CDLL:
         ("sd_next_batch_r", [vp, u32, u32, u32p, vp, u32p, i, ctypes.POINTER(i)], i),
         ("sd_post_results", [vp, u32, u32p, ctypes.POINTER(ctypes.c_float)], None),
         ("sd_set_window", [vp, u32], None),
+        ("sd_set_sources", [vp, u32], None),
         ("sd_shm_attach", [vp, u32, ctypes.c_char_p], i),
         ("sd_shm_detach", [vp, u32], i),
         ("sd_stop", [vp], None),
@@ -97,19 +104,27 @@ class LocalizationServer:
     48 kHz on the device); the server answers with the running DoA after
     every processed chunk.  ``forget`` in [0, 1) estimates from an
     exponentially forgotten spike-count profile instead of the whole
-    history.  ``HM2024_SERVE_TIMING=1`` accumulates seconds per stage in
-    ``stage_times``.
+    history.  ``sources`` in [1, 8] is the number of DoAs per answer: for
+    K > 1 the top-K peaks of the scores, at least ``source_min_sep_deg``
+    apart and above ``source_rel_height`` times the row's maximum.
+    ``track=True`` tracks each slot's answers on the host (gate
+    ``track_gate_deg``, gain ``track_alpha``); with K > 1 an answer holds
+    the confirmed tracks.  ``HM2024_SERVE_TIMING=1`` accumulates seconds per
+    stage in ``stage_times``.
     """
 
     def __init__(self, demo, max_streams: int = 64, chunk_sec: float = 0.25, port: int = 0,
                  method: str | None = None, batch_window_ms: int = 10, wire_dtype: str = "f32",
                  wire_upsample: int = 1, forget: float | None = None, mesh=None,
-                 track: bool = False, sources: int = 1):
+                 track: bool = False, track_alpha: float = 0.35, track_gate_deg: float = 25.0,
+                 sources: int = 1, source_min_sep_deg: float = 20.0, source_rel_height: float = 0.2):
         if mesh is not None:
             raise NotImplementedError("mesh= serving shards over TPU chips; the port serves on one GPU")
-        if track or int(sources) != 1:
-            raise NotImplementedError(
-                "track=True and sources > 1 need utils/tracking and peaks.top_k_peaks, not ported yet")
+        if not 1 <= int(sources) <= 8:
+            raise ValueError("sources must be in [1, 8]")
+        self.K = int(sources)
+        self.source_min_sep_deg = float(source_min_sep_deg)
+        self.source_rel_height = float(source_rel_height)
         self.demo = demo
         self.device = demo.device
         self.sl = StreamingLocalizer(demo)
@@ -149,6 +164,8 @@ class LocalizationServer:
         if not self._h:
             raise OSError("streamd: failed to bind server socket")
         self._lib.sd_set_window(self._h, batch_window_ms)
+        if self.K > 1:
+            self._lib.sd_set_sources(self._h, self.K)
         self.port = self._lib.sd_port(self._h)
         self._stop = threading.Event()
         self._thread = None
@@ -176,6 +193,13 @@ class LocalizationServer:
             self._hp = torch.as_tensor(phase_table(design_upsample_fir(self.wire_upsample), self.wire_upsample),
                                        device=self.device)
             self._wire_carry = torch.zeros((self.B, TAPS_PER_PHASE - 1, self.M), device=self.device)
+        # per-slot host trackers over the answers; a reclaimed slot's is reset
+        self._trackers = None
+        if track:
+            self._trackers = [
+                MultiDoaTracker(num_tracks=self.K + 2, alpha=track_alpha, gate_deg=track_gate_deg, max_misses=4)
+                if self.K > 1 else DoaTracker(alpha=track_alpha, gate_deg=track_gate_deg)
+                for _ in range(self.B)]
         self._state = self.sl.init_state(batch=self.B)
         self._ema = None
         if self.forget is not None:
@@ -202,8 +226,21 @@ class LocalizationServer:
         if self._ema is not None:
             self._ema = self._ema.masked_fill(reset[:, None], 0.0)
 
+    def _estimate(self, rate: torch.Tensor) -> torch.Tensor:
+        """Rates (B, H) → (B,) DoAs, or for K > 1 the (B, K) DoAs of each
+        row's top-K score peaks, NaN where a row has fewer (JAX
+        ``server.py:455-475``)."""
+        if self.K == 1:
+            return self.demo.estimate_doa_from_rate(rate, self.method)
+        scores = self.demo.doa_scores(rate, self.method)
+        G = len(self.demo.doa_list)
+        dist = max(int(round(self.source_min_sep_deg / (360.0 / max(G - 1, 1)))), 1)
+        idx, _, valid = top_k_peaks(scores, self.K, distance=dist, rel_height=self.source_rel_height)
+        doas = self.demo._doa_t.to(torch.float32)[idx]
+        return torch.where(valid, doas, torch.full_like(doas, float("nan")))
+
     def _serve(self, staged: torch.Tensor) -> torch.Tensor:
-        """One serve step on the uploaded staging buffer → (B,) DoAs."""
+        """One serve step on the uploaded staging buffer → (B,) or (B, K) DoAs."""
         active = staged[self._nbytes:self._nbytes + self.B].bool()
         reset = staged[self._nbytes + self.B:].bool()
         self._reset_lanes(reset)
@@ -215,12 +252,30 @@ class LocalizationServer:
         new, _, _ = self.sl._step(state, chunks)
         self._state = new.where(active, state)
         if self._ema is None:
-            return self.sl.estimate_doa(self._state, self.method)
+            return self._estimate(self.sl.rate(self._state, fold=self.method not in STACKED))
         # the merged counts of idle lanes are their old counts: chunk counts 0
         chunk_counts = (self._state.counts - state.counts).to(torch.float32)
         self._ema = torch.where(active[:, None], self.forget * self._ema + chunk_counts, self._ema)
-        rate = self._ema if self.method in STACKED else self.demo.fold(self._ema)
-        return self.demo.estimate_doa_from_rate(rate, self.method)
+        return self._estimate(self._ema if self.method in STACKED else self.demo.fold(self._ema))
+
+    def _answers(self, ids: np.ndarray, all_doas: np.ndarray) -> list:
+        """The served streams' result floats, n·K of them: each stream's DoA
+        (its tracker's output with ``track=True``), or for K > 1 its top-K
+        peaks (its confirmed tracks), NaN-padded (JAX ``server.py:595-625``)."""
+        if self.K == 1:
+            if self._trackers is None:
+                return all_doas[ids].tolist()
+            return [self._trackers[i].update(float(all_doas[i])) for i in ids]
+        rows = np.full((len(ids), self.K), np.nan, np.float32)
+        for j, i in enumerate(ids):
+            z = all_doas[i]
+            if self._trackers is None:
+                rows[j] = z
+            else:
+                thetas, confirmed = self._trackers[i].update(z, valid=np.isfinite(z))
+                conf = thetas[confirmed][: self.K]
+                rows[j, : conf.size] = conf
+        return rows.ravel().tolist()
 
     # ---- serving loop -----------------------------------------------------
     def step(self, timeout_ms: int = 100) -> int:
@@ -240,7 +295,11 @@ class LocalizationServer:
         self._reset[:] = 0
         n_reset = self._n_resets.value
         if n_reset > 0:
-            self._reset[np.ctypeslib.as_array(self._reset_buf)[:n_reset]] = 1
+            reset_slots = np.ctypeslib.as_array(self._reset_buf)[:n_reset]
+            self._reset[reset_slots] = 1
+            if self._trackers is not None:
+                for s in reset_slots:
+                    self._trackers[int(s)].reset()
         if n <= 0:
             if n_reset > 0:
                 self._reset_lanes(torch.as_tensor(self._reset, device=self.device).bool())
@@ -254,7 +313,7 @@ class LocalizationServer:
         all_doas = self._serve(staged).to("cpu", torch.float32).numpy()
         t2 = time.monotonic() if self._timing else 0.0
         out_ids = (ctypes.c_uint32 * n)(*ids.tolist())
-        out_doas = (ctypes.c_float * n)(*all_doas[ids].tolist())
+        out_doas = (ctypes.c_float * (n * self.K))(*self._answers(ids, all_doas))
         self._lib.sd_post_results(self._h, n, out_ids, out_doas)
         if self._timing:
             t3 = time.monotonic()
@@ -350,9 +409,11 @@ class WireEncoder:
 
 class StreamClient:
     """Minimal TCP client of :class:`LocalizationServer` (the JAX package's
-    ``StreamClient``, copied: its module imports JAX)."""
+    ``StreamClient``, copied: its module imports JAX).  ``sources`` must be
+    the server's: a result frame is ``u32 id + f32[K]``."""
 
-    def __init__(self, port: int, stream_id: int, host: str = "127.0.0.1"):
+    def __init__(self, port: int, stream_id: int, host: str = "127.0.0.1", sources: int = 1):
+        self.K = int(sources)
         self.sock = socket.create_connection((host, port))
         self.sock.sendall(struct.pack("<II", 0x484D3234, stream_id))
 
@@ -365,16 +426,19 @@ class StreamClient:
         self.sock.sendall(struct.pack("<I", data.size) + data.tobytes())
 
     def recv_doa(self, timeout: float = 30.0):
-        """The next result: ``(stream_id, doa)``."""
+        """The next result: ``(stream_id, doa)``, or for K > 1
+        ``(stream_id, (K,) float32 array)``, NaN-padded."""
         self.sock.settimeout(timeout)
+        want = 4 + 4 * self.K
         buf = b""
-        while len(buf) < 8:
-            part = self.sock.recv(8 - len(buf))
+        while len(buf) < want:
+            part = self.sock.recv(want - len(buf))
             if not part:
                 raise ConnectionError("server closed")
             buf += part
-        sid, doa = struct.unpack("<If", buf)
-        return sid, doa
+        sid = struct.unpack_from("<I", buf)[0]
+        doas = np.frombuffer(buf, np.float32, count=self.K, offset=4)
+        return (sid, float(doas[0])) if self.K == 1 else (sid, doas.copy())
 
     def close(self):
         self.sock.close()
@@ -433,15 +497,22 @@ class ShmStreamClient:
             struct.pack_into("<Q", self.mm, 8, wp + take)
             off += take
 
-    def recv_doa(self, timeout: float = 30.0) -> float:
+    def recv_doa(self, timeout: float = 30.0, sources: int = 1):
         """The newest DoA once a new result is posted (each result supersedes
-        the last)."""
+        the last); with ``sources=K`` > 1 a (K,) NaN-padded array (slot 0 at
+        byte 28, slots 1..K-1 at 36 + 4(k-1), ``native/streamd.cpp``)."""
         deadline = time.monotonic() + timeout
         while True:
             seq = struct.unpack_from("<I", self.mm, 24)[0]
             if seq != self._last_seq:
                 self._last_seq = seq
-                return struct.unpack_from("<f", self.mm, 28)[0]
+                if sources == 1:
+                    return struct.unpack_from("<f", self.mm, 28)[0]
+                out = np.empty(sources, np.float32)
+                out[0] = struct.unpack_from("<f", self.mm, 28)[0]
+                for k in range(1, sources):
+                    out[k] = struct.unpack_from("<f", self.mm, 36 + 4 * (k - 1))[0]
+                return out
             if time.monotonic() > deadline:
                 raise TimeoutError("no shm result")
             time.sleep(0.0002)

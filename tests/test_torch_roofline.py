@@ -22,13 +22,19 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from haghighatshoarmuir2024_tpu_torch import CenterCircularArray
+from haghighatshoarmuir2024_tpu_torch.config import BeamformerConfig, MUSICConfig
 from haghighatshoarmuir2024_tpu_torch.experiments import roofline
+from haghighatshoarmuir2024_tpu_torch.models.beamformer import Beamformer
+from haghighatshoarmuir2024_tpu_torch.models.music import MUSIC
 from haghighatshoarmuir2024_tpu_torch.models.snn_beamformer import SNNBeamformer
+from haghighatshoarmuir2024_tpu_torch.models.srp_phat import SRPPHAT
 from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import roofline_kernel as rk
 from haghighatshoarmuir2024_tpu_torch.runtime.streaming import StreamState
+from haghighatshoarmuir2024_tpu_torch.tools import localize
+from haghighatshoarmuir2024_tpu_torch.utils import tracking
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -271,7 +277,9 @@ def test_torch_roofline_harness_needs_cuda(call, monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["Demo", "Demo.load", "SNNBeamformer", "SNNBeamformer.from_config",
-                                   "StreamState.from_numpy"])
+                                   "StreamState.from_numpy", "Beamformer", "Beamformer.from_config", "MUSIC",
+                                   "MUSIC.from_config", "SRPPHAT", "localize", "track_angles",
+                                   "track_multi_angles"])
 def test_torch_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Without ``device`` every entry point asks for the card, and without a
     card it raises instead of carrying on on the CPU."""
@@ -286,6 +294,14 @@ def test_torch_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             fs=48_000, design_chunk=32), geo),
         "StreamState.from_numpy": lambda: StreamState.from_numpy(
             {name: np.zeros((2, 3)) for name in StreamState.__dataclass_fields__}),
+        "Beamformer": lambda: Beamformer(geo, 10e-3, [1600, 1900], fs=48_000),
+        "Beamformer.from_config": lambda: Beamformer.from_config(BeamformerConfig(), geo),
+        "MUSIC": lambda: MUSIC(geo, [1600, 1900], np.linspace(-np.pi, np.pi, 9), fs=48_000),
+        "MUSIC.from_config": lambda: MUSIC.from_config(MUSICConfig(), geo, np.linspace(-np.pi, np.pi, 9)),
+        "SRPPHAT": lambda: SRPPHAT(geo, [1600, 1900], np.linspace(-np.pi, np.pi, 9), fs=48_000),
+        "localize": lambda: localize.main([str(tmp_path / "tone.wav"), "--model", "srp"]),
+        "track_angles": lambda: tracking.track_angles(np.zeros(3)),
+        "track_multi_angles": lambda: tracking.track_multi_angles(np.zeros((3, 2)), np.ones((3, 2), bool), 4),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -135,7 +135,9 @@ def test_torch_port_runs_without_jax(tmp_path):
     forward still runs (one frame, CPU tensors), and so do the streaming
     runtime (one chunk), the serving module's import, a tiny unipolar
     model's design, calibration, ``Demo.forward`` and streaming chunk, K7's
-    suppression op, and the imports of the roofline probes and harness."""
+    suppression op, the imports of the roofline probes and harness, and one
+    call of each module of the classical families, the trackers, the audio
+    sources and the localizer CLI (one SRP run on a wav)."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -175,6 +177,50 @@ def test_torch_port_runs_without_jax(tmp_path):
         assert int(suppress_kernel.select_by_distance_tm(torch.ones(500, 3, dtype=torch.bool), h, 12).sum()) > 0
         assert roofline_kernel.lif_peak(torch.ones(8, dtype=torch.int32), 16).shape == (8,)
         assert callable(roofline.run)
+        # the classical families, the trackers, audio I/O and the CLI
+        from haghighatshoarmuir2024_tpu_torch import config, geometry
+        from haghighatshoarmuir2024_tpu_torch.io import audio, flac
+        from haghighatshoarmuir2024_tpu_torch.models.beamformer import Beamformer
+        from haghighatshoarmuir2024_tpu_torch.models.music import MUSIC
+        from haghighatshoarmuir2024_tpu_torch.models.srp_phat import SRPPHAT
+        from haghighatshoarmuir2024_tpu_torch.ops import filterbank, iir, interp, linalg, peaks
+        from haghighatshoarmuir2024_tpu_torch.tools import localize
+        from haghighatshoarmuir2024_tpu_torch.utils import tracking
+        for g in (geometry.CircularArray(4e-2, 6), geometry.LinearArray(2e-2, 5),
+                  geometry.Random2DArray(5e-2, 7, seed=1)):
+            assert g.delays(torch.zeros(3, dtype=torch.float64)).shape == (3, len(g))
+        geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
+        x = interp.received_signal(geo, t[:2400], torch.sin(2 * np.pi * 1750 * t[:2400]), -0.5, snr_db=10.0,
+                                   generator=torch.Generator().manual_seed(0), fs=48_000).float()
+        b, a = iir.butter_bandpass(2, (1600, 1900), 48_000)
+        for m in ("scan", "parallel", "blocked"):
+            assert iir.iir_filter(b, a, x, method=m).shape == x.shape
+        assert filterbank.Filterbank([(b, a)]).evolve(x).shape == (1,) + tuple(x.shape)
+        eye = torch.eye(3, dtype=torch.float64)
+        assert linalg.generalized_top_eigvec(eye + 1, eye).shape == (3,)
+        bf = Beamformer.from_config(config.BeamformerConfig(design_chunk=4), geo, device="cpu")
+        tt = np.arange(0, 0.02, 1 / 48_000)
+        bf_mat, _ = bf.design_from_template((tt, np.sin(2 * np.pi * 1750 * tt)), np.linspace(-np.pi, np.pi, 9))
+        assert bf.apply_to_signal(bf_mat, x).shape == (2400, 9)
+        music = MUSIC.from_config(config.MUSICConfig(), geo, np.linspace(-np.pi, np.pi, 9), device="cpu")
+        prof = music.beamforming(x, 2, 512, num_sources=1)
+        srp = SRPPHAT(geo, (1400, 2100), np.linspace(-np.pi, np.pi, 9), frame_duration=0.05, device="cpu")
+        assert srp.apply_to_signal(x[None]).shape == (1, 9)
+        idx, _, ok = peaks.top_k_peaks(prof, 2, distance=2)
+        assert tracking.track_angles(torch.zeros(4), device="cpu").shape == (4,)
+        assert tracking.track_multi_angles(torch.zeros(4, 2), torch.ones(4, 2, dtype=torch.bool), 3,
+                                           device="cpu")[1].shape == (4, 3)
+        assert tracking.MultiDoaTracker(3).update(np.zeros(2))[1].shape == (3,)
+        assert tracking.DoaTracker().update(0.1) == 0.1
+        assert next(audio.SyntheticAudioSource(geo, tt, np.sin(tt), 0.3).frames(0.01)).shape == (480, 7)
+        assert callable(flac.read_flac)
+        from scipy.io import wavfile
+        wavfile.write("tone.wav", 48_000, (0.5 * np.sin(2 * np.pi * 1750 * np.arange(6000) / 48_000)
+                                           * 32767).astype(np.int16))
+        assert localize.main(["tone.wav", "--model", "srp", "--band", "1400", "2100", "--simulate-doa", "0.7",
+                              "--frame", "0.125", "--grid", "33", "--device", "cpu"]) == 0
+        srv = server.LocalizationServer(demo, max_streams=2, sources=2, track=True)
+        srv.close()
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
         assert not any(m.startswith("haghighatshoarmuir2024_tpu.") or m == "haghighatshoarmuir2024_tpu"
                        for m in sys.modules)
