@@ -148,7 +148,30 @@ Phases, each failing the run with a non-zero exit:
     estimator; one daemon round with ``sources=2, track=True`` over two TCP
     streams of two tones: every K-float answer equal to the direct step +
     top-K + tracker, K1, K2, pack and K4 launched, the final tracks within 25
-    deg (folded) of each stream's two sources.
+    deg (folded) of each stream's two sources;
+21. the Xylo deployment (after the main path's times): ``XyloSim`` on the
+    flagship's rasters (``spike_encoding`` of 25 of bench.py's frames, T =
+    12 000, N = 449), record=True, in all four step conventions with the
+    flagship's uniform ``w_rec`` and with the dense push-to-hidden block
+    ``w_rec`` ``[[0, W], [0, R]]`` (W the truncated flagship projection, R a
+    sparse random stage-2 recurrence from the seed, since the truncation
+    zeroes the flagship's own): spikes, ``Isyn``, ``Vmem``, the readout,
+    ``synops`` and the states bit-exact against the CPU path, and the block
+    run equal to ``XyloSimPushToHidden``'s two stages; ``spike_encoding``
+    equal to the CPU path on the same ``cs`` (and within 1e-3 of the spikes
+    from the same audio), ``xylo_process`` equal, ``Demo.forward(matched)``'s
+    DoA equal to ``forward_batch(matched)``'s (K1, K2, the raster pack and K5
+    launched); ``experiments/target_push_to_hidden`` at its reference
+    configuration (designed on the card; the power workload's rasters and
+    ``estimate_power`` equal to the CPU path's; 8 trials' MAE printed);
+    ``experiments/target_xylo_localization.run`` at full size (1000-2000 Hz,
+    grid 112, 100 trials x 11 SNRs, both estimators; gates: matched MAE <= 4
+    deg and reference <= 15 deg at every SNR; JAX's records printed beside),
+    its convention envelope at 25 trials, and one batch of 100 trials (the
+    sweep's) at 0 dB whose DoAs equal the CPU path's on the same DoAs and
+    noise (K1, K2, pack and K3 launched a batch) and whose counts from the
+    card's ``cs`` through K1 -> K2 -> pack -> K3 equal the plain path's on the
+    CPU, count by count.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -2006,6 +2029,247 @@ def check_families(torch, _build, server, StreamingLocalizer, demo, frames, doas
     return out
 
 
+# ------------------------------------------------------------------ phase 21
+# the JAX package's records (RESULTS.md:285-286, :555-562): the quantized Xylo MC on
+# the 112-point grid, tone, 100 trials x 11 SNRs: the matched estimator 3.0 deg at
+# -10 dB to 1.5 deg at 20 dB (1.6-3.2 deg over the sweep), the reference-parity
+# peak 4-10 deg; the envelope of that peak over the four step conventions at 25
+# trials: 4.5-6.1 deg at -10 dB, 3.9-9.3 at 2, 4.9-14.1 at 11, 6.7-13.8 at 20; the
+# push-to-hidden energy proxy about 276 uW (RESULTS.md:581)
+JAX_XYLO_RECORDS = ("matched 3.0 deg @-10 dB -> 1.5 deg @20 dB (1.6-3.2 over the sweep); reference-parity "
+                    "peak 4-10 deg; its convention envelope 4.5-6.1 @-10, 3.9-9.3 @2, 4.9-14.1 @11, 6.7-13.8 "
+                    "@20 dB; push-to-hidden about 276 uW")
+MATCHED_MAE_GATE, REFERENCE_MAE_GATE = 4.0, 15.0  # deg at every SNR, 100 trials each
+SIM_ROWS = 25  # frames through the simulator at full width: (25, 12 000, 449) int32 rasters
+MC_TRIALS, ENVELOPE_TRIALS, XYLO_FRAME = 100, 25, 0.25  # target_xylo_localization's trials a SNR, frame s
+SPIKE_MOVE_TOL = 1e-3  # the card's raster from audio against the CPU path's, as a fraction of the spikes
+
+
+def sim_run(torch, XyloSim, cfg, spikes, ordering, reset):
+    """One recorded ``XyloSim`` call on ``spikes``' device: every output,
+    and its seconds (host clock, synchronized)."""
+    dev = spikes.device
+    sim = XyloSim(cfg, ordering=ordering, reset=reset, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, state, rec = sim(spikes, record=True, record_power=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    res = {"readout": out, **rec}
+    res.update({f"state.{part}[{i}]": s for part in ("hidden", "out") for i, s in enumerate(state[part])})
+    return res, sec
+
+
+def equal_on_host(torch, card: dict, host: dict, label: str):
+    if sorted(card) != sorted(host):
+        fail(f"{label}: outputs {sorted(card)} != {sorted(host)}")
+    for k, v in host.items():
+        if card[k].shape != v.shape or not torch.equal(card[k].cpu(), v):
+            fail(f"{label}: {k} differs between the card and the CPU path "
+                 f"({mismatches(card[k], v) if card[k].shape == v.shape else 'shape'} entries)")
+
+
+def check_xylo(torch, _build, Demo, flagship, demo, frames, dev):
+    """Phase 21: the simulator, the stage API, push-to-hidden and the MC
+    accuracy harness at full width (module docstring)."""
+    import tempfile
+
+    from haghighatshoarmuir2024_tpu_torch.experiments import target_push_to_hidden as p2h
+    from haghighatshoarmuir2024_tpu_torch.experiments import target_xylo_localization as txl
+    from haghighatshoarmuir2024_tpu_torch.experiments.common import FS, sinusoid_template, snr_sweep_config
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import DemoPushToHidden, XyloSim, estimate_power
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import XyloSimPushToHidden
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import ORDERINGS, RESETS
+    from haghighatshoarmuir2024_tpu_torch.parallel import make_trial_fn
+
+    out = {"sim": {}}
+    t_phase = time.perf_counter()
+    cpu_demo = Demo(**{**flagship, "device": "cpu"})  # the bundled design, on the CPU path
+
+    # ---- (a) the simulator on the card against the CPU path, bit-exact, at full width
+    spk = demo.spike_encoding(frames[:SIM_ROWS])  # (25, 12 000, 28) int32
+    spk_host = spk.cpu()
+    pdemo = DemoPushToHidden(**flagship)  # the bundled design, fan-out truncated
+    runs = [(f"{o}/{r}, uniform w_rec", demo.xylo_config, o, r) for o in ORDERINGS for r in RESETS]
+    # stage 2 with a sparse random recurrence R: the truncation zeroes the flagship's own
+    n2 = pdemo.xylo.n_stage2
+    rng = np.random.default_rng(SEED)
+    r = (rng.integers(-3, 4, size=(n2, n2)) * (rng.random((n2, n2)) < 0.2)).astype(np.int32)
+    p1 = pdemo.xylo
+    psim = XyloSimPushToHidden(dataclasses.replace(pdemo.xylo_config, w_rec=r), p1.injection_weight, p1.dash_syn_in,
+                               p1.dash_mem_in, p1.threshold_in, device=dev)
+    runs.append(("decay_first/subtract, dense w_rec [[0, W], [0, R]]", psim.block_config(), "decay_first",
+                 "subtract"))
+    for label, cfg, ordering, reset in runs:
+        card, card_s = sim_run(torch, XyloSim, cfg, spk, ordering, reset)
+        host, host_s = sim_run(torch, XyloSim, cfg, spk_host, ordering, reset)
+        equal_on_host(torch, card, host, f"XyloSim {label}")
+        n_spk = int(host["Spikes"].sum())
+        if n_spk == 0:
+            fail(f"XyloSim {label}: no hidden spike")
+        out["sim"][label] = dict(card_s=card_s, cpu_s=host_s, spikes=n_spk)
+        print(f"[xylo] XyloSim {label}, record=True, (B, T, N) = {tuple(host['Spikes'].shape)}: spikes, Isyn, Vmem, "
+              f"readout, synops and states == the CPU path ({n_spk} spikes); {card_s:.3f} s on the card, "
+              f"{host_s:.3f} s on the CPU", flush=True)
+    # the block form equals the push-to-hidden simulator's two stages at the flagship's width
+    staged, _, _ = psim.evolve_to_hidden(spk)
+    if not torch.equal(staged.cpu(), host["Spikes"]):
+        fail("the dense block run differs from XyloSimPushToHidden's two stages on the same raster")
+    print("[xylo] the dense block run == XyloSimPushToHidden.evolve_to_hidden on the same raster", flush=True)
+    del card, host, staged
+
+    # ---- (b) the stages: spike_encoding, xylo_process, the single-frame matched forward
+    few = frames[:4]
+    raster = demo.spike_encoding(few)
+    cs = demo.encode(few)
+    same_cs = cpu_demo.raster(*cpu_demo.rzcc(cs.cpu())).to(torch.int32).transpose(0, 1)  # the CPU path's RZCC
+    if not torch.equal(raster.cpu(), same_cs):
+        fail("spike_encoding: the card's raster differs from the CPU path's on the same cs")
+    host_raster = cpu_demo.spike_encoding(few.cpu())
+    moved = mismatches(raster, host_raster)
+    if moved > SPIKE_MOVE_TOL * int(host_raster.sum()):
+        fail(f"spike_encoding: {moved} raster entries differ from the CPU path's on the same audio")
+    hidden = demo.xylo_process(raster)
+    if not torch.equal(hidden.cpu(), cpu_demo.xylo_process(raster.cpu())):
+        fail("xylo_process: the card's hidden raster differs from the CPU path's on the same input")
+    b_doa, _ = demo.forward_batch(few, method="matched")
+    frame_launches = {}
+    for i in range(len(few)):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        doa, _ = demo.forward(few[i], method="matched")
+        torch.cuda.synchronize()
+        frame_launches = dict(_build.launch_counts)
+        if float(doa) != float(b_doa[i]):
+            fail(f"Demo.forward(matched) frame {i}: DoA {float(doa)} != forward_batch(matched)'s {float(b_doa[i])}")
+    for name in ("rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5"):
+        if frame_launches.get(name, 0) < 1:
+            fail(f"Demo.forward(matched) never launched {name} ({frame_launches})")
+    out["frame_launches"] = frame_launches
+    print(f"[xylo] stages on {len(few)} frames: spike_encoding == the CPU path on the same cs, {moved} of "
+          f"{int(host_raster.sum())} spikes moved from the same audio (gate {SPIKE_MOVE_TOL:g} of them); "
+          f"xylo_process == the CPU path; Demo.forward(matched) DoAs == forward_batch(matched)'s, launches a "
+          f"frame {frame_launches}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prev_cache = os.environ.get("HM2024_TORCH_CACHE")
+        os.environ["HM2024_TORCH_CACHE"] = tmp  # the designs and tables made here stay in the temp dir
+        try:
+            # ---- (c) push-to-hidden: the reference configuration, the power workload, 8 trials
+            t0 = time.perf_counter()
+            pd = p2h.build_demo(16 * 7, XYLO_FRAME, device=dev)  # designed on the card
+            torch.cuda.synchronize()
+            out["p2h_design_s"] = time.perf_counter() - t0
+            pd_host = p2h.build_demo(16 * 7, XYLO_FRAME, device="cpu")  # the card's design, from the cache
+            for name in ("w_in", "w_rec", "w_out", "dash_syn", "dash_mem", "threshold"):
+                if not np.array_equal(getattr(pd.xylo_config, name), getattr(pd_host.xylo_config, name)):
+                    fail(f"push-to-hidden: the CPU twin's {name} differs")
+            s_in, full = p2h.power_workload(pd)
+            h_in, h_full = p2h.power_workload(pd_host)
+            if not torch.equal(s_in.cpu(), h_in) or not torch.equal(full.cpu(), h_full):
+                fail("push-to-hidden power workload: the card's rasters differ from the CPU path's")
+            power = p2h.power_measurement(pd)
+            if power != p2h.power_measurement(pd_host):
+                fail("push-to-hidden: estimate_power on the card differs from the CPU path's")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loc = p2h.localization_check(pd, num_trials=8)
+            out["p2h_check_s"] = time.perf_counter() - t0
+            out["p2h_power_uW"], out["p2h_mae_deg"] = power["power_avg_uW"], loc["mae_deg"]
+            print(f"[xylo] push-to-hidden (1600-1900 Hz, grid 112, {XYLO_FRAME} s, bipolar, hardware constraints): design "
+                  f"on the card {out['p2h_design_s']:.3f} s; w_rec nonzeros "
+                  f"{int(np.count_nonzero(pd.xylo_config.w_rec))}; power workload (2 ms of 1 kHz spikes, seed 0) "
+                  f"rasters and estimate_power == the CPU path: {power['power_avg_uW']:.3f} uW, synops "
+                  f"{power['synops_total']:.0f}; localization check, 8 trials at 10 dB: MAE {loc['mae_deg']:.3f} deg "
+                  f"({out['p2h_check_s']:.3f} s)", flush=True)
+
+            # ---- (d) the MC accuracy harness at full size: 1000-2000 Hz, grid 112, 100 x 11, bipolar
+            t0 = time.perf_counter()
+            td = txl.build_demo(True, 16 * 7, XYLO_FRAME, device=dev)  # designed on the card
+            torch.cuda.synchronize()
+            out["mc_design_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = txl.run(demo=td, num_sims=MC_TRIALS, envelope=False, duration=XYLO_FRAME)
+            torch.cuda.synchronize()
+            out["mc_s"] = time.perf_counter() - t0
+            t, sig = sinusoid_template(1500.0, XYLO_FRAME)
+            t0 = time.perf_counter()
+            env = txl.convention_envelope(td, t, sig, snr_sweep_config(), num_sims=ENVELOPE_TRIALS)
+            torch.cuda.synchronize()
+            out["envelope_s"] = time.perf_counter() - t0
+            ref_mae = np.rad2deg(res["reference_estimator"]["mae"])
+            mat_mae = np.rad2deg(res["matched_estimator"]["mae"])
+            out.update(ref_mae=ref_mae, matched_mae=mat_mae, env=env)
+            snrs = res["matched_estimator"]["snr_db"]
+            print(f"[xylo] MC (target_xylo_localization.run: 1000-2000 Hz, grid 112, {MC_TRIALS} trials x 11 SNRs, "
+                  f"bipolar, tone, {XYLO_FRAME} s): design on the card {out['mc_design_s']:.3f} s, both sweeps and the "
+                  f"calibration {out['mc_s']:.3f} s, the convention envelope ({ENVELOPE_TRIALS} trials x 11 SNRs x 4 "
+                  f"conventions) {out['envelope_s']:.3f} s", flush=True)
+            for i, snr in enumerate(snrs):
+                print(f"[xylo]   {snr:+5.1f} dB: matched MAE {mat_mae[i]:.3f} deg (gate {MATCHED_MAE_GATE}), reference "
+                      f"peak {ref_mae[i]:.3f} deg (gate {REFERENCE_MAE_GATE}), envelope {env['mae_deg_min'][i]:.3f}-"
+                      f"{env['mae_deg_max'][i]:.3f} deg")
+            print(f"[xylo] the JAX package's records: {JAX_XYLO_RECORDS}", flush=True)
+            if not np.all(mat_mae <= MATCHED_MAE_GATE) or not np.all(ref_mae <= REFERENCE_MAE_GATE):
+                fail(f"MC accuracy gate: matched MAE {np.round(mat_mae, 3).tolist()}, reference "
+                     f"{np.round(ref_mae, 3).tolist()} deg")
+
+            # one batch of the sweep's 100 trials at 0 dB on the card and on the CPU path, the same DoAs
+            # and noise: equal DoAs, and equal counts from the card's cs
+            td_host = txl.build_demo(True, 16 * 7, XYLO_FRAME, device="cpu")  # the card's design, from the cache
+            td_host.calibrate_profiles(template=(t, sig))  # the card's table, from the cache
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            doa = 2 * np.pi * torch.rand(MC_TRIALS, generator=gen, device=dev)
+            noise = torch.randn((MC_TRIALS, len(t), len(td.geometry)), generator=gen, device=dev)
+            estimators = {
+                "reference": lambda d: (lambda f: txl.reference_doa(d, d.fold(d.rates_batch(f)))),
+                "matched": lambda d: (lambda f: d.forward_batch(f, method="matched")[0]),
+            }
+            out["mc_launches"] = {}
+            seen = {}
+
+            def keep_frames(fn):
+                def estimate(f):
+                    seen["frames"] = f
+                    return fn(f)
+                return estimate
+
+            for name, est in estimators.items():
+                card_trial = make_trial_fn(td.geometry, t, sig, keep_frames(est(td)), FS, device=dev)
+                host_trial = make_trial_fn(td.geometry, t, sig, est(td_host), FS, device="cpu")
+                torch.cuda.synchronize()
+                _build.launch_counts.clear()
+                _, card_est = card_trial(None, 0.0, MC_TRIALS, doa_true=doa, noise=noise)
+                torch.cuda.synchronize()
+                out["mc_launches"][name] = dict(_build.launch_counts)
+                _, host_est = host_trial(None, 0.0, MC_TRIALS, doa_true=doa.cpu(), noise=noise.cpu())
+                if not torch.equal(card_est.cpu(), host_est):
+                    diff = int((card_est.cpu() != host_est).sum())
+                    fail(f"MC batch ({name}): {diff} of {MC_TRIALS} DoAs differ between the card and the CPU path")
+                for k in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3"):
+                    if out["mc_launches"][name].get(k, 0) < 1:
+                        fail(f"MC batch ({name}) never launched {k} ({out['mc_launches'][name]})")
+            cs_mc = td.encode(seen["frames"])  # (T, 100, C)
+            card_counts = td.lif_counts(*td.rzcc(cs_mc))  # K1 -> K2 -> pack -> K3
+            host_counts = td_host.lif_counts(*td_host.rzcc(cs_mc.cpu()))  # the plain path
+            if card_counts.shape != host_counts.shape or not torch.equal(card_counts.cpu(), host_counts):
+                fail(f"MC batch: K3's counts {tuple(card_counts.shape)} differ from the plain path's on the same cs "
+                     f"({mismatches(card_counts, host_counts) if card_counts.shape == host_counts.shape else 'shape'}"
+                     f" entries)")
+            print(f"[xylo] one batch of {MC_TRIALS} trials at 0 dB: the card's DoAs == the CPU path's, both estimators; "
+                  f"counts (B, N) = {tuple(host_counts.shape)} from the card's cs == the plain path's, count by count "
+                  f"({int(host_counts.sum())} spikes); launches a batch {out['mc_launches']}", flush=True)
+        finally:
+            if prev_cache is None:
+                del os.environ["HM2024_TORCH_CACHE"]
+            else:
+                os.environ["HM2024_TORCH_CACHE"] = prev_cache
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     try:
@@ -2166,6 +2430,9 @@ def main() -> int:
     # main path's times, which its CPU-path comparisons and its daemon would otherwise precede
     fam = check_families(torch, _build, server, StreamingLocalizer, demo, frames, doas, dev)
     lap(start, "the classical families and the localizer")
+    # ---- phase 21: the simulator, the stage API, push-to-hidden, the MC accuracy harness
+    xy = check_xylo(torch, _build, Demo, flagship, demo, frames, dev)
+    lap(start, "the Xylo simulator, push-to-hidden and the MC harness")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -2293,6 +2560,9 @@ def main() -> int:
         f3_ms = {"rzcc_k1": f3["k1_ms"], "rzcc_k2": f3["k2_ms"], "lif_pack": f3["pack_ms"],
                  "lif_k3": f3["k3_params_ms"], "lif_k4": f3["k4_params_ms"]}
         extra = {} if key not in f3_ms else {"f3_ms": f3_ms[key], "f3_bound_ms": f3["bounds"][key]["bound_ms"]}
+        # phase 21's paths: one MC trial batch (reference estimator) and one single-frame matched call
+        extra["xylo_launches"] = {"mc_batch": xy["mc_launches"]["reference"].get(key, 0),
+                                  "frame_matched": xy["frame_launches"].get(key, 0)}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
@@ -2310,6 +2580,13 @@ def main() -> int:
           f"{100 * fam['music_scan_ms'] / fam['music']['one_ms']:.1f} % of its frame")
     print(f"{tag} localize per frame (the CLI's estimators, grid 225, B = 1): "
           + ", ".join(f"{m} {fam['cli'][m]:.3f} ms" for m in ("xylo", "hilbert", "music", "srp")))
+    for label, r in xy["sim"].items():
+        print(f"{tag} XyloSim {label}, record=True, B = {SIM_ROWS}, T = {T}: {r['card_s']:.3f} s a call on the card "
+              f"(the CPU path {r['cpu_s']:.3f} s)")
+    print(f"{tag} Xylo MC ({MC_TRIALS} trials x 11 SNRs x 2 estimators, grid 112): {xy['mc_s']:.3f} s with the "
+          f"calibration; the convention envelope ({ENVELOPE_TRIALS} x 11 x 4) {xy['envelope_s']:.3f} s; the push-to-hidden check (8 trials) "
+          f"{xy['p2h_check_s']:.3f} s; designs on the card {xy['mc_design_s']:.3f} s (1000-2000 Hz) and "
+          f"{xy['p2h_design_s']:.3f} s (push-to-hidden); phase 21 {xy['phase_s']:.1f} s")
     lap(start, "the times")
     print(f"[clock] the whole script: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

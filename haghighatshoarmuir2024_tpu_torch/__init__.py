@@ -35,7 +35,16 @@ Ported so far:
 - the classical families ``models.beamformer.Beamformer``, ``models.music.MUSIC``
   and ``models.srp_phat.SRPPHAT``, the DoA trackers ``utils.tracking``, the
   audio sources ``io``, the offline localizer ``tools.localize`` (four
-  models, tracking, up to K sources) and the server's ``sources``/``track``.
+  models, tracking, up to K sources) and the server's ``sources``/``track``;
+- the Xylo deployment: the integer simulator ``models.xylo.XyloSim`` (four
+  step conventions, dense recurrence, recorded states; plain PyTorch, as
+  JAX runs it through XLA), ``Demo.spike_encoding``/``xylo_process`` and
+  the single-frame matched ``Demo.forward``, the push-to-hidden variant
+  ``models.xylo.DemoPushToHidden`` with the energy proxy
+  ``models.xylo.power``, and the Monte-Carlo accuracy harness
+  ``parallel.montecarlo`` with its experiments
+  (``experiments.target_xylo_localization``, ``xylo_ordering_sensitivity``,
+  ``target_push_to_hidden``).
 """
 
 __version__ = "0.1.0"

@@ -45,6 +45,7 @@ from ...ops.stht import stht
 from ...utils.cache import DesignCache, design_cache_key
 from ..snn_beamformer import SNNBeamformer
 from .quantize import XyloConfig, global_quantize, validate_config
+from .sim import XyloSim
 from .spec import build_localization_spec
 
 METHODS = ("peak", "periodic_ml", "trimmed_periodic_ml", "matched", "matched_stacked", "matched_auto")
@@ -237,6 +238,7 @@ class Demo:
             print("Xylo hardware constraints violated; falling back to the "
                   "software simulator: " + "; ".join(problems))
             self.xylosim_version = True
+        self.xylo = XyloSim.from_config(self.xylo_config, output_mode="Spike", dt=target_dt, device=self.device)
 
     # ------------------------------------------------------------ checkpoints
     def save(self, path: str) -> None:
@@ -298,6 +300,7 @@ class Demo:
             threshold=z["threshold"], threshold_out=z["threshold_out"],
             dt=float(dt), weight_scale=float(z["weight_scale"]),
         )
+        self.xylo = XyloSim.from_config(self.xylo_config, output_mode="Spike", dt=float(dt), device=device)
         if "profiles" in z:
             self._set_profiles(z["profiles"])
         if "profiles_stacked" in z:
@@ -406,6 +409,32 @@ class Demo:
         )
         return kp.reshape(T, B, C), kn.reshape(T, B, C)
 
+    def raster(self, kp: torch.Tensor, kn: torch.Tensor) -> torch.Tensor:
+        """The polarity masks (T, B, C) → the bool input raster (T, B, C'):
+        ``[kp & ~kn, kn]`` (2C channels, a valley wins a collision) for a
+        bipolar model, ``kp`` for a unipolar one."""
+        return torch.cat([kp & ~kn, kn], dim=-1) if self.bipolar_spikes else kp
+
+    def spike_encoding(self, sig_in) -> torch.Tensor:
+        """Audio (T, M), or a batch (B, T, M), → the input spike raster of
+        JAX ``spike_encoding`` (``pipeline.py:364-376``, ``_spikes_from_cumsum``
+        ``:166-195``): :meth:`raster` as int32, (T, 2C) for a bipolar model,
+        (T, C) for a unipolar one; a batch gives (B, T, ·).  :meth:`encode`
+        then K1/K2 (:meth:`rzcc`)."""
+        x = torch.as_tensor(sig_in, dtype=torch.float32, device=self.device)
+        single = x.dim() == 2
+        spikes = self.raster(*self.rzcc(self.encode(x[None] if single else x)))
+        spikes = spikes.to(torch.int32).transpose(0, 1)  # (B, T, C')
+        return spikes[0] if single else spikes
+
+    def xylo_process(self, spikes_in) -> torch.Tensor:
+        """Input raster → the hidden raster (T, F·G) int32, or (B, T, F·G)
+        for a batch, from a reset :class:`XyloSim` (JAX ``pipeline.py:378-383``;
+        micloc/xylo_snn_localization.py:358-377)."""
+        self.xylo.reset_state()
+        _, _, rec = self.xylo(spikes_in)
+        return rec["Spikes"]
+
     def lif_params(self) -> lif_kernel.LifParams:
         """The config's LIF integers on ``device``, uploaded once (the
         weights as K5 reads them at its first call, :meth:`forward`); the
@@ -436,12 +465,13 @@ class Demo:
         rate_doa = self.fold(rate)
         return self.estimate_doa_from_rate(rate if method in STACKED else rate_doa, method), rate_doa
 
-    def extract_rate(self, spikes, fold: bool = True) -> torch.Tensor:
-        """A time-major hidden raster (T, ..., F·G) → its spike rates, folded
-        over the bands to (..., G), or with ``fold=False`` the unfolded
-        (..., F·G) rates that ``matched_stacked``/``matched_auto`` take (JAX
-        ``extract_rate``, ``pipeline.py:385-394``)."""
-        rate = torch.as_tensor(spikes, device=self.device).to(torch.float32).mean(dim=0) * self.fs
+    def extract_rate(self, spikes, fold: bool = True, time_dim: int = 0) -> torch.Tensor:
+        """A hidden raster (T, ..., F·G), time along ``time_dim`` (1 for
+        the (B, T, F·G) of a batch through :meth:`xylo_process`) → its spike
+        rates, folded over the bands to (..., G), or with ``fold=False`` the
+        unfolded (..., F·G) rates that ``matched_stacked``/``matched_auto``
+        take (JAX ``extract_rate``, ``pipeline.py:385-394``)."""
+        rate = torch.as_tensor(spikes, device=self.device).to(torch.float32).mean(dim=time_dim) * self.fs
         return self.fold(rate) if fold else rate
 
     def doa_scores(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:
@@ -505,21 +535,23 @@ class Demo:
         return torch.angle((torch.gather(rate, -1, idx) * phase[idx]).mean(dim=-1))
 
     # -------------------------------------------------------------- entries
-    def forward(self, sig_in):
+    def forward(self, sig_in, method: str = "peak"):
         """One frame: (T, M) audio → (doa, rate (G,)) by the peak estimator
-        (JAX ``pipeline.py:666-722``).  The spikes go to K5 as one bool
-        raster (T, 1, C'): ``[kp & ~kn, kn]`` (2C channels) for a bipolar
-        model, ``kp`` for a unipolar one; spike_bound=1 as the masks are
-        binary."""
+        (JAX ``_forward_jit``, ``pipeline.py:666-722``) or with
+        ``method="matched"`` the calibrated matched one (``_forward_matched_jit``,
+        ``:724-745``; needs :meth:`calibrate_profiles`).  The spikes go to
+        K5 as one bool raster (T, 1, C') (:meth:`raster`); spike_bound=1 as
+        the masks are binary."""
+        if method not in ("peak", "matched"):
+            raise ValueError(f"Demo.forward takes method 'peak' or 'matched', not {method!r}")
         x = torch.as_tensor(sig_in, dtype=torch.float32, device=self.device)
         M = len(self.geometry)
         if x.dim() != 2 or x.shape[-1] != M:
             raise ValueError(f"sig_in must be (T, {M}) for this {M}-mic geometry; got {tuple(x.shape)}")
         cs = self.encode(x[None])
-        kp, kn = self.rzcc(cs)
-        spikes = torch.cat([kp & ~kn, kn], dim=-1) if self.bipolar_spikes else kp
+        spikes = self.raster(*self.rzcc(cs))
         counts = lif_kernel.lif_count_rates(self.lif_params(), spikes, time_major=True, spike_bound=1)
-        doa, rate_doa = self.estimate(counts, cs.shape[0], "peak")
+        doa, rate_doa = self.estimate(counts, cs.shape[0], method)
         return doa[0], rate_doa[0]
 
     def rates_batch(self, sig_batch) -> torch.Tensor:

@@ -2,8 +2,9 @@
 ``haghighatshoarmuir2024_tpu/ops/fir.py``; reference call sites:
 micloc/beamformer.py:132-134, micloc/snn_beamformer.py:158-160).
 
-Only the blocked-Toeplitz matmul form (``_fir_block_matmul``, ``fir.py:110``)
-is ported: it is the form the STHT of the flagship encode runs.
+Of the filters, only the blocked-Toeplitz matmul form (``_fir_block_matmul``,
+``fir.py:110``) is ported: it is the form the STHT of the flagship encode
+runs.  ``moving_average_full`` is the smoothing of ``find_peak_location``.
 """
 from __future__ import annotations
 
@@ -61,3 +62,17 @@ def fir_block_matmul(b: np.ndarray, x: torch.Tensor, block: int = BLOCK) -> torc
         y = term if y is None else y + term
     y = y.reshape(L, nb * block)[:, :T].T
     return y.reshape((T,) + rest).to(x.dtype)
+
+
+def moving_average_full(x: torch.Tensor, win_size: int) -> torch.Tensor:
+    """``np.convolve(ones(win), x, mode='full')`` along the last dim,
+    batched over the leading ones (JAX ``moving_average_full``,
+    ``fir.py:156``; reference micloc/utils.py:110-112): (..., T) →
+    (..., T + win − 1), as differences of a running sum over the
+    zero-padded signal, the sum taken in float64."""
+    T = x.shape[-1]
+    xp = torch.nn.functional.pad(x.to(torch.float64), (win_size - 1, win_size - 1))
+    w = torch.cumsum(xp, dim=-1)
+    zero = torch.zeros(w.shape[:-1] + (1,), dtype=w.dtype, device=w.device)
+    out = w[..., win_size - 1:] - torch.cat([zero, w[..., : T + win_size - 2]], dim=-1)
+    return out.to(x.dtype)

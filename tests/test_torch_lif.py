@@ -63,7 +63,7 @@ def test_torch_sim_hidden_matches_jax(seed, rec_coef, T, p, max_count):
     cfg = make_config(seed, rec_coef=rec_coef)
     spikes = make_spikes(seed, T=T, p=p, max_count=max_count)
     ref = np.asarray(jax_sim_batch(cfg, jnp.asarray(spikes)))
-    got = sim_hidden_batch(cfg, torch.as_tensor(spikes)).numpy()
+    got = sim_hidden_batch(cfg, torch.as_tensor(spikes), device="cpu").numpy()
     np.testing.assert_array_equal(got, ref)
     assert got.sum() > 0
 
@@ -73,7 +73,7 @@ def test_torch_sim_hidden_saturation_matches_jax():
     cfg = saturating_config()
     spikes = make_spikes(11, p=0.9, max_count=3)
     ref = np.asarray(jax_sim_batch(cfg, jnp.asarray(spikes)))
-    got = sim_hidden_batch(cfg, torch.as_tensor(spikes)).numpy()
+    got = sim_hidden_batch(cfg, torch.as_tensor(spikes), device="cpu").numpy()
     np.testing.assert_array_equal(got, ref)
     assert got.sum() > 0
 

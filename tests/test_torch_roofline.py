@@ -23,12 +23,16 @@ from jax.experimental.pallas import tpu as pltpu
 
 from haghighatshoarmuir2024_tpu_torch import CenterCircularArray
 from haghighatshoarmuir2024_tpu_torch.config import BeamformerConfig, MUSICConfig
-from haghighatshoarmuir2024_tpu_torch.experiments import roofline
+from haghighatshoarmuir2024_tpu_torch.experiments import (roofline, target_push_to_hidden, target_xylo_localization,
+                                                          xylo_ordering_sensitivity)
 from haghighatshoarmuir2024_tpu_torch.models.beamformer import Beamformer
 from haghighatshoarmuir2024_tpu_torch.models.music import MUSIC
 from haghighatshoarmuir2024_tpu_torch.models.snn_beamformer import SNNBeamformer
 from haghighatshoarmuir2024_tpu_torch.models.srp_phat import SRPPHAT
-from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, XyloConfig
+from haghighatshoarmuir2024_tpu_torch.models.xylo import (Demo, DemoPushToHidden, XyloConfig, XyloSim,
+                                                          sim_hidden_batch)
+from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import XyloSimPushToHidden
+from haghighatshoarmuir2024_tpu_torch.parallel import montecarlo
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
 from haghighatshoarmuir2024_tpu_torch.ops.cuda import roofline_kernel as rk
@@ -279,12 +283,20 @@ def test_torch_roofline_harness_needs_cuda(call, monkeypatch):
 @pytest.mark.parametrize("entry", ["Demo", "Demo.load", "SNNBeamformer", "SNNBeamformer.from_config",
                                    "StreamState.from_numpy", "Beamformer", "Beamformer.from_config", "MUSIC",
                                    "MUSIC.from_config", "SRPPHAT", "localize", "track_angles",
-                                   "track_multi_angles"])
+                                   "track_multi_angles", "XyloSim", "XyloSim.from_config",
+                                   "XyloSimPushToHidden", "DemoPushToHidden", "sim_hidden_batch",
+                                   "make_trial_fn", "target_xylo_localization", "xylo_ordering_sensitivity",
+                                   "target_push_to_hidden"])
 def test_torch_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Without ``device`` every entry point asks for the card, and without a
     card it raises instead of carrying on on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
+    n = 3
+    cfg = XyloConfig(w_in=np.ones((n, n), np.int32), w_rec=np.zeros((n, n), np.int32),
+                     w_out=np.ones((n, 1), np.int32), dash_syn=np.ones(n), dash_mem=np.ones(n), dash_syn_out=np.ones(1),
+                     dash_mem_out=np.ones(1), threshold=np.ones(n), threshold_out=np.ones(1), dt=1e-3,
+                     weight_scale=1.0)
     calls = {
         "Demo": lambda: Demo(geo, [[1600, 1900]], np.linspace(-np.pi, np.pi, 449), fs=48_000),
         "Demo.load": lambda: Demo.load(str(tmp_path / "demo.npz")),
@@ -302,6 +314,15 @@ def test_torch_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "localize": lambda: localize.main([str(tmp_path / "tone.wav"), "--model", "srp"]),
         "track_angles": lambda: tracking.track_angles(np.zeros(3)),
         "track_multi_angles": lambda: tracking.track_multi_angles(np.zeros((3, 2)), np.ones((3, 2), bool), 4),
+        "XyloSim": lambda: XyloSim(cfg),
+        "XyloSim.from_config": lambda: XyloSim.from_config(cfg),
+        "XyloSimPushToHidden": lambda: XyloSimPushToHidden(cfg, 1, np.ones(n), np.ones(n), np.ones(n)),
+        "DemoPushToHidden": lambda: DemoPushToHidden(geo, [[1600, 1900]], np.linspace(-np.pi, np.pi, 9), fs=48_000),
+        "sim_hidden_batch": lambda: sim_hidden_batch(cfg, np.zeros((1, 4, n), np.int32)),
+        "make_trial_fn": lambda: montecarlo.make_trial_fn(geo, np.zeros(4), np.zeros(4), lambda f: f, 48_000),
+        "target_xylo_localization": lambda: target_xylo_localization.main(["--quick"]),
+        "xylo_ordering_sensitivity": lambda: xylo_ordering_sensitivity.main(["--quick"]),
+        "target_push_to_hidden": lambda: target_push_to_hidden.main(["--quick"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
