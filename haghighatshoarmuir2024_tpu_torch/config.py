@@ -33,6 +33,32 @@ class BeamformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SNNBeamformerConfig:
+    """Configuration of the float SNN Hilbert beamformer
+    (micloc/snn_beamformer.py:24-80; JAX ``config.py:39-59``), the fields
+    :meth:`SNNBeamformer.from_config` reads."""
+
+    kernel_duration: float = 10e-3
+    freq_range: Tuple[float, float] = (1600.0, 1900.0)
+    tau_syn: float = 1.0 / (2.0 * 3.141592653589793 * 1750.0)
+    tau_mem: float = 1.0 / (2.0 * 3.141592653589793 * 1750.0)
+    bipolar_spikes: bool = False
+    fs: float = FS
+    bandpass_order: int = 2
+    design_chunk: int = 32
+
+    @property
+    def kernel_length(self) -> int:
+        return int(self.fs * self.kernel_duration)
+
+    @property
+    def robust_width(self) -> int:
+        """RZCC robust width: half the zero-crossing distance at the band's
+        top (micloc/snn_beamformer.py:74-76)."""
+        return int(self.fs / self.freq_range[1]) // 2
+
+
+@dataclasses.dataclass(frozen=True)
 class MUSICConfig:
     """Configuration of the narrowband (Bartlett-style) beamformer
     (micloc/music_beamformer.py:22-62)."""

@@ -9,8 +9,6 @@ complex covariance (bipolar spikes) or the DC-removed singular vector
 (unipolar).  The grid axis is a batch axis, taken ``design_chunk`` DoAs at a
 time (the JAX package's ``chunked_vmap``) by every stage but the sequential
 bandpass scan.  The reference loops over angles with scipy/LAPACK.
-
-``apply_to_template`` is not ported: it needs ``received_signal``'s noise.
 """
 from __future__ import annotations
 
@@ -23,7 +21,7 @@ from ..config import FS
 from ..geometry import ArrayGeometry, resolve_device
 from ..ops.fir import full_fp32
 from ..ops.iir import butter_bandpass, iir_scan
-from ..ops.interp import delayed_copies, resample_to_fs
+from ..ops.interp import delayed_copies, received_signal, resample_to_fs
 from ..ops.lif import lif_filter, lif_impulse_response
 from ..ops.linalg import dc_removed_sing_vec, fold_complex_cov, top_eigvec_psd, unfold_complex_vec
 from ..ops.spikes import ZeroCrossingSpikeEncoder, rzcc_encode
@@ -72,8 +70,8 @@ class SNNBeamformer:
 
     @classmethod
     def from_config(cls, config, geometry: ArrayGeometry, device=None):
-        """From an object with the fields of the JAX package's
-        ``SNNBeamformerConfig`` (``config.py``)."""
+        """From a :class:`~haghighatshoarmuir2024_tpu_torch.config.SNNBeamformerConfig`
+        (or any object with its fields)."""
         return cls(
             geometry=geometry,
             kernel_duration=config.kernel_duration,
@@ -155,16 +153,20 @@ class SNNBeamformer:
         return self.bf_from_covs(cov).T
 
     def apply_to_signal(self, bf_mat, sig_in_vec) -> torch.Tensor:
-        """(time, T x M signal) → LIF membrane after beamforming, ``T x G``
-        (micloc/snn_beamformer.py:283-370; JAX ``snn_beamformer.py:180-216``)."""
+        """(time, signal) → LIF membrane after beamforming: a (T, M) signal
+        gives (T, G), a batch (B, T, M) of frames (B, T, G), all filtered
+        in one bandpass scan over their (T, B, 2M) stack
+        (micloc/snn_beamformer.py:283-370; JAX ``snn_beamformer.py:180-216``,
+        which the harnesses vmap over a batch)."""
+        resolve_device(self.device)  # raises if the card it was made for is gone
         time_vec, sig_in = sig_in_vec
         time_vec = np.asarray(time_vec, dtype=np.float64)
         bf_mat = torch.as_tensor(bf_mat, dtype=torch.float32, device=self.device)
         num_mic = bf_mat.shape[0] // 2
-        T, num_chan = np.shape(sig_in)
-        if num_chan != num_mic:
+        shape = np.shape(sig_in)
+        if len(shape) not in (2, 3) or shape[-1] != num_mic:
             raise ValueError(
-                f"number of channels in the input signal {num_chan} should be the same "
+                f"number of channels in the input signal {shape[-1]} should be the same "
                 f"as the number of microphones {num_mic}!"
             )
         # resample on the host if the grid is not uniform at 1/fs
@@ -172,9 +174,30 @@ class SNNBeamformer:
         if not np.allclose(np.diff(time_vec), 1.0 / self.fs):
             sig_np = np.asarray(torch.as_tensor(sig_in).cpu(), dtype=np.float64)
             time_new = np.arange(time_vec[0], time_vec[-1], step=1.0 / self.fs)
-            sig_in = np.stack([np.interp(time_new, time_vec, sig_np[:, m]) for m in range(num_mic)], axis=1)
+            sig_in = np.apply_along_axis(lambda v: np.interp(time_new, time_vec, v), -2, sig_np)
             time_vec = time_new
-        x = torch.as_tensor(sig_in, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(sig_in, device=self.device).to(torch.float32).movedim(-2, 0)  # time first
         vmem = self._membrane(self._bandpass(self._analytic(x)), self._neuron_ir(len(time_vec)))
         full_fp32()
-        return torch.matmul(vmem, bf_mat)
+        return torch.matmul(vmem, bf_mat).movedim(0, -2)
+
+    def apply_to_template(self, bf_mat, template, snr_db, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Simulation harness: the template resampled to ``fs``, its array
+        signal by :func:`received_signal` (float64 on ``device``) with AWGN
+        at ``snr_db`` (None: none) → :meth:`apply_to_signal`
+        (micloc/snn_beamformer.py:213-281; JAX ``snn_beamformer.py:218-241``).
+        The noise comes from ``generator``; None seeds one from NumPy's
+        global RNG, as the reference draws."""
+        resolve_device(self.device)
+        time_temp, sig_temp, doa_temp = template
+        time_temp = np.asarray(time_temp, dtype=np.float64)
+        time_in = np.arange(time_temp.min(), time_temp.max(), step=1.0 / self.fs)
+        sig_in = np.interp(time_in, time_temp, np.asarray(sig_temp, dtype=np.float64))
+        doa_in = (float(doa_temp) if np.ndim(doa_temp) == 0
+                  else np.interp(time_in, time_temp, np.asarray(doa_temp, dtype=np.float64)))
+        if generator is None and snr_db is not None:
+            generator = torch.Generator(self.device).manual_seed(int(np.random.randint(0, 2**31 - 1)))
+        f64 = dict(dtype=torch.float64, device=self.device)
+        sig = received_signal(self.geometry, torch.as_tensor(time_in, **f64), torch.as_tensor(sig_in, **f64),
+                              torch.as_tensor(doa_in, **f64), snr_db=snr_db, generator=generator, fs=self.fs)
+        return self.apply_to_signal(bf_mat, (time_in, sig))

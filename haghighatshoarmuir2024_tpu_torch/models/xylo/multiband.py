@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...config import FS
 from ...geometry import CenterCircularArray
 from ...ops.interp import signal_from_template
 from .flagship import FRAME, GRID
@@ -24,9 +25,10 @@ def multiband_config(device, fs: int = 48_000) -> dict:
                 bipolar_spikes=True, fs=fs, enforce_hw_limits=False, device=device)
 
 
-def jittered_sinusoid_template(freq: float, duration: float, fs: float, eps: float = 0.01, seed: int = 0):
-    """A sinusoid with a small random frequency jitter (the port's copy of
-    ``experiments/common.py:39-46``, whose module imports JAX)."""
+def jittered_sinusoid_template(freq: float, duration: float, fs: float = FS, eps: float = 0.01, seed: int = 0):
+    """A sinusoid with a small random frequency jitter, which steadies the
+    zero crossings of SNN designs (the port's copy of JAX
+    ``experiments/common.py:39-46``; paper_plots/array_resolution_linear_snn.py:173-181)."""
     rng = np.random.default_rng(seed)
     t = np.arange(0, duration, 1 / fs)
     freq_inst = freq * (1 + eps * rng.standard_normal(len(t)))

@@ -80,11 +80,14 @@ def make_trial_fn(geometry, time_temp, sig_temp, estimate_fn: Callable, fs: floa
 
 
 def monte_carlo_sweep(trial_fn: Callable, snr_db_vec: Sequence[float], num_sims: int, seed: int = 0,
-                      batch_size: Optional[int] = None) -> dict:
+                      batch_size: Optional[int] = None, draws=None) -> dict:
     """``num_sims`` trials per SNR, ``batch_size`` at a time (all at once
     when None), the generator on ``trial_fn.device`` seeded with ``seed``
-    anew for each SNR.  Returns JAX's keys: ``snr_db``, ``errors``
-    (num_snr, num_sims) in radians, ``mae`` and ``median`` per SNR."""
+    anew for each SNR.  ``draws = (doa_true (num_sims,), noise (num_sims,
+    T, M))`` replaces the generator's draws (JAX's own, say) and is replayed
+    for every SNR, as JAX's sweep reuses its keys.  Returns JAX's keys:
+    ``snr_db``, ``errors`` (num_snr, num_sims) in radians, ``mae`` and
+    ``median`` per SNR."""
     snr_db_vec = np.asarray(snr_db_vec, dtype=np.float32)
     chunk = num_sims if batch_size is None else min(int(batch_size), num_sims)
     gen = torch.Generator(device=trial_fn.device)
@@ -93,7 +96,9 @@ def monte_carlo_sweep(trial_fn: Callable, snr_db_vec: Sequence[float], num_sims:
         gen.manual_seed(int(seed))
         es = []
         for s in range(0, num_sims, chunk):
-            doa_true, doa_est = trial_fn(gen, float(snr_db), min(chunk, num_sims - s))
+            n = min(chunk, num_sims - s)
+            given = {} if draws is None else {"doa_true": draws[0][s:s + n], "noise": draws[1][s:s + n]}
+            doa_true, doa_est = trial_fn(gen, float(snr_db), n, **given)
             err = folded_angle_error(doa_est.to(torch.float64), doa_true.to(torch.float64))
             es.append(err.cpu().numpy())
         errs.append(np.concatenate(es))

@@ -1,1 +1,14 @@
 """Counterparts of haghighatshoarmuir2024_tpu/utils."""
+import numpy as np
+import torch
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (complex too) or array-like → a numpy array on the host
+    (JAX ``utils/__init__.py:17``)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+__all__ = ["to_numpy"]

@@ -280,13 +280,20 @@ def test_torch_roofline_harness_needs_cuda(call, monkeypatch):
         call()
 
 
+EXPERIMENTS = "haghighatshoarmuir2024_tpu_torch.experiments"
+HARNESSES = ["target_localization", "target_localization_music", "srp_phat_baseline", "target_snn_localization",
+             "array_resolution", "array_resolution_snn", "array_resolution_music", "multiple_targets",
+             "moving_target", "multi_target_tracking", "mismatch_robustness"]
+
+
 @pytest.mark.parametrize("entry", ["Demo", "Demo.load", "SNNBeamformer", "SNNBeamformer.from_config",
                                    "StreamState.from_numpy", "Beamformer", "Beamformer.from_config", "MUSIC",
                                    "MUSIC.from_config", "SRPPHAT", "localize", "track_angles",
                                    "track_multi_angles", "XyloSim", "XyloSim.from_config",
                                    "XyloSimPushToHidden", "DemoPushToHidden", "sim_hidden_batch",
                                    "make_trial_fn", "target_xylo_localization", "xylo_ordering_sensitivity",
-                                   "target_push_to_hidden"])
+                                   "target_push_to_hidden", "SNNBeamformer.apply_to_template",
+                                   "SNNBeamformer.apply_to_signal (batch)"] + HARNESSES)
 def test_torch_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Without ``device`` every entry point asks for the card, and without a
     card it raises instead of carrying on on the CPU."""
@@ -323,6 +330,15 @@ def test_torch_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "target_xylo_localization": lambda: target_xylo_localization.main(["--quick"]),
         "xylo_ordering_sensitivity": lambda: xylo_ordering_sensitivity.main(["--quick"]),
         "target_push_to_hidden": lambda: target_push_to_hidden.main(["--quick"]),
+        "SNNBeamformer.apply_to_template": lambda: snn.apply_to_template(np.zeros((14, 9)), (t, np.sin(t), 0.3), None),
+        "SNNBeamformer.apply_to_signal (batch)": lambda: snn.apply_to_signal(np.zeros((14, 9)), (t, np.zeros((2, 4, 7)))),
+        **{name: functools.partial(importlib.import_module(f"{EXPERIMENTS}.{name}").main, ["--quick"])
+           for name in HARNESSES},
     }
+    if entry.startswith("SNNBeamformer.apply"):  # made on the card while there is one, then called without it
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: True)
+            snn = SNNBeamformer(geo, 10e-3, [1600, 1900], [1e-4, 1e-4], fs=48_000)
+        t = np.arange(4) / 48_000
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
