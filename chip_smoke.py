@@ -129,7 +129,9 @@ Phases, each failing the run with a non-zero exit:
     by ``matched_stacked`` (answers = the direct step's); the set bits K3
     meets, its times against K5 on the combined raster, and each kernel's
     bound at F = 3 (``experiments/roofline.rzcc_work`` and
-    ``lif_bipolar_work``);
+    ``lif_bipolar_work``); then ``experiments/multiband_bench.run`` on this
+    model and these frames (K1, K2, the pack and K3 launched; doa-ok-frac
+    1.00 @5deg matched; 20 timed calls);
 20. the classical families at the flagship's width (7 mics, 48 kHz, 0.25 s
     frames, 1600-1900 Hz, 449 DoAs): the Hilbert beamformer designed on the
     card, plain and with interference removal (seconds printed); bench.py's
@@ -197,7 +199,41 @@ Phases, each failing the run with a non-zero exit:
     batch's matched DoAs equal to the CPU path's, and its counts through K1 ->
     K2 -> pack -> K3 from the card's ``cs`` equal to the plain path's); each
     harness's seconds and the per-sample scans' share of a batch, timed
-    inside it.
+    inside it;
+23. the harnesses that time and check the ported paths, and the reverberant
+    room (``haghighatshoarmuir2024_tpu_torch/experiments/``), at the JAX
+    harnesses' sizes, each run with the launch counts set to 0 just before
+    it and read just after (every kernel of its path must launch), every
+    accuracy within one step of the harness's grid of what the JAX
+    package's harness prints today on the CPU (its own draws):
+    ``flagship_attribution`` on the flagship model and bench.py's frames
+    (nested prefixes of ``forward_batch`` by CUDA events, three rounds of 50
+    calls; the stages measured alone sum to ``forward_batch(matched)``
+    within the readings' spread; DoAs = phase 5's, 1.00 @5deg);
+    ``serving_throughput`` main (96 streams, 100 steps; 1.00 @5deg; two
+    steps on its chunks = the plain step in spikes, counts, state and DoAs;
+    ``--sources=2`` printed) and ``daemon_main`` over TCP on the f32, i16,
+    u8 and u4 wires and u8/u4 at fs/4, over shared memory on i16 and u4 at
+    fs/4 (64 clients, 20 rounds; 1.00 @5deg; every answer = the direct step
+    on the decoded wire chunks), and ``--sources=2`` (two DoAs an answer,
+    its fraction printed); ``reduced_rate`` at 48, 24 and 12 kHz and
+    ``--band=hi`` at 48 and 24 kHz (25 trials at 0 and 10 dB, 113 points,
+    each designed on the card; matched and peak MAE gated; the B = 96
+    throughput); ``wire_accuracy`` (20 trials x 3 SNRs x 6 wires);
+    ``snn_localization_benchmark`` (200 samples of 0.4 s frames, T = 19
+    200, 449 points, peak; the run's statistics and the six sway
+    conditions gated; the saved run analysed by
+    ``analyse_array_localization``); ``reverb_robustness`` (20 trials x 5
+    reflection coefficients, 112 points; K1, the pack and K3 once a
+    batch); ``phase_analysis`` (within 1e-3 relative); ``design_time_probe``
+    (printed).  The kernel shapes no earlier phase checks are held against
+    a CPU twin of each harness's model, read back from the temporary
+    design cache: the same integers, the same DoAs from the same frames,
+    and the counts of the card's ``cs`` through K1 -> K2 -> pack -> K3 equal
+    to the plain path's, count by count: reduced_rate at 12 kHz (B = 25,
+    T = 3000, N = 113; dash printed), wire_accuracy (20, 12 000, 113), the
+    live benchmark (20, 19 200, 449) and reverb_robustness (20, 12 000,
+    112).
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -1602,10 +1638,11 @@ def check_24k(torch, sk, lk, _build, Demo, StreamingLocalizer, resample, flagshi
 
 # ------------------------------------------------------------------ phase 19
 STACKED_METHODS = ("matched", "peak", "matched_stacked", "matched_auto")
+MULTIBAND_REPS = 20  # multiband_bench's timed calls (JAX's harness: 100)
 
 
 def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, resample, mulaw, roofline, mb,
-                    dev, fs, peaks_per_s, serve: bool):
+                    multiband_bench, dev, fs, peaks_per_s, serve: bool):
     """The three-band model of experiments/multiband_bench.py at ``fs``:
     designed on the card (``use_cache=False``, timed), calibrated folded and
     band-stacked from the wideband template; ``forward_batch`` with the four
@@ -1614,7 +1651,8 @@ def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, res
     4032 and the pack pass and K3 at C = 42, N = 1347 bit-exact against their
     plain versions (all 96 rows, the plain LIF 32 rows at a time); one
     96-stream step (K4) bit-exact in spikes, counts and state; with
-    ``serve`` one daemon round by ``matched_stacked``."""
+    ``serve`` one daemon round by ``matched_stacked``; then
+    ``experiments/multiband_bench.run`` on this model and these frames."""
     cfg = mb.multiband_config(dev, fs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1709,6 +1747,13 @@ def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, res
     if serve:
         check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=1,
                       wires=(("f32", 1),), method="matched_stacked")
+    # experiments/multiband_bench.py on this model and these frames (its design and calibration are the above)
+    bench, bench_launches = counted(torch, _build, f"{tag} multiband_bench", XYLO_PATH,
+                                    lambda: multiband_bench.run(demo=demo, frames=(frames, doas), n_rep=MULTIBAND_REPS))
+    if bench["doa_ok_frac_matched_5deg"] < 1.0:
+        fail(f"{tag} multiband_bench: doa-ok-frac {bench['doa_ok_frac_matched_5deg']:.2f} @5deg (matched)")
+    print(f"{tag} multiband_bench.run on this model and these frames ({MULTIBAND_REPS} calls): {json.dumps(bench)}; "
+          f"launches {bench_launches}", flush=True)
 
     # what the chain meets at C = 42: steps by set bits, tiles of 32 and chunks of CHAIN_STAGE steps by the most
     # set bits a step of theirs has (at most 4: four slots a step; 5-6: six; more: the mask words)
@@ -1758,6 +1803,7 @@ def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, res
     work = {**roofline.rzcc_work(cs_tm, w, W), **roofline.lif_bipolar_work(kp, kn, N)}
     times["bounds"] = {k: dict(zip(("bound_ms", "bound_by", "ops", "bytes"), (*b, *work[k])))
                        for k, b in roofline.bounds(work, peaks_per_s).items()}
+    times.update(bench=bench, bench_launches=bench_launches)
     return times
 
 # ------------------------------------------------------------------ phase 20
@@ -2277,16 +2323,10 @@ def check_xylo(torch, _build, Demo, flagship, demo, frames, dev):
                 for k in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3"):
                     if out["mc_launches"][name].get(k, 0) < 1:
                         fail(f"MC batch ({name}) never launched {k} ({out['mc_launches'][name]})")
-            cs_mc = td.encode(seen["frames"])  # (T, 100, C)
-            card_counts = td.lif_counts(*td.rzcc(cs_mc))  # K1 -> K2 -> pack -> K3
-            host_counts = td_host.lif_counts(*td_host.rzcc(cs_mc.cpu()))  # the plain path
-            if card_counts.shape != host_counts.shape or not torch.equal(card_counts.cpu(), host_counts):
-                fail(f"MC batch: K3's counts {tuple(card_counts.shape)} differ from the plain path's on the same cs "
-                     f"({mismatches(card_counts, host_counts) if card_counts.shape == host_counts.shape else 'shape'}"
-                     f" entries)")
+            (B_mc, _, _, N_mc), n_mc = twin_counts(torch, "MC batch", td, td_host, seen["frames"])
             print(f"[xylo] one batch of {MC_TRIALS} trials at 0 dB: the card's DoAs == the CPU path's, both estimators; "
-                  f"counts (B, N) = {tuple(host_counts.shape)} from the card's cs == the plain path's, count by count "
-                  f"({int(host_counts.sum())} spikes); launches a batch {out['mc_launches']}", flush=True)
+                  f"counts (B, N) = {(B_mc, N_mc)} from the card's cs == the plain path's, count by count "
+                  f"({n_mc} spikes); launches a batch {out['mc_launches']}", flush=True)
         finally:
             if prev_cache is None:
                 del os.environ["HM2024_TORCH_CACHE"]
@@ -2689,24 +2729,12 @@ def check_harnesses(torch, _build, dev):
     # matched DoAs from the same frames, and K1 -> K2 -> pack -> K3 on the card's cs = the plain path's counts
     t0 = time.perf_counter()
     demo_mm, demo_mm_cpu = model[2], mm.build_demo(RES_GRID, device=cpu)
-    same_xylo_design(demo_mm, demo_mm_cpu, "mismatch_robustness")
-    if not torch.equal(demo_mm._profiles_t.cpu(), demo_mm_cpu._profiles_t):
-        fail("mismatch_robustness: the CPU twin's matched profiles differ from the card's")
-    matched = lambda d, f: d.estimate_doa_from_rate(d.fold(d.rates_batch(f)), "matched")  # noqa: E731
     n_spikes = 0
     for kind, values in (("gain", mm.GAIN_DB), ("pos", mm.POS_MM)):
         for v in values:
             frames_mm, _ = mm.trial_frames(kind, v, MISMATCH_TRIALS, device=dev)
-            if not torch.equal(matched(demo_mm, frames_mm).cpu(), matched(demo_mm_cpu, frames_mm.cpu())):
-                fail(f"mismatch_robustness {kind} {v}: the card's matched DoAs differ from the CPU path's")
-            cs = demo_mm.encode(frames_mm)
-            card_counts = demo_mm.lif_counts(*demo_mm.rzcc(cs)).cpu()
-            host_counts = demo_mm_cpu.lif_counts(*demo_mm_cpu.rzcc(cs.cpu()))
-            if card_counts.shape != host_counts.shape or not torch.equal(card_counts, host_counts):
-                fail(f"mismatch_robustness {kind} {v}: K3's counts from the card's cs differ from the plain path's "
-                     f"({mismatches(card_counts, host_counts) if card_counts.shape == host_counts.shape else 'shape'}"
-                     f" entries)")
-            n_spikes += int(host_counts.sum())
+            n_spikes += xylo_twin(torch, f"mismatch_robustness {kind} {v}", demo_mm, demo_mm_cpu, frames_mm,
+                                  "matched")[1]
     out["s"]["mismatch_cpu_check"] = time.perf_counter() - t0
     print(f"[harness] mismatch_robustness ({MISMATCH_TRIALS} trials, 112-point grid, 10 dB): gain "
           f"{mm_res['gain']}, position {mm_res['pos']} (JAX's harness {JAX_MISMATCH}; gate +- {GRID_STEP_112:.2f}); "
@@ -2719,6 +2747,333 @@ def check_harnesses(torch, _build, dev):
         del os.environ["HM2024_TORCH_CACHE"]
     else:
         os.environ["HM2024_TORCH_CACHE"] = user_cache
+    tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------------------ phase 23
+# Every accuracy gate of phase 23 is what the JAX package's own harness prints today at the same
+# configuration on the CPU (JAX_PLATFORMS=cpu HM2024_JAX_CACHE=0 python experiments/<name>.py ...), the
+# card within one step of the harness's grid of it, above or below:
+#   reduced_rate.py and reduced_rate.py --band=hi (25 trials at 0 and 10 dB, 113 points): MAE deg
+JAX_REDUCED = {
+    "lo": {48_000: ([0.7846017937054119, 0.9003846410192236], [11.266197866960187, 14.17211555853007]),
+           24_000: ([1.0058499517350494, 0.8712143535131799], [10.91668419466167, 14.257625711688652]),
+           12_000: ([2.0608100976570234, 1.5079619356534488], [23.714850634729892, 29.388171688824983])},
+    "hi": {48_000: ([0.8432843524321406, 0.8874300485893591], [6.020635106248151, 7.206122877840017]),
+           24_000: ([0.9415460274197228, 0.7566719167158769], [7.602486866533044, 7.622280069290753])},
+}
+#   wire_accuracy.py (20 trials at -10, 2, 20 dB, 113 points): MAE deg by wire
+JAX_WIRE = {"f32": [1.19, 1.079, 1.017], "i16": [1.19, 1.079, 1.017], "u8": [1.341, 1.079, 1.017],
+            "u4": [1.313, 1.079, 1.017], "u8@12k": [1.029, 1.079, 1.05], "u4@12k": [1.19, 1.079, 1.06]}
+#   reverb_robustness.py (20 trials, 10 dB, 112 points): MAE deg at reflections 0, 0.3, 0.5, 0.7, 0.9
+JAX_REVERB = {"hilbert_mae_deg": [0.78, 3.44, 4.57, 7.0, 10.73],
+              "xylo_matched_mae_deg": [0.78, 3.21, 5.16, 7.38, 12.97]}
+#   snn_localization_benchmark.py [--sweep] (200 samples, 449 points): deg
+JAX_BENCH = {"doa_mae_postprocessed": 0.0, "median": 126.9643, "robust_std": 0.0, "std": 0.0}
+JAX_BENCH_SWEEP = [(0.0, 0.0, 0.6512), (0.0, 0.0, 1.0623), (0.0, 0.0, 1.3696), (0.0, 0.0, 1.5104), (0.0, 0.0, 0.7032),
+                   (0.5281, 0.0, 1.5735)]  # (mae, robust std, raw std) a condition
+#   phase_analysis.py: no grid; the card within 1e-3 relative (its float32 scan of the high-Q bandpass rounds
+#   apart from XLA's by 6e-4 relative: tests/test_torch_bench_harnesses.py)
+JAX_PHASE = {"overlapping_exponentials": {"f_inst_mean": 1699.99658203125, "f_inst_in_band_frac": 0.8999900783807917},
+             "random_wideband_phase": {"f_inst_median": 1746.663330078125, "f_inst_iqr": 176.25146484375},
+             "chirp_phase": {"freq_track_mae_hz": 7.96387235719594, "freq_track_p95_hz": 8.880402326007744}}
+PHASE_RTOL = 1e-3
+#   serving_throughput.py --sources=2 and --daemon --sources=2: printed, ungated (JAX gates neither)
+JAX_TWO_SOURCES = {"nearest-source-frac@5deg": 0.03125, "both-sources-frac@10deg": 0.0}
+GRID_STEP_113, GRID_STEP_449 = 360.0 / 112, 360.0 / 448
+SERVE_WIRES = (("f32", 1), ("i16", 1), ("u8", 1), ("u4", 1), ("u8", 4), ("u4", 4))
+XYLO_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3")
+STREAM_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4")
+
+
+def counted(torch, _build, label, expect, fn, seconds=None):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after; each kernel of ``expect`` must have launched.  ``seconds``, where
+    given, receives the call's host seconds under ``label``."""
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    if seconds is not None:
+        seconds[label] = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    missing = [k for k in expect if launches.get(k, 0) < 1]
+    if missing:
+        fail(f"{label}: {missing} never launched (launch counts {launches})")
+    return out, launches
+
+
+def xylo_twin(torch, label, card, host, frames, method):
+    """The CPU twin ``host`` of the card's model ``card`` (the card's design
+    and table, read back from the design cache): the same integers, the
+    same DoAs from the same frames, and the counts of the card's ``cs``
+    through K1 -> K2 -> pack -> K3 equal to the plain path's, count by
+    count.  Returns the shape (B, T, C, N) and the spikes counted."""
+    same_xylo_design(card, host, label)
+    if method == "matched" and not np.array_equal(card._profiles, host._profiles):
+        fail(f"{label}: the CPU twin's matched profiles differ from the card's")
+    d_card = card.forward_batch(frames, method=method)[0].cpu()
+    d_host = host.forward_batch(frames.cpu(), method=method)[0]
+    if not torch.equal(d_card, d_host):
+        fail(f"{label}: the card's {method} DoAs differ from the CPU path's on frames "
+             f"{torch.nonzero(d_card != d_host).flatten().tolist()}")
+    return twin_counts(torch, label, card, host, frames)
+
+
+def twin_counts(torch, label, card, host, frames):
+    """The counts of the card's ``cs`` of ``frames`` through K1 -> K2 ->
+    pack -> K3 against the CPU twin's plain path, count by count.  Returns
+    the shape (B, T, C, N) and the spikes counted."""
+    cs = card.encode(frames)
+    card_counts = card.lif_counts(*card.rzcc(cs)).cpu()
+    host_counts = host.lif_counts(*host.rzcc(cs.cpu()))
+    if card_counts.shape != host_counts.shape or not torch.equal(card_counts, host_counts):
+        fail(f"{label}: K3's counts from the card's cs differ from the plain path's "
+             f"({mismatches(card_counts, host_counts) if card_counts.shape == host_counts.shape else 'shape'} entries)")
+    T, B, C = cs.shape
+    return (B, T, C, host_counts.shape[1]), int(host_counts.sum())
+
+
+def check_bench_harnesses(torch, _build, sk, lk, StreamingLocalizer, dev, demo, frames, doas,
+                          slice_doa):
+    """Phase 23: the harnesses that time and check the ported paths, and the
+    reverberant room, at the JAX harnesses' sizes (module docstring)."""
+    import tempfile
+
+    from haghighatshoarmuir2024_tpu_torch.experiments import analyse_array_localization as aal
+    from haghighatshoarmuir2024_tpu_torch.experiments import design_time_probe as dtp
+    from haghighatshoarmuir2024_tpu_torch.experiments import flagship_attribution as fa
+    from haghighatshoarmuir2024_tpu_torch.experiments import mismatch_robustness as mm
+    from haghighatshoarmuir2024_tpu_torch.experiments import phase_analysis as pa
+    from haghighatshoarmuir2024_tpu_torch.experiments import reduced_rate as rr
+    from haghighatshoarmuir2024_tpu_torch.experiments import reverb_robustness as rv
+    from haghighatshoarmuir2024_tpu_torch.experiments import serving_throughput as st
+    from haghighatshoarmuir2024_tpu_torch.experiments import snn_localization_benchmark as sb
+    from haghighatshoarmuir2024_tpu_torch.experiments import wire_accuracy as wa
+    from haghighatshoarmuir2024_tpu_torch.experiments.common import calibrated_demo
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import FRAME
+
+    cpu = torch.device("cpu")
+    out = {"s": {}, "launches": {}, "shapes": {}}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    saved_env = {k: os.environ.get(k) for k in ("HM2024_TORCH_CACHE", "HM2024_BENCH_DIR")}
+    os.environ["HM2024_TORCH_CACHE"] = tmp.name  # the designs the harnesses make stay in the temp dir
+    os.environ["HM2024_BENCH_DIR"] = os.path.join(tmp.name, "bench")
+    B = frames.shape[0]
+    tag = "[bench]"
+
+    # ---- flagship_attribution on the flagship model and bench.py's frames
+    res, out["launches"]["flagship_attribution"] = counted(
+        torch, _build, "flagship_attribution", XYLO_PATH, lambda: fa.run(demo=demo, frames=(frames, doas)), out["s"])
+    if res["doa"] != slice_doa.cpu().tolist():
+        fail("flagship_attribution: its forward_batch(matched) DoAs differ from phase 5's (= the plain path's)")
+    if res["doa_ok_frac_matched_5deg"] < 1.0:
+        fail(f"flagship_attribution: doa-ok-frac {res['doa_ok_frac_matched_5deg']:.2f} @5deg (matched)")
+    # the stages measured alone add up to the batch: the isolated RZCC and LIF against their in-program share,
+    # within the spread of the readings that enter the sum
+    spread = sum(res["spread_ms"][k] for k in ("encode", "[isolated] RZCC", "[isolated] LIF", "encode+RZCC+LIF",
+                                                "forward_batch (peak)", "forward_batch (matched)"))
+    gap = res["stage_sum_isolated_ms"] - res["stages_ms"]["TOTAL (matched)"]
+    if abs(gap) > spread:
+        fail(f"flagship_attribution: the stages measured alone sum to {res['stage_sum_isolated_ms']:.3f} ms against "
+             f"forward_batch(matched)'s {res['stages_ms']['TOTAL (matched)']:.3f} ms, {gap:+.3f} ms, beyond the "
+             f"readings' spread {spread:.3f} ms")
+    out["attribution"] = res
+    fa.print_stages(res)
+    print(f"{tag} flagship_attribution (B = {B}, {res['reps']} calls x {res['rounds']} rounds, CUDA events): "
+          f"{json.dumps({k: v for k, v in res.items() if k != 'doa'})}; the isolated stages sum to "
+          f"{res['stage_sum_isolated_ms']:.3f} ms ({gap:+.3f} ms, spread {spread:.3f}); DoAs == phase 5's (the plain "
+          f"path's), 1.00 @5deg; launches {out['launches']['flagship_attribution']}", flush=True)
+
+    # ---- serving_throughput: the batched step (its first two steps = the plain step), then the daemon
+    band = (1600, 1900)
+    res, out["launches"]["serving_main"] = counted(torch, _build, "serving_throughput main", STREAM_PATH,
+                                                   lambda: st.main(demo=demo), out["s"])
+    if res["doa-ok-frac@5deg"] < 1.0:
+        fail(f"serving_throughput main: doa-ok-frac {res['doa-ok-frac@5deg']} @5deg")
+    chunks, s_doas, _ = st.stream_chunks(demo, B, FRAME, band)
+    sl = StreamingLocalizer(demo)
+    state, pstate = sl.init_state(B), sl.init_state(B)
+    for k in range(2):
+        state, sp = sl.process_chunk(state, chunks)
+        pstate, psp = plain_step(torch, sk, lk, sl, pstate, chunks)
+        bad = mismatches(sp, psp) + sum(mismatches(getattr(state, f), getattr(pstate, f))
+                                        for f in ("counts", "isyn", "vmem", "spk"))
+        if bad:
+            fail(f"serving_throughput: step {k} on the harness's chunks: {bad} elements differ from the plain step")
+    if not torch.equal(sl.estimate_doa(state, "matched"), sl.estimate_doa(pstate, "matched")):
+        fail("serving_throughput: the batched step's DoAs differ from the plain path's")
+    out["serving"] = {"main": res}
+    res2 = st.main(demo=demo, sources=2)
+    out["serving"]["main sources=2"] = res2
+    print(f"{tag} serving_throughput main: {json.dumps(res)}; two steps on its chunks == the plain step (spikes, "
+          f"counts, state, DoAs); launches {out['launches']['serving_main']}; --sources=2: {json.dumps(res2)} "
+          f"(JAX's harness on the CPU: {JAX_TWO_SOURCES['nearest-source-frac@5deg']}, printed, ungated)", flush=True)
+    os.environ["HM2024_SERVE_TIMING"] = "1"
+    daemon_runs = [(False, w, u, 1) for w, u in SERVE_WIRES] + [(True, "i16", 1, 1), (True, "u4", 4, 1),
+                                                                  (False, "i16", 1, 2)]
+    for shm, wire, up, src in daemon_runs:
+        label = (f"serving_throughput {'--shm' if shm else '--daemon'} --wire={wire}"
+                 + (" --decim=4" if up == 4 else "") + (" --sources=2" if src == 2 else ""))
+        answers = {}
+        res, launches = counted(torch, _build, label, STREAM_PATH, lambda: st.daemon_main(
+            use_shm=shm, wire=wire, wire_upsample=up, sources=src, demo=demo, answers=answers), out["s"])
+        nb = res["streams"]
+        if src == 2:
+            if sorted(answers) != list(range(nb)) or any(np.asarray(a).shape != (2,) for a in answers.values()):
+                fail(f"{label}: not every stream answered with two DoAs")
+        else:
+            if res["doa-ok-frac@5deg"] < 1.0:
+                fail(f"{label}: doa-ok-frac {res['doa-ok-frac@5deg']} @5deg")
+            chunks_d, _, _ = st.stream_chunks(demo, nb, FRAME, band)
+            want = st.direct_answers(demo, st.wire_chunks(chunks_d, wire, up), 20 + 1, wire, up)
+            got = np.float32([answers[i] for i in range(nb)])
+            if not np.array_equal(got, want):
+                fail(f"{label}: streams {np.flatnonzero(got != want).tolist()} answered otherwise than the direct "
+                     "step on the decoded wire chunks")
+        out["serving"][label] = res
+        out["launches"][label] = launches
+        print(f"{tag} {label}: {json.dumps(res)}" + ("" if src == 2 else "; every answer == the direct step on the "
+              "decoded wire chunks") + (f" (JAX's harness on the CPU: {JAX_TWO_SOURCES['both-sources-frac@10deg']}, "
+                                        "printed, ungated)" if src == 2 else "") + f"; launches {launches}", flush=True)
+
+    # ---- reduced_rate at 48, 24 and 12 kHz (and --band=hi at 48 and 24); the 12 kHz shapes against the CPU twin
+    for bname, band_r in (("lo", (1600, 1900)), ("hi", (2300, 2600))):
+        demos, out["s"][f"reduced_rate {bname} designs"] = synced(
+            torch, dev, lambda: {fs: calibrated_demo(113, fs=fs, freq_band=band_r, device=dev)
+                                 for fs in JAX_REDUCED[bname]})
+        res, launches = counted(torch, _build, f"reduced_rate {bname}", XYLO_PATH,
+                                lambda: rr.run(band_r, 25, 113, dev, demos=demos), out["s"])
+        out["launches"][f"reduced_rate {bname}"] = launches
+        for row in res["rows"]:
+            want_m, want_p = JAX_REDUCED[bname][row["fs"]]
+            if not (within_step(row["matched_mae_deg"], want_m, GRID_STEP_113)
+                    and within_step(row["peak_mae_deg"], want_p, GRID_STEP_113)):
+                fail(f"reduced_rate {bname} {row['fs']}: matched {row['matched_mae_deg']}, peak {row['peak_mae_deg']} "
+                     f"deg; JAX's harness {want_m}, {want_p} (gate: one grid step, {GRID_STEP_113:.2f})")
+        out[f"reduced_rate {bname}"] = res
+        print(f"{tag} reduced_rate {bname} {list(band_r)} Hz (25 trials at 0 / 10 dB, grid 113; JAX's harness in "
+              "brackets): " + "; ".join(
+                  f"{r['fs'] // 1000} kHz matched {np.round(r['matched_mae_deg'], 3).tolist()} "
+                  f"[{np.round(JAX_REDUCED[bname][r['fs']][0], 3).tolist()}], peak "
+                  f"{np.round(r['peak_mae_deg'], 3).tolist()} "
+                  f"[{np.round(JAX_REDUCED[bname][r['fs']][1], 3).tolist()}], B = 96 forward_batch(matched) "
+                  f"{r['forward_ms_b96']:.3f} ms = {r['audio_sec_per_sec']:.0f} audio-sec/sec, tau "
+                  f"{r['tau_samples']:.2f} samples" for r in res["rows"]) + f"; launches {launches}", flush=True)
+        if bname == "lo":
+            d12 = demos[12_000]
+            twin = calibrated_demo(113, fs=12_000, freq_band=band_r, device=cpu)
+            frames12, _ = rr.trial_batch(d12, np.random.default_rng(0), 25, 0.0, band_r)
+            (shape, n_sp), sec = synced(torch, dev, lambda: xylo_twin(torch, "reduced_rate 12 kHz", d12, twin, frames12,
+                                                                      "matched"))
+            dash = sorted(set(np.asarray(d12.xylo_config.dash_syn).ravel().tolist()))
+            out["shapes"]["reduced_rate 12 kHz"] = shape
+            print(f"{tag} reduced_rate 12 kHz on the CPU twin (the card's design and table, {sec:.1f} s): dash_syn "
+                  f"{dash}; the matched DoAs of the 25 frames at 0 dB == the CPU path's; K1/K2 at (T, R) = "
+                  f"({shape[1]}, {shape[0] * shape[2]}) and K3 at (B, T, C, N) = {shape} == the plain path's, count by "
+                  f"count ({n_sp} spikes)", flush=True)
+
+    # ---- wire_accuracy (the round trip through each wire, one forward_batch a wire and SNR)
+    demo_w = calibrated_demo(113, device=dev)
+    res, launches = counted(torch, _build, "wire_accuracy", XYLO_PATH, lambda: wa.run(demo=demo_w), out["s"])
+    out["launches"]["wire_accuracy"] = launches
+    for w, want in JAX_WIRE.items():
+        got = [res[w][s] for s in (-10.0, 2.0, 20.0)]
+        if not within_step(got, want, GRID_STEP_113):
+            fail(f"wire_accuracy {w}: MAE {got} deg, JAX's harness {want} (gate: one grid step, {GRID_STEP_113:.2f})")
+    out["wire"] = res
+    frames_w, _ = wa.trial_frames(demo_w, np.random.default_rng(0), 20, -10.0)
+    (shape, n_sp), sec = synced(torch, dev, lambda: xylo_twin(torch, "wire_accuracy", demo_w,
+                                                              calibrated_demo(113, device=cpu),
+                                                              torch.as_tensor(frames_w, device=dev), "matched"))
+    out["shapes"]["wire_accuracy"] = shape
+    print(f"{tag} wire_accuracy (20 trials, grid 113; MAE deg at -10 / 2 / 20 dB, JAX's harness in brackets): "
+          + "; ".join(f"{w} {[res[w][s] for s in (-10.0, 2.0, 20.0)]} [{JAX_WIRE[w]}]" for w in JAX_WIRE)
+          + f"; launches {launches}; the CPU twin ({sec:.1f} s): DoAs == the CPU path's, K3 at (B, T, C, N) = {shape} "
+          f"== the plain path's ({n_sp} spikes)", flush=True)
+
+    # ---- the live-style benchmark: a run of 200 samples, saved and analysed, and the sweep
+    demo_b = sb.make_demo(device=dev)
+    res, launches = counted(torch, _build, "snn_localization_benchmark", XYLO_PATH, lambda: sb.run(200, demo=demo_b),
+                            out["s"])
+    out["launches"]["snn_localization_benchmark"] = launches
+    col = res["collected"]
+    if not within_step([col[k] for k in JAX_BENCH], list(JAX_BENCH.values()), GRID_STEP_449):
+        fail(f"snn_localization_benchmark: {[col[k] for k in JAX_BENCH]} for {list(JAX_BENCH)}, JAX's harness "
+             f"{list(JAX_BENCH.values())} (gate: one grid step, {GRID_STEP_449:.3f})")
+    sweep, out["s"]["benchmark sweep"] = synced(torch, dev, lambda: sb.sweep(200, demo=demo_b))
+    got = [(r["mae_deg"], r["robust_std_deg"], r["raw_std_deg"]) for r in sweep["conditions"]]
+    if not within_step(got, JAX_BENCH_SWEEP, GRID_STEP_449):
+        fail(f"snn_localization_benchmark sweep: (mae, robust std, raw std) {got}, JAX's harness {JAX_BENCH_SWEEP} "
+             f"(gate: one grid step, {GRID_STEP_449:.3f})")
+    analysed = aal.analyse([os.environ["HM2024_BENCH_DIR"]])["bench"]
+    if len(analysed) != 1 or next(iter(analysed.values()))["run_median"] != round(col["median"], 4):
+        fail(f"analyse_array_localization: {analysed} does not analyse the run the benchmark saved")
+    out["benchmark"] = {"run": res, "sweep": sweep, "analysed": analysed}
+    demo_b_cpu = sb.make_demo(device=cpu)
+    sig = sb.clean_frame(demo_b, (1600, 2000), 2.2439)  # the run's frames: the chirp at 10 dB
+    sigma = float(torch.sqrt(torch.mean(sig**2) / 10.0))
+    frames_b = sig + sigma * torch.randn((20, *sig.shape), generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    (shape, n_sp), sec = synced(torch, dev, lambda: xylo_twin(torch, "snn_localization_benchmark", demo_b, demo_b_cpu,
+                                                              frames_b, "peak"))
+    out["shapes"]["snn_localization_benchmark"] = shape
+    print(f"{tag} snn_localization_benchmark (200 samples, 0.4 s frames, grid 449, peak): {json.dumps(col)} (JAX's "
+          f"harness {JAX_BENCH}); sweep (mae, robust std, raw std) {got} (JAX's {JAX_BENCH_SWEEP}; gate +- "
+          f"{GRID_STEP_449:.3f}) in {out['s']['benchmark sweep']:.2f} s; analyse_array_localization of the saved run: "
+          f"{json.dumps(analysed)}; launches {launches}; the CPU twin ({sec:.1f} s): peak DoAs == the CPU path's, "
+          f"K3 at "
+          f"(B, T, C, N) = {shape} == the plain path's ({n_sp} spikes)", flush=True)
+
+    # ---- reverb_robustness: one Hilbert scan and one rates_batch a coefficient
+    model = mm.build(16 * 7, device=dev)
+    res, launches = counted(torch, _build, "reverb_robustness", XYLO_PATH, lambda: rv.run(20, 16 * 7, model=model),
+                            out["s"])
+    out["launches"]["reverb_robustness"] = launches
+    n_coef = len(rv.REFLECTIONS)
+    for name in ("rzcc_k1", "lif_pack", "lif_k3"):
+        if launches.get(name, 0) != n_coef:
+            fail(f"reverb_robustness: {name} launched {launches.get(name, 0)} times for {n_coef} batches")
+    for key, want in JAX_REVERB.items():
+        if not within_step(res[key], want, GRID_STEP_112):
+            fail(f"reverb_robustness {key}: {res[key]} deg, JAX's harness {want} (gate: one grid step, "
+                 f"{GRID_STEP_112:.2f})")
+    out["reverb"] = res
+    t = np.arange(0, 0.25, 1 / 48_000)
+    f32 = dict(dtype=torch.float32, device=dev)
+    tables = rv.path_tables(rv.sample_positions(np.random.default_rng(SEED), 20), 0.7)
+    frames_r = rv.trial_frames(model[2].geometry, torch.as_tensor(t, **f32),
+                               torch.as_tensor(np.sin(2 * np.pi * 1750.0 * t), **f32), tables,
+                               torch.randn((20, len(t), 7), generator=torch.Generator(dev).manual_seed(SEED), **f32))
+    (shape, n_sp), sec = synced(torch, dev, lambda: xylo_twin(torch, "reverb_robustness", model[2],
+                                                              mm.build_demo(16 * 7, device=cpu), frames_r, "matched"))
+    out["shapes"]["reverb_robustness"] = shape
+    print(f"{tag} reverb_robustness (20 trials, 10 dB, grid 112; MAE deg at reflections {rv.REFLECTIONS}): Hilbert "
+          f"{res['hilbert_mae_deg']} [JAX {JAX_REVERB['hilbert_mae_deg']}], Xylo matched {res['xylo_matched_mae_deg']} "
+          f"[JAX {JAX_REVERB['xylo_matched_mae_deg']}]; launches {launches} for {n_coef} batches; the CPU twin at "
+          f"reflection 0.7 ({sec:.1f} s): DoAs == the CPU path's, K3 at (B, T, C, N) = {shape} == the plain path's "
+          f"({n_sp} spikes)", flush=True)
+
+    # ---- phase_analysis and design_time_probe
+    res, out["s"]["phase_analysis"] = synced(torch, dev, lambda: pa.run(dev))
+    for group, rows in JAX_PHASE.items():
+        for k, want in rows.items():
+            if not abs(res[group][k] - want) <= PHASE_RTOL * abs(want):
+                fail(f"phase_analysis {group} {k}: {res[group][k]}, JAX's harness {want} (gate {PHASE_RTOL} relative)")
+    out["phase"] = res
+    probe = dtp.run(device=dev)
+    out["design_probe"] = probe
+    print(f"{tag} phase_analysis: {json.dumps(res)} (JAX's harness within {PHASE_RTOL} relative); design_time_probe: "
+          f"{json.dumps(probe)}", flush=True)
+
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     tmp.cleanup()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -2784,7 +3139,7 @@ def main() -> int:
     from haghighatshoarmuir2024_tpu_torch.models.xylo import multiband as mb
     from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import FRAME, GRID, flagship_config, flagship_frames
     from haghighatshoarmuir2024_tpu_torch.ops import peaks
-    from haghighatshoarmuir2024_tpu_torch.experiments import roofline
+    from haghighatshoarmuir2024_tpu_torch.experiments import multiband_bench, roofline
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel as lk
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import roofline_kernel as rk
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import suppress_kernel as sk
@@ -2885,7 +3240,7 @@ def main() -> int:
     three = {}
     for fs in (48_000, 24_000):
         three[fs] = check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, resample, mulaw,
-                                    roofline, mb, dev, fs, rf["ceil"]["peaks"], serve=fs == 48_000)
+                                    roofline, mb, multiband_bench, dev, fs, rf["ceil"]["peaks"], serve=fs == 48_000)
         lap(start, f"three bands at {fs // 1000} kHz")
 
     # stage and end-to-end times
@@ -2908,6 +3263,9 @@ def main() -> int:
     # ---- phase 22: the accuracy, beam-pattern, multi-target and robustness harnesses
     hx = check_harnesses(torch, _build, dev)
     lap(start, "the accuracy, beam-pattern, multi-target and robustness harnesses")
+    # ---- phase 23: the harnesses that time and check the ported paths, and the reverberant room
+    bx = check_bench_harnesses(torch, _build, sk, lk, StreamingLocalizer, dev, demo, frames, doas, doa)
+    lap(start, "the harnesses that time and check the ported paths")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -3040,7 +3398,10 @@ def main() -> int:
                                   "frame_matched": xy["frame_launches"].get(key, 0)}
         # phase 22's paths: moving_target's frames (Demo.forward) and mismatch_robustness's batches
         extra["harness_launches"] = {"moving_target": hx["moving_launches"].get(key, 0),
-                                     "mismatch_robustness": hx["mismatch_launches"].get(key, 0)}
+                                     "mismatch_robustness": hx["mismatch_launches"].get(key, 0),
+                                     **{name: n.get(key, 0) for name, n in bx["launches"].items()},
+                                     **{f"multiband_bench {fs // 1000} kHz": three[fs]["bench_launches"].get(key, 0)
+                                        for fs in three}}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "launches": path[key], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
@@ -3075,6 +3436,24 @@ def main() -> int:
               f"= {100 * scan_s / batch_s:.1f} % of the batch's {1e3 * batch_s:.1f} ms (host clock, synchronized)")
     print(f"{tag} harness seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in hx["s"].items())
           + f"; phase 22 {hx['phase_s']:.1f} s")
+    a = bx["attribution"]
+    print(f"{tag} flagship attribution (B = {B}, CUDA events, median of {a['rounds']} rounds of {a['reps']} calls): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in a["stages_ms"].items())
+          + f"; isolated RZCC {a['isolated_ms']['RZCC']:.3f} ms, LIF {a['isolated_ms']['LIF']:.3f} ms; K2 flag reads "
+          f"{a['k2_flag_reads']}; spreads {json.dumps(a['spread_ms'])}")
+    for label, r in bx["serving"].items():
+        print(f"{tag} {label}: {json.dumps(r)}")
+    for fs, r in three.items():
+        print(f"{tag} multiband_bench at {fs // 1000} kHz: {r['bench']['ms_per_batch']} ms per batch, "
+              f"{r['bench']['throughput_audio_sec_per_sec']} audio-sec/sec")
+    for bname in ("lo", "hi"):
+        for r in bx[f"reduced_rate {bname}"]["rows"]:
+            print(f"{tag} reduced_rate {bname} at {r['fs'] // 1000} kHz: B = 96 forward_batch(matched) "
+                  f"{r['forward_ms_b96']:.3f} ms = {r['audio_sec_per_sec']:.1f} audio-sec/sec")
+    print(f"{tag} live benchmark: {bx['benchmark']['run']['collected']['audio_sec_per_sec']:.1f} audio-sec/sec over "
+          f"200 frames of 0.4 s (B = 20 a batch); design_time_probe {json.dumps(bx['design_probe'])}")
+    print(f"{tag} phase 23 seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in bx["s"].items())
+          + f"; phase 23 {bx['phase_s']:.1f} s")
     lap(start, "the times")
     print(f"[clock] the whole script: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

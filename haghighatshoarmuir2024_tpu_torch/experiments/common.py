@@ -11,6 +11,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..geometry import CenterCircularArray
+from ..models.xylo import Demo
 from ..models.xylo.multiband import jittered_sinusoid_template  # noqa: F401  (a template of the harnesses)
 
 FS = 48_000
@@ -154,6 +156,24 @@ def mc_sweep(profile, grid, geometry, t, sig, num_sims: int, seed: int = 0, devi
                           delay_sign=delay_sign, device=dev)
     snrs = snr_sweep_config() if snr_db_vec is None else snr_db_vec
     return monte_carlo_sweep(trial, snrs, num_sims, seed, draws=draws)
+
+
+def calibrated_demo(num_grid: int, duration: float = 0.25, fs: int = FS, freq_band=(1600, 1900),
+                    device=None) -> Demo:
+    """The flagship's Xylo model (bench.py's array, a 10 ms STHT kernel,
+    bipolar spikes) on a ``num_grid``-point grid at ``fs``, frames of
+    ``duration`` s in ``freq_band``, its matched profiles calibrated."""
+    demo = Demo(geometry=CenterCircularArray(radius=4.5e-2, num_mic=7), freq_bands=[list(freq_band)],
+                doa_list=np.linspace(-np.pi, np.pi, num_grid), recording_duration=duration, kernel_duration=10e-3,
+                bipolar_spikes=True, fs=fs, device=device)
+    demo.calibrate_profiles()
+    return demo
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for the card, where ``dev`` is one, before a host clock is read."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def folded_deg(est, true) -> np.ndarray:

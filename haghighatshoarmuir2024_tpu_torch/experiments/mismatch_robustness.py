@@ -28,7 +28,7 @@ from ..models.beamformer import Beamformer
 from ..models.xylo import Demo
 from ..ops.interp import signal_from_template
 from ..parallel import folded_angle_error
-from .common import FS, arg_parser
+from .common import FS, arg_parser, calibrated_demo
 
 SNR_DB = 10.0
 GAIN_DB = [0.0, 1.0, 2.0, 4.0]  # per-mic gain spread (std, dB)
@@ -86,11 +86,7 @@ def build(num_grid: int = 16 * 7, duration: float = 0.25, device=None):
 
 def build_demo(num_grid: int = 16 * 7, duration: float = 0.25, device=None) -> Demo:
     """The Xylo model on the nominal array, its matched profiles calibrated."""
-    demo = Demo(geometry=CenterCircularArray(radius=4.5e-2, num_mic=7), freq_bands=[list(FREQ_RANGE)],
-                doa_list=np.linspace(-np.pi, np.pi, num_grid), recording_duration=duration, kernel_duration=10e-3,
-                bipolar_spikes=True, fs=FS, device=device)
-    demo.calibrate_profiles()
-    return demo
+    return calibrated_demo(num_grid, duration, freq_band=FREQ_RANGE, device=device)
 
 
 def estimators(bf, bf_mat, demo) -> dict:

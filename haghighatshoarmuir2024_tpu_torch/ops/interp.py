@@ -1,6 +1,9 @@
 """Fractional-delay interpolation — the plane-wave simulation model
-(counterpart of ``haghighatshoarmuir2024_tpu/ops/interp.py:18-153``;
-micloc/xylo_snn_localization.py:44-71).
+(counterpart of ``haghighatshoarmuir2024_tpu/ops/interp.py``;
+micloc/xylo_snn_localization.py:44-71), and the reverberant room beyond
+it: a source over several plane-wave paths
+(:func:`signal_from_template_multipath`) whose path table the image-source
+model of a rectangular room gives (:func:`room_image_paths`).
 """
 from __future__ import annotations
 
@@ -99,3 +102,66 @@ def received_signal(geometry, time_temp: torch.Tensor, sig_temp: torch.Tensor, d
     sigma = torch.sqrt(torch.mean(sig**2)) / np.sqrt(10.0 ** (float(snr_db) / 10.0))
     noise = torch.randn(sig.shape, generator=generator, dtype=sig.dtype, device=sig.device)
     return sig + sigma * noise
+
+
+def signal_from_template_multipath(geometry, time_temp: torch.Tensor, sig_temp: torch.Tensor, doas, extra_delays,
+                                   gains, fs: Optional[float] = None) -> torch.Tensor:
+    """The array signal of a source over several plane-wave paths (JAX
+    ``interp.py:156-192``; beyond the reference, whose model is one plane
+    wave a source): path p arrives from ``doas[p]``, ``extra_delays[p]``
+    seconds after the direct path, scaled by ``gains[p]``, and the received
+    signal is ``sum_p gains[p] · sig(t + mic_delay(doas[p]) − extra_delays[p])``
+    with non-normalized delays, as :func:`signal_from_template`.
+
+    ``doas``, ``extra_delays`` and ``gains`` are (P,) for one source, giving
+    (T, M), or (B, P) for a batch of trials, giving (B, T, M); computed in
+    ``time_temp``'s dtype on its device.  :func:`room_image_paths` makes the
+    path table of a rectangular room."""
+    if fs is None:
+        fs = 1.0 / float(time_temp[1] - time_temp[0])
+    opts = dict(dtype=time_temp.dtype, device=time_temp.device)
+    doas = torch.as_tensor(doas, **opts)
+    extra = torch.as_tensor(extra_delays, **opts)
+    gains = torch.as_tensor(gains, **opts)
+    single = doas.dim() <= 1
+    doas, extra, gains = (x.reshape(1, -1) if single else x for x in (doas, extra, gains))
+    delays = geometry.delays(doas)  # (B, P, M)
+    tq = time_temp[None, None, :, None] + delays[:, :, None, :] - extra[:, :, None, None]  # (B, P, T, M)
+    copies = interp_uniform(tq, sig_temp, float(time_temp[0]), 1.0 / fs)
+    out = torch.einsum("bp,bptm->btm", gains.to(copies.dtype), copies)
+    return out[0] if single else out
+
+
+def room_image_paths(source_xy, array_xy, room_wh, reflection: float = 0.7, order: int = 1, speed: float = 340.0):
+    """The path table of a 2-D rectangular room by the image-source method,
+    to order 1 or 2 (host numpy; the port's copy of JAX ``interp.py:195-251``):
+    the source's images across each wall and wall pair arrive as plane waves
+    from the image's direction with gain ``reflection**bounces · d_direct /
+    d_image`` and extra delay ``(d_image − d_direct) / speed``.  Walls at
+    x = 0, W and y = 0, H for ``room_wh = (W, H)``.
+
+    Returns ``(doas, extra_delays, gains)``, (P,) float64 each, the direct
+    path first (P = 5 at order 1, 13 at order 2)."""
+    sx, sy = float(source_xy[0]), float(source_xy[1])
+    ax, ay = float(array_xy[0]), float(array_xy[1])
+    W, H = float(room_wh[0]), float(room_wh[1])
+    if not (0 < sx < W and 0 < sy < H and 0 < ax < W and 0 < ay < H):
+        raise ValueError("source and array must lie inside the room")
+    # per axis: the source, its images across the walls at 0 and W (one
+    # bounce), and at order 2 their images again (two bounces); a 2-D image
+    # pairs an x image with a y image, its bounces summed
+    xs = [(sx, 0), (-sx, 1), (2 * W - sx, 1)]
+    ys = [(sy, 0), (-sy, 1), (2 * H - sy, 1)]
+    if order >= 2:
+        xs += [(2 * W + sx, 2), (-2 * W + sx, 2)]
+        ys += [(2 * H + sy, 2), (-2 * H + sy, 2)]
+    paths = []
+    for ix, bx in xs:
+        for iy, by in ys:
+            b = bx + by
+            if (b == 0 and not (ix == sx and iy == sy)) or b > order:
+                continue
+            paths.append((np.arctan2(iy - ay, ix - ax), np.hypot(ix - ax, iy - ay), b))
+    doas, dists, bounces = (np.array([p[k] for p in paths]) for k in range(3))
+    gains = (reflection ** bounces) * (dists[0] / dists)
+    return doas, (dists - dists[0]) / speed, gains
