@@ -44,7 +44,21 @@ Ported so far:
   ``models.xylo.power``, and the Monte-Carlo accuracy harness
   ``parallel.montecarlo`` with its experiments
   (``experiments.target_xylo_localization``, ``xylo_ordering_sensitivity``,
-  ``target_push_to_hidden``).
+  ``target_push_to_hidden``), on a tone or on speech (``--speech``), and the
+  speech Monte Carlo of one band against three (``experiments.multiband_speech``,
+  with its cross-segment calibration);
+- the paper's other harnesses (``experiments/``): the accuracy, beam-pattern,
+  multi-target, tracking and robustness harnesses of the classical families
+  and the float SNN, the harnesses that time and check the ported paths,
+  the reverberant room, and the STHT analysis ``short_hilbert_transform``;
+- the signal ops of ``ops``: the STHT, the FIR filter (FFT, direct and
+  blocked-Toeplitz), the IIR filters, the resamplers and interpolation,
+  peak finding, the spike encoders (RZCC, integrate-and-fire, peak), the
+  envelope follower ``Envelope``, the IIR Hilbert approximation
+  ``ops.hilbert_iir``, and the FLAC reader with ``io.flac.verify_md5``.
+
+Not yet ported: the figures, ``utils/profiling.py``, ``io/visualizer.py``,
+``ops/batching.py`` and the live demos (ROADMAP, queue 1 item 7).
 """
 
 __version__ = "0.1.0"
@@ -52,6 +66,8 @@ __version__ = "0.1.0"
 from .config import FS, SOUND_SPEED_IN_OPEN_AIR
 from .geometry import (ArrayGeometry, CenterCircularArray, CircularArray, LinearArray, Random2DArray,
                        resolve_device)
+from .ops import (ButterworthFilterbank, Envelope, Filterbank, IAFSpikeEncoder, IAFZeroCrossingSpikeEncoder,
+                  PeakSpikeEncoder, SpikeEncoder, ZeroCrossingSpikeEncoder)
 
 __all__ = [
     "FS",
@@ -62,4 +78,12 @@ __all__ = [
     "LinearArray",
     "Random2DArray",
     "resolve_device",
+    "Envelope",
+    "Filterbank",
+    "ButterworthFilterbank",
+    "SpikeEncoder",
+    "IAFSpikeEncoder",
+    "IAFZeroCrossingSpikeEncoder",
+    "ZeroCrossingSpikeEncoder",
+    "PeakSpikeEncoder",
 ]

@@ -1,7 +1,8 @@
 """What the port's experiment harnesses share (the port's copy of
 ``experiments/common.py``): the sample rate, the templates, the beam
 pattern and its -3 dB width, the reference's SNR sweep, the MAE summary,
-and the command line every harness takes.  Figures are not ported."""
+and the command line every harness takes.  The figure helpers wait for the
+last slice of the port (ROADMAP, queue 1 item 7)."""
 from __future__ import annotations
 
 import argparse

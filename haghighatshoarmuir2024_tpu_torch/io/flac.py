@@ -1,5 +1,6 @@
-"""FLAC reading by the repository's C++ decoder ``native/flacdec.cpp``
-(counterpart of ``haghighatshoarmuir2024_tpu/io/flac.py``).
+"""FLAC reading by the repository's C++ decoder ``native/flacdec.cpp``, and
+the check of the decoded samples against the stream's MD5 (counterpart of
+``haghighatshoarmuir2024_tpu/io/flac.py``).
 
 The decoder is built with g++ at first use into the git-ignored
 ``native/build/``, named by a hash of its source, and bound with ctypes.
@@ -43,6 +44,32 @@ def _load() -> ctypes.CDLL:
     lib.flac_free.argtypes = [i32p]
     lib.flac_free.restype = None
     return lib
+
+
+def verify_md5(path: str) -> bool:
+    """Check the decoded PCM against the MD5 of its STREAMINFO block (JAX
+    ``verify_md5``, ``io/flac.py:57-80``): the samples as little-endian
+    integers of the stream's width (8, 16 or 24 bits; others as 32), true
+    when they hash to it, and true for a zero MD5, which an encoder writes
+    when it stores none."""
+    raw = Path(path).read_bytes()
+    if raw[:4] != b"fLaC":
+        raise ValueError("not a FLAC file")
+    md5_ref = raw[26:42]
+    if md5_ref == b"\x00" * 16:
+        return True
+    data, _ = read_flac(path, normalize=False)
+    bits_per_sample = (((raw[20] & 0x01) << 4) | (raw[21] >> 4)) + 1  # STREAMINFO: bps − 1 straddles bytes 20/21
+    if bits_per_sample == 16:
+        pcm = data.astype("<i2").tobytes()
+    elif bits_per_sample == 8:
+        pcm = data.astype("<i1").tobytes()
+    elif bits_per_sample == 24:
+        b = data.astype("<i4").tobytes()
+        pcm = b"".join(b[i:i + 3] for i in range(0, len(b), 4))
+    else:
+        pcm = data.astype("<i4").tobytes()
+    return hashlib.md5(pcm).digest() == md5_ref
 
 
 def read_flac(path: str, normalize: bool = True) -> Tuple[np.ndarray, float]:

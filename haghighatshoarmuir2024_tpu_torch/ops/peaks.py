@@ -9,6 +9,7 @@ the JAX originals, and are bit-exact with them:
 * :func:`local_extrema_mask_bounded` — plateau-midpoint maxima and minima
   with the plateau search bounded to ``max_plateau`` samples, from one pass
   over sign-encoded boundary indices (``2·i + 1`` rise, ``2·i`` fall);
+  :func:`local_maxima_mask_bounded` is its maxima;
 * :func:`local_maxima_mask` — the same maxima with no bound on the plateau;
 * :func:`select_by_distance` — scipy's greedy height-ordered suppression as a
   fixed point of rounds: window-maxima win, exact ties go to the rightmost
@@ -92,6 +93,15 @@ def local_extrema_mask_bounded(x: torch.Tensor, max_plateau: int):
     return maxima, minima
 
 
+def local_maxima_mask_bounded(x: torch.Tensor, max_plateau: int) -> torch.Tensor:
+    """Local maxima with the plateau search bounded to ``max_plateau``
+    samples (JAX ``local_maxima_mask_bounded``, ``peaks.py:111-170``): the
+    maxima of :func:`local_extrema_mask_bounded`.  Equal to
+    :func:`local_maxima_mask` wherever no run of equal values is longer than
+    ``max_plateau``."""
+    return local_extrema_mask_bounded(x, max_plateau)[0]
+
+
 def suppression_round(active: torch.Tensor, kept: torch.Tensor, height: torch.Tensor, w: int):
     """One greedy suppression round: returns the new ``(active, kept)``.
 
@@ -159,7 +169,7 @@ def find_peaks_mask(x: torch.Tensor, distance=None, max_plateau=None) -> torch.T
     if max_plateau is None:
         cand = local_maxima_mask(x)
     else:
-        cand = local_extrema_mask_bounded(x, max_plateau)[0]
+        cand = local_maxima_mask_bounded(x, max_plateau)
     if distance is None or distance <= 1:
         return cand
     return select_by_distance(cand, x, distance)

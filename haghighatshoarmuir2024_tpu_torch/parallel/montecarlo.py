@@ -55,7 +55,8 @@ def make_trial_fn(geometry, time_temp, sig_temp, estimate_fn: Callable, fs: floa
     frame's shape from ``generator``, synthesizes the frame from the
     template (float32), adds the noise at sigma ``sqrt(mean(sig²) / snr)``
     of its own frame, and all n frames go through one
-    ``estimate_fn((n, T, M)) → (n,)`` call.  ``doa_true`` and ``noise``
+    ``estimate_fn((n, T, M)) → (n,)`` call, or ``(n, K)`` for K
+    estimators read from one forward.  ``doa_true`` and ``noise``
     (standard normal, (n, T, M)) may be given instead of drawn.
     ``delay_sign=-1`` synthesizes with the reference's MUSIC convention.
     """
@@ -87,7 +88,12 @@ def monte_carlo_sweep(trial_fn: Callable, snr_db_vec: Sequence[float], num_sims:
     T, M))`` replaces the generator's draws (JAX's own, say) and is replayed
     for every SNR, as JAX's sweep reuses its keys.  Returns JAX's keys:
     ``snr_db``, ``errors`` (num_snr, num_sims) in radians, ``mae`` and
-    ``median`` per SNR."""
+    ``median`` per SNR.
+
+    A trial whose estimate is (n, K), K estimators read from one forward
+    (JAX ``_multi_estimator_sweep``, experiments/target_xylo_localization.py:
+    181-200), gives ``errors`` (num_snr, num_sims, K) and ``mae``/``median``
+    (num_snr, K)."""
     snr_db_vec = np.asarray(snr_db_vec, dtype=np.float32)
     chunk = num_sims if batch_size is None else min(int(batch_size), num_sims)
     gen = torch.Generator(device=trial_fn.device)
@@ -99,6 +105,8 @@ def monte_carlo_sweep(trial_fn: Callable, snr_db_vec: Sequence[float], num_sims:
             n = min(chunk, num_sims - s)
             given = {} if draws is None else {"doa_true": draws[0][s:s + n], "noise": draws[1][s:s + n]}
             doa_true, doa_est = trial_fn(gen, float(snr_db), n, **given)
+            if doa_est.dim() == 2:
+                doa_true = doa_true[:, None]
             err = folded_angle_error(doa_est.to(torch.float64), doa_true.to(torch.float64))
             es.append(err.cpu().numpy())
         errs.append(np.concatenate(es))

@@ -23,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 import haghighatshoarmuir2024_tpu as jpkg
@@ -251,3 +252,74 @@ def test_torch_streaming_rejects_mismatched_chunk(runs):
     tsl = runs["tsl"]
     with pytest.raises(ValueError, match="chunk must be"):
         tsl.process_chunk(tsl.init_state(batch=2), np.zeros((3, 100, 7), np.float32))
+
+
+# ------------------------------------------- a single stream: JAX's own step
+UNIPOLAR = dict(freq_bands=[[1600, 1900]], doa_list=np.linspace(-np.pi, np.pi, 65), recording_duration=0.25,
+                kernel_duration=5e-3, bipolar_spikes=False, fs=FS)
+
+
+@pytest.fixture(scope="module")
+def unipolar_demos(tmp_path_factory, _no_jax_persistent_cache):
+    jd = JaxDemo(geometry=jpkg.CenterCircularArray(radius=4.5e-2, num_mic=7), **UNIPOLAR, use_cache=False)
+    path = tmp_path_factory.mktemp("unipolar") / "small.npz"
+    jd.save(str(path))
+    return jd, Demo.load(str(path), device="cpu")
+
+
+def jax_step_closures(jsl) -> dict:
+    """The pieces of JAX's single-stream step (``_step_jit``,
+    ``runtime/streaming.py:274-289``) from its Python body: ``encode``,
+    ``decide`` (``find_peaks_mask(both, rw, max_plateau=2·rw)``, ``:236-249``)
+    and the float LIF scan ``lif_scan`` with its ``w_in``."""
+    fn = jsl._step_jit.__wrapped__
+    return dict(zip(fn.__code__.co_freevars, (c.cell_contents for c in fn.__closure__)))
+
+
+@pytest.mark.parametrize("polarity", ["bipolar", "unipolar"])
+def test_torch_single_stream_matches_jax_step(polarity, demos, unipolar_demos):
+    """One stream through JAX's single-stream step (its TPU form: the lifted
+    bandpass, then ``find_peaks_mask`` and a float ``lax.scan`` LIF) and
+    through the port's single stream, a batch of one through K1/K2 and K4
+    (bipolar) or K6 (unipolar), from the same mid-stream state: JAX's after
+    one chunk, carried into the port with ``StreamState.from_numpy``; then
+    three chunks.  On the port's analysis window of each chunk, JAX's
+    ``decide`` gives the port's raster bit for bit, and JAX's LIF scan from
+    the port's LIF state on that raster gives its counts and state.  End to
+    end the float encodes differ in summation order: the bounds of the batch
+    tests above (raster entries apart under 1e-3, counts within 2)."""
+    jd, td = demos if polarity == "bipolar" else unipolar_demos
+    jsl, tsl = jax_tpu_form(jd), StreamingLocalizer(td)
+    parts = jax_step_closures(jsl)
+    t = np.arange(0, 4 * TC / FS, 1 / FS)
+    clean = np.asarray(signal_from_template(jd.geometry, t, np.sin(2 * np.pi * 1750 * t), -0.8, fs=FS))
+    stream = (clean + 0.3 * np.random.default_rng(7).standard_normal(clean.shape)).astype(np.float32)
+    js, _ = jsl.process_chunk(jsl.init_state(), jnp.asarray(stream[:TC]))
+    ts = StreamState.from_numpy({k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
+    assert ts.batch == 1 and ts.steps.tolist() == [TC]
+    C_out = 2 * tsl.C if polarity == "bipolar" else tsl.C
+    spikes_seen = 0
+    for k in range(1, 4):
+        chunk = stream[k * TC:(k + 1) * TC]
+        prev = ts
+        js, jsp = jsl.process_chunk(js, jnp.asarray(chunk))
+        ts, tsp = tsl.process_chunk(ts, chunk)
+        assert tsp.shape == np.asarray(jsp).shape == (TC, C_out) and tsp.dtype == torch.int8
+        # the same analysis window: JAX's decision equals the port's raster
+        integrated = tsl._encode(prev, torch.as_tensor(chunk)[:, None])[-1]
+        window = torch.cat([prev.pending, integrated], dim=0)[:, 0]
+        np.testing.assert_array_equal(np.asarray(parts["decide"](jnp.asarray(window.numpy()), TC)), tsp.numpy())
+        # the same raster and LIF state: JAX's float scan gives the port's counts and state
+        inp = jnp.dot(jnp.asarray(tsp.numpy(), jnp.float32), parts["w_in"])
+        (isyn, vmem, spk), seq = jax.lax.scan(parts["lif_scan"], tuple(jnp.asarray(getattr(prev, f).numpy()[0])
+                                                                       for f in ("isyn", "vmem", "spk")), inp)
+        np.testing.assert_array_equal((ts.counts - prev.counts).numpy()[0], np.asarray(seq.sum(axis=0)))
+        for got, want in ((ts.isyn, isyn), (ts.vmem, vmem), (ts.spk, spk)):
+            np.testing.assert_array_equal(got.numpy()[0], np.asarray(want))
+        # end to end from the shared state: within the batch tests' bounds
+        assert (np.asarray(jsp) != tsp.numpy()).mean() < 1e-3
+        spikes_seen += int(np.abs(tsp.numpy()).sum())
+    assert spikes_seen > 0 and int((ts.counts - prev.counts).sum()) > 0
+    jcounts, tcounts = np.asarray(js.counts), ts.counts.numpy()[0]
+    assert np.abs(jcounts - tcounts).max() <= 2 and (jcounts != tcounts).mean() < 0.01
+    assert int(np.asarray(js.steps)) == int(ts.steps[0]) == 4 * TC
