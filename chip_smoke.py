@@ -263,7 +263,34 @@ Phases, each failing the run with a non-zero exit:
     (B, T, C, N) = (20, 48 000, 14, 112) and (16, 48 000, 42, 336) and of the
     raster pack + K5 at (20, 48 000, 14, 112), count by count; then three chunks of
     one stream through ``StreamingLocalizer.process_chunk`` (K1, K2, the pack
-    and K4 at B = 1) equal to the plain step in raster, counts and state.
+    and K4 at B = 1) equal to the plain step in raster, counts and state;
+25. the live demos (``haghighatshoarmuir2024_tpu_torch/demos/``) at their
+    reference defaults on the card, a synthetic 1750 Hz tone from 0.7 rad at
+    10 dB, the designs made on the card (a temporary design cache): the
+    Hilbert, SNN, MUSIC and SRP-PHAT demos 8 frames each, the quantized
+    Xylo demo 4 (unipolar; K1, K2, the raster pack and K5 on every frame,
+    no other hand kernel anywhere in the phase's demos).  MUSIC's reference
+    default of 100 active bins must raise ``ValueError`` as JAX's does, and
+    the demo runs at the 34 the band allows.  Each demo: the folded error
+    within its JAX test's threshold (the Xylo demo, whose test asks only for
+    a finite DoA, within one grid step of what JAX's ``run_demo()`` prints),
+    ms a frame (median after the first, host clock, synchronized) and the
+    real-time factor against the 250 ms frame, the design seconds, the
+    ``StageTimer`` report of its loop (source, compute, visualize); its
+    first two frames through the port's CPU path on the card's design give
+    the card's DoAs (a mismatch passes only at a near tie of the CPU score,
+    relative top-two gap below 1e-5, and is printed; none for Xylo); the
+    Xylo demo's counts of frame 0 equal the plain path's, and a silent frame
+    gives NaN and launches nothing.  A 16-bit 7-channel wav of the Xylo
+    demo's frames goes through ``FileAudioSource`` into the Xylo and SRP
+    demos, their DoAs equal to the CPU path's on the decoded frames.
+    ``utils.profiling.device_trace`` around the flagship
+    ``forward_batch(matched)`` must record K1, K2, the pack pass and K3 (a
+    trace with no kernel event fails: the profiler's CUPTI tracing is
+    missing), their traced durations printed beside phases 3-4's CUDA
+    events; ``benchmark_fn`` on the same call (20 iterations) beside phase
+    23's total; ``ops.chunked_vmap`` on the card (449 rows, chunks of 64)
+    equal to ``torch.func.vmap`` of the whole input.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -3604,6 +3631,273 @@ def check_speech_harnesses(torch, _build, sk, lk, roofline, StreamingLocalizer, 
     return out
 
 
+# ------------------------------------------------------------------ phase 25
+# the accuracy each demo's JAX test asks for (tests/test_io_demos.py: Hilbert and MUSIC 6 deg, SNN 8, SRP
+# 5), by the folded metric arcsin|sin(est - true)| in degrees
+DEMO_GATE_DEG = {"hilbert": 6.0, "snn": 8.0, "music": 6.0, "srp": 5.0}
+# JAX's Xylo demo test asks only for a finite DoA.  The reference's unipolar model with its peak estimator
+# is 8-18 deg off this tone (folded): JAX's run_demo() prints these DoAs today, on the CPU,
+#   JAX_PLATFORMS=cpu HM2024_JAX_CACHE=0 HM2024_TPU_CACHE=<tmp dir> python -c \
+#       "from haghighatshoarmuir2024_tpu.demos import localization_demo_xylo as m; print(m.run_demo())"
+# and the port's CPU path gives them too; the card is held to one step of the 224-point grid of them
+JAX_XYLO_DEMO_DEG = [-121.8834143425569, -131.56951051022708, -128.34081178767036, -121.8834143425569]
+GRID_STEP_224_DEG = 360.0 / 223
+DEMO_FRAMES = {"hilbert": 8, "snn": 8, "music": 8, "srp": 8, "xylo": 4}  # each run_demo's default
+DEMO_DOA, DEMO_SNR_DB = 0.7, 10.0  # run_demo's defaults
+DEMO_TWIN_FRAMES = 2  # frames of each demo also through the CPU path
+# a card/CPU DoA mismatch passes only where the CPU path's estimator score has a relative top-two gap below
+# this (a near tie); the Xylo demo's integer counts leave no tie: its DoAs must be equal
+DEMO_TIE_RTOL = 1e-5
+FRAME_MS = 250.0  # the demos' frame: a live demo handles a frame in less
+# the most active bins the MUSIC demo's band allows at nfft 2048 (1200-2000 Hz / 23.4 Hz a bin): the
+# reference's default of 100 raises ValueError in MUSIC.beamforming, in JAX's demo and in the port's alike
+MUSIC_DEMO_BINS = int((2000.0 - 1200.0) / (48_000 / 2048))
+XYLO_DEMO_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5")
+TRACE_KERNELS = {"rzcc_k1_kernel": "K1", "rzcc_k2_kernel": "K2", "lif_pack_bipolar_kernel": "pack",
+                 "lif_count_bipolar_kernel": "K3"}
+
+
+def demo_scores(torch, name, d, frame):
+    """The score (G',) whose argmax the demo ``d``'s estimator takes on one
+    frame: the band power of the Hilbert and SNN demos, the moving average
+    the peak estimator of the MUSIC and SRP demos smooths the spectrum by."""
+    from haghighatshoarmuir2024_tpu_torch.demos.localization_demo import to_device
+    from haghighatshoarmuir2024_tpu_torch.ops.fir import moving_average_full
+
+    if name in ("hilbert", "snn"):
+        return d.power(frame)
+    x = to_device(frame, d.device)
+    aps = d.music.beamforming(x, d.num_active_freq, d.num_fft_bin) if name == "music" else d.srp.apply_to_signal(x)
+    win = max(1, 2 * ((len(d.doa_list) // 32) // 2) + 1)
+    return moving_average_full(aps, win) if win > 1 else aps
+
+
+def classical_twin(d, cpu):
+    """The Hilbert or SNN demo ``d`` on the CPU with the card's designs."""
+    import copy
+
+    twin = copy.copy(d)
+    twin.device = cpu
+    twin.beamfs = [copy.copy(bf) for bf in d.beamfs]
+    for bf in twin.beamfs:
+        bf.device = cpu
+    twin.bf_mats = [m.cpu() for m in d.bf_mats]
+    return twin
+
+
+def twin_doas(torch, name, d, twin, frames, card_deg):
+    """The CPU twin's DoAs (degrees) on ``frames`` against the card's
+    ``card_deg``: equal, or (not for the Xylo demo) a near tie of the CPU
+    path's score, returned as (frame, relative gap)."""
+    ties = []
+    for k, f in enumerate(frames):
+        got = float(np.rad2deg(twin.process_frame(f)))
+        if got == card_deg[k]:
+            continue
+        if name == "xylo":
+            fail(f"xylo demo: frame {k}: the card's DoA {card_deg[k]:.4f} deg, the CPU path's {got:.4f} deg")
+        gap = float(top_two_margin(demo_scores(torch, name, twin, f).cpu()[None])[0])
+        if gap >= DEMO_TIE_RTOL:
+            fail(f"{name} demo: frame {k}: the card's DoA {card_deg[k]:.4f} deg, the CPU path's {got:.4f} deg "
+                 f"(the CPU score's top-two gap {gap:.3e}, not a near tie below {DEMO_TIE_RTOL})")
+        ties.append((k, gap))
+    return ties
+
+
+def check_demos(torch, _build, dev, flagship_demo, frames, event_ms, attribution_ms, batch_ms):
+    """Phase 25: the five live demos at their reference defaults, a wav
+    file through two of them, the stage timer, a device trace, the
+    benchmark helper and ``chunked_vmap`` on the card (module docstring)."""
+    import itertools
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from haghighatshoarmuir2024_tpu_torch import CenterCircularArray
+    from haghighatshoarmuir2024_tpu_torch.demos import localization_demo as hd
+    from haghighatshoarmuir2024_tpu_torch.demos import localization_demo_music as md
+    from haghighatshoarmuir2024_tpu_torch.demos import localization_demo_snn as nd
+    from haghighatshoarmuir2024_tpu_torch.demos import localization_demo_srp as rd
+    from haghighatshoarmuir2024_tpu_torch.demos import localization_demo_xylo as xd
+    from haghighatshoarmuir2024_tpu_torch.io import FileAudioSource
+    from haghighatshoarmuir2024_tpu_torch.ops import chunked_vmap
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel
+    from haghighatshoarmuir2024_tpu_torch.utils import benchmark_fn, device_trace
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    tag = "[demos]"
+    out = {"demos": {}, "launches": {}, "s": {}}
+    tmp = tempfile.TemporaryDirectory()
+    saved_cache = os.environ.get("HM2024_TORCH_CACHE")
+    os.environ["HM2024_TORCH_CACHE"] = os.path.join(tmp.name, "cache")  # the Xylo demo designs on the card
+    try:
+        # ---- MUSIC at the reference's 100 active bins: both packages' MUSIC.beamforming refuses them
+        try:
+            md.run_demo(num_frames=1, device=dev)
+        except ValueError as e:
+            out["music_default"] = str(e)
+        else:
+            fail("music demo: run_demo() at 100 active bins ran; JAX's raises ValueError there")
+
+        def build(name):
+            n = DEMO_FRAMES[name]
+            if name != "music":
+                return {"hilbert": hd, "snn": nd, "srp": rd, "xylo": xd}[name].reference_demo(
+                    n, DEMO_SNR_DB, DEMO_DOA, device=dev)
+            geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
+            return md.Demo(geo, [1200.0, 2000.0], np.linspace(-np.pi, np.pi, 224), num_active_freq=MUSIC_DEMO_BINS,
+                           source=hd.tone_source(geo, n, DEMO_SNR_DB, DEMO_DOA, delay_sign=-1), device=dev)
+
+        demos, twins = {}, {}
+        for name in ("hilbert", "snn", "music", "srp", "xylo"):
+            n = DEMO_FRAMES[name]
+            d, design_s = synced(torch, dev, lambda: build(name))
+            est, launches = counted(torch, _build, f"{name} demo", XYLO_DEMO_PATH if name == "xylo" else (),
+                                    lambda: d.run(n))
+            if name == "xylo":  # each kernel once a frame, K2 at least once (once a suppression round)
+                for k in XYLO_DEMO_PATH:
+                    if launches.get(k, 0) < n or (k != "rzcc_k2" and launches[k] != n):
+                        fail(f"xylo demo: {k} launched {launches.get(k, 0)} times for {n} frames")
+                out["launches"]["live demo xylo"] = launches
+            elif launches:
+                fail(f"{name} demo: launched {launches}; its path runs no hand kernel")
+            est = np.asarray(est)
+            err = folded_deg(np.deg2rad(est), DEMO_DOA)
+            if name == "xylo":
+                jax_deg = np.asarray(JAX_XYLO_DEMO_DEG[:n])
+                off, gate = wrapped_deg(np.deg2rad(est), np.deg2rad(jax_deg)), GRID_STEP_224_DEG + 5e-4
+                gate_text = f"within {GRID_STEP_224_DEG:.2f} deg of JAX's run_demo() {np.round(jax_deg, 3).tolist()}"
+            else:
+                off, gate = err, DEMO_GATE_DEG[name]
+                gate_text = f"folded error at most {gate:.2f}"
+            if est.shape != (n,) or not np.all(np.isfinite(est)) or off.max() > gate:
+                fail(f"{name} demo: DoAs {est.tolist()} deg, folded errors {np.round(err, 3).tolist()} deg (gate: "
+                     f"{gate_text})")
+            rep = d.timer.report()
+            compute = d.timer.samples["compute"]
+            ms = 1e3 * float(np.median(compute[1:]))
+            share = rep["compute"]["total_s"] / sum(v["total_s"] for v in rep.values())
+
+            # the same frames through the port's CPU path, on the card's design
+            t0 = time.perf_counter()
+            if name in ("hilbert", "snn"):
+                twin = classical_twin(d, cpu)
+            elif name == "xylo":
+                twin = xd.reference_demo(n, DEMO_SNR_DB, DEMO_DOA, device=cpu)  # the card's design, from the cache
+                same_xylo_design(d.xylo, twin.xylo, "xylo demo")
+            else:
+                twin = (md.Demo(d.music.geometry, [1200.0, 2000.0], d.doa_list, num_active_freq=MUSIC_DEMO_BINS,
+                                device=cpu) if name == "music"
+                        else rd.Demo(d.srp.geometry, [1400.0, 2100.0], d.doa_list, device=cpu))
+            src_frames = list(itertools.islice(d.source.frames(FRAME_MS / 1e3), DEMO_TWIN_FRAMES))
+            ties = twin_doas(torch, name, d, twin, src_frames, est)
+            out["s"][f"{name} cpu twin"] = time.perf_counter() - t0
+            demos[name], twins[name] = d, twin
+            out["demos"][name] = dict(ms=ms, rtf=ms / FRAME_MS, design_s=design_s, doas=est.tolist(),
+                                      err_max=float(err.max()), compute_share=share, report=rep, ties=ties)
+            bins = f"; {MUSIC_DEMO_BINS} active bins" if name == "music" else ""
+            print(f"{tag} {name} ({n} frames, run_demo's defaults{bins}): DoAs {np.round(est, 3).tolist()} deg, "
+                  f"folded error at most {err.max():.3f} deg (gate: {gate_text}); {ms:.3f} ms a frame (median of the frames after the first, host "
+                  f"clock, synchronized) = real-time factor {ms / FRAME_MS:.4f}; design {design_s:.3f} s; the "
+                  f"first {DEMO_TWIN_FRAMES} frames through the CPU path == the card's"
+                  + (f" but near ties {ties}" if ties else "") + f"; stage report {json.dumps(rep)}; compute "
+                  f"{100 * share:.1f} % of the loop" + ("" if share >= 0.9 else " (below 90 %: the loop's host work)"),
+                  flush=True)
+
+        # ---- the Xylo demo: its counts on one frame against the plain path; a silent frame launches nothing
+        xdemo, xtwin = demos["xylo"], twins["xylo"]
+        f0 = next(xdemo.source.frames(0.25))
+        cs = xdemo.xylo.encode(hd.to_device(f0, dev)[None])
+        card_counts = lif_kernel.lif_count_rates(xdemo.xylo.lif_params(), xdemo.xylo.raster(*xdemo.xylo.rzcc(cs)),
+                                                 time_major=True, spike_bound=1).cpu()
+        tw = xtwin.xylo
+        host_counts = lif_kernel.lif_count_rates(tw.lif_params(), tw.raster(*tw.rzcc(cs.cpu())), time_major=True,
+                                                 spike_bound=1)
+        if card_counts.shape != host_counts.shape or not torch.equal(card_counts, host_counts):
+            fail(f"xylo demo: the counts {tuple(card_counts.shape)} of frame 0 differ from the plain path's")
+        silent, silent_launches = counted(torch, _build, "xylo demo silent frame", (),
+                                          lambda: xdemo.process_frame(np.zeros_like(f0)))
+        if not np.isnan(silent) or silent_launches:
+            fail(f"xylo demo: a silent frame gave {silent} with launches {silent_launches}; want NaN and none")
+        print(f"{tag} xylo: frame 0's counts (B, N) = {tuple(host_counts.shape)} through K1 -> K2 -> raster pack "
+              f"-> K5 == the plain path's, count by count ({int(host_counts.sum())} spikes); a silent frame: NaN, "
+              "no launch", flush=True)
+
+        # ---- a 16-bit 7-channel wav of the Xylo demo's synthetic frames through the Xylo and SRP demos
+        T = f0.shape[0]
+        sig = xdemo.source._sig[:DEMO_TWIN_FRAMES * T]
+        path = os.path.join(tmp.name, "demo.wav")
+        wavfile.write(path, 48_000, np.round(sig * (0.9 / np.abs(sig).max()) * 32767).astype(np.int16))
+        wav = {}
+        for name in ("xylo", "srp"):
+            d = demos[name]
+            d.source = FileAudioSource(path)
+            est, launches = counted(torch, _build, f"{name} demo on the wav",
+                                    XYLO_DEMO_PATH if name == "xylo" else (), lambda: d.run(DEMO_TWIN_FRAMES))
+            dec = list(FileAudioSource(path).frames(0.25))
+            ties = twin_doas(torch, name, d, twins[name], dec, est)
+            wav[name] = dict(doas=est, ties=ties, launches=launches)
+        out["wav"] = wav
+        print(f"{tag} the wav ({DEMO_TWIN_FRAMES} frames of the Xylo demo's source, int16, 7 channels) through "
+              "FileAudioSource: " + ", ".join(f"{k} DoAs {np.round(v['doas'], 3).tolist()} deg" for k, v in wav.items())
+              + " == the CPU path's on the decoded frames"
+              + "".join(f"; {k} near ties {v['ties']}" for k, v in wav.items() if v["ties"]), flush=True)
+
+        # ---- device_trace around one flagship forward_batch(matched)
+        trace_dir = os.path.join(tmp.name, "trace")
+        torch.cuda.synchronize()
+        with device_trace(trace_dir):
+            flagship_demo.forward_batch(frames, method="matched")
+            torch.cuda.synchronize()
+        files = sorted(Path(trace_dir).glob("*.json"))
+        if not files:
+            fail("device_trace wrote no trace file")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+        if not kern:
+            fail("device_trace recorded no CUDA kernel: the profiler's CUPTI activity tracing is not available here")
+        traced = {}
+        for kname, label in TRACE_KERNELS.items():
+            ev = [e for e in kern if kname in e.get("name", "")]
+            if not ev:
+                fail(f"device_trace: no event of {kname} ({label}) among {len(kern)} kernel events")
+            traced[label] = [e["dur"] / 1e3 for e in ev]
+        out["trace"] = dict(file_bytes=files[0].stat().st_size, kernels=len(kern), traced_ms=traced)
+        print(f"{tag} device_trace of forward_batch(matched) at B = {frames.shape[0]}: {files[0].name} "
+              f"({files[0].stat().st_size} bytes, {len(kern)} kernel events); traced per launch: "
+              + ", ".join(f"{k} {np.round(v, 4).tolist()} ms" for k, v in traced.items())
+              + "; CUDA events of phases 3-4: " + ", ".join(f"{k} {v:.4f} ms" for k, v in event_ms.items()),
+              flush=True)
+
+        # ---- benchmark_fn on the same call
+        bench = benchmark_fn(lambda: flagship_demo.forward_batch(frames, method="matched"), warmup=2, iters=20)
+        out["bench"] = bench
+        print(f"{tag} benchmark_fn(forward_batch(matched), 20 iterations): {bench['mean_ms']:.3f} ms a call; "
+              f"phase 23's attribution total {attribution_ms:.3f} ms (CUDA events); the host-clock batch time "
+              f"{batch_ms:.3f} ms", flush=True)
+
+        # ---- chunked_vmap on CUDA tensors: 449 rows in chunks of 64 (the last of one row) == vmap of the whole
+        g = torch.Generator(dev).manual_seed(SEED)
+        x = torch.randint(-1000, 1000, (449, 14, 7), generator=g, device=dev)
+        w = torch.randint(-9, 9, (449, 3), generator=g, device=dev)
+        fn = lambda t: (t[0] * t[1]["w"].sum(), {"max": t[0].amax(dim=-1), "sum": t[0].sum()})  # noqa: E731
+        got, want = chunked_vmap(fn, (x, {"w": w}), 64), torch.func.vmap(fn)((x, {"w": w}))
+        pairs = [(got[0], want[0]), (got[1]["max"], want[1]["max"]), (got[1]["sum"], want[1]["sum"])]
+        if not all(a.shape == b.shape and torch.equal(a, b) for a, b in pairs):
+            fail("chunked_vmap on the card differs from vmap of the whole input")
+        print(f"{tag} chunked_vmap (449 rows, chunks of 64, pytree in and out) == torch.func.vmap of the whole "
+              "input, exactly", flush=True)
+    finally:
+        if saved_cache is None:
+            os.environ.pop("HM2024_TORCH_CACHE", None)
+        else:
+            os.environ["HM2024_TORCH_CACHE"] = saved_cache
+        tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def sweep_label(name: str) -> str:
     return name if name.startswith("srp") else f"{name} tone"
 
@@ -3795,6 +4089,12 @@ def main() -> int:
     spx = check_speech_harnesses(torch, _build, sk, lk, roofline, StreamingLocalizer, dev, demo, frames,
                                  rf["ceil"]["peaks"])
     lap(start, "the speech harnesses, the STHT analysis and the single stream")
+    # ---- phase 25: the live demos, a wav through two of them, profiling and batching helpers
+    dx = check_demos(torch, _build, dev, demo, frames,
+                     {"K1": sup["k1"]["ms"], "K2 (one launch)": sup["k2"]["ms"], "pack": pack["ms"],
+                      "pack + K3 (integers uploaded once)": lif["params_ms"]},
+                     bx["attribution"]["stages_ms"]["TOTAL (matched)"], batch_ms)
+    lap(start, "the live demos, profiling and batching")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -3930,6 +4230,7 @@ def main() -> int:
                                      "mismatch_robustness": hx["mismatch_launches"].get(key, 0),
                                      **{name: n.get(key, 0) for name, n in bx["launches"].items()},
                                      **{name: n.get(key, 0) for name, n in spx["launches"].items()},
+                                     **{name: n.get(key, 0) for name, n in dx["launches"].items()},
                                      **{f"multiband_bench {fs // 1000} kHz": three[fs]["bench_launches"].get(key, 0)
                                         for fs in three}}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -3990,6 +4291,12 @@ def main() -> int:
               f"{k['lif_bound_ms']:.4f} ms (the integers uploaded once)")
     print(f"{tag} phase 24 seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in spx["s"].items())
           + f"; phase 24 {spx['phase_s']:.1f} s")
+    for name, r in dx["demos"].items():
+        print(f"{tag} live demo {name}: {r['ms']:.3f} ms a frame = real-time factor {r['rtf']:.4f} "
+              f"({'slower' if r['rtf'] > 1 else 'faster'} than live); design {r['design_s']:.3f} s; compute "
+              f"{100 * r['compute_share']:.1f} % of the loop")
+    print(f"{tag} benchmark_fn(forward_batch(matched)) {dx['bench']['mean_ms']:.3f} ms; phase 25 seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in dx["s"].items()) + f"; phase 25 {dx['phase_s']:.1f} s")
     lap(start, "the times")
     print(f"[clock] the whole script: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,8 @@ import numpy as np
 
 from ..geometry import CenterCircularArray
 from ..models.beamformer import Beamformer
-from .common import FS, arg_parser, bandlimited_noise_template, beam_pattern, sinusoid_template, widths
+from .common import (FS, arg_parser, bandlimited_noise_template, beam_pattern, fig_polar_patterns,
+                     sinusoid_template, widths)
 
 FREQS = (1_000.0, 2_000.0, 3_600.0, 4_000.0, 8_000.0)
 
@@ -35,9 +36,16 @@ def design(freq_design: float, template_kind: str, doa_list, duration: float = 0
 
 def run(template_kind: str = "sin", num_grid: int = 16 * 7, duration: float = 0.25, device=None,
         freqs=FREQS) -> dict:
+    """The widths per design frequency; with ``HM2024_FIG_DIR`` set, the
+    patterns of the middle DoA also go to ``array_resolution_{kind}.pdf``."""
     doa_list = np.linspace(-np.pi, np.pi, num_grid)
-    return {f"{f:.0f}Hz": widths(beam_pattern(design(f, template_kind, doa_list, duration, device)), doa_list)
-            for f in freqs}
+    results, pats = {}, {}
+    for f in freqs:
+        pattern = beam_pattern(design(f, template_kind, doa_list, duration, device))
+        results[f"{f:.0f}Hz"] = widths(pattern, doa_list)
+        pats[f"{f:.0f} Hz"] = pattern[num_grid // 2]
+    fig_polar_patterns(pats, doa_list, f"array_resolution_{template_kind}.pdf")
+    return results
 
 
 def main(argv=None) -> dict:

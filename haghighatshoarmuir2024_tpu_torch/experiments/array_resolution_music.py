@@ -21,7 +21,7 @@ import torch
 from ..models.music import MUSIC
 from ..utils import to_numpy
 from .array_resolution_snn import KINDS, build_geometry
-from .common import FS, arg_parser, beamwidth_3db, folded_deg, sinusoid_template
+from .common import FS, arg_parser, beamwidth_3db, fig_polar_patterns, folded_deg, sinusoid_template
 
 FREQS = (1_000.0, 2_000.0, 4_000.0)
 TARGETS = (("doa_0", 0.0), ("doa_pi_2", np.pi / 2))
@@ -38,8 +38,11 @@ def spectrum(music: MUSIC, t, sig, doa_target: float, snr_db, seed: int = 0) -> 
 
 def run(kind: str = "circular", snr_db=20.0, num_grid: int = 16 * 7, duration: float = 0.25, device=None,
         freqs=FREQS) -> dict:
+    """The peak errors and widths per design frequency; with
+    ``HM2024_FIG_DIR`` set, the spectra of the source at 0 also go to
+    ``array_resolution_music_{kind}.pdf``."""
     geometry, doa_list = build_geometry(kind, num_grid)
-    results = {}
+    results, pats = {}, {}
     for freq_design in freqs:
         music = MUSIC(geometry, (0.5 * freq_design, freq_design), doa_list, frame_duration=duration, fs=FS,
                       device=device)
@@ -50,9 +53,14 @@ def run(kind: str = "circular", snr_db=20.0, num_grid: int = 16 * 7, duration: f
                 continue
             aps = spectrum(music, t, sig, doa_target, snr_db)
             est = doa_list[int(np.argmax(aps))]
+            if name == "doa_0":
+                pats[f"{freq_design:.0f} Hz"] = aps
             entry[name] = {"peak_err_deg": float(folded_deg(est, doa_target)),
                            "beamwidth_3db_deg": beamwidth_3db(aps, doa_list)}
         results[f"{freq_design:.0f}Hz"] = entry
+    # polar angular-response panels (paper_plots/array_resolution_music.py:95-180
+    # figure style: the spectrum per design frequency, the source at 0)
+    fig_polar_patterns(pats, doa_list, f"array_resolution_music_{kind}.pdf")
     return results
 
 

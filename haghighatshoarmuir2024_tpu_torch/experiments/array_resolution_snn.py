@@ -19,7 +19,7 @@ import numpy as np
 
 from ..geometry import CenterCircularArray, LinearArray, Random2DArray
 from ..models.snn_beamformer import SNNBeamformer
-from .common import FS, arg_parser, beam_pattern, jittered_sinusoid_template, widths
+from .common import FS, arg_parser, beam_pattern, fig_polar_patterns, jittered_sinusoid_template, widths
 
 FREQS = (1_000.0, 2_000.0, 4_000.0)
 KINDS = ("circular", "linear", "random")
@@ -48,10 +48,16 @@ def design(geometry, doa_list, freq_design: float, bipolar: bool = True, duratio
 
 def run(kind: str = "circular", bipolar: bool = True, num_grid: int = 16 * 7, duration: float = 0.25, device=None,
         freqs=FREQS) -> dict:
+    """The widths per design frequency; with ``HM2024_FIG_DIR`` set, the
+    patterns of the middle DoA also go to ``array_resolution_snn_{kind}.pdf``."""
     geometry, doa_list = build_geometry(kind, num_grid)
-    return {f"{f:.0f}Hz": widths(beam_pattern(design(geometry, doa_list, f, bipolar, duration, device),
-                                              complex_fold=bipolar), doa_list)
-            for f in freqs}
+    results, pats = {}, {}
+    for f in freqs:
+        pattern = beam_pattern(design(geometry, doa_list, f, bipolar, duration, device), complex_fold=bipolar)
+        results[f"{f:.0f}Hz"] = widths(pattern, doa_list)
+        pats[f"{f:.0f} Hz"] = pattern[len(doa_list) // 2]
+    fig_polar_patterns(pats, doa_list, f"array_resolution_snn_{kind}.pdf")
+    return results
 
 
 def main(argv=None) -> dict:

@@ -1,8 +1,12 @@
 """What the port's experiment harnesses share (the port's copy of
 ``experiments/common.py``): the sample rate, the templates, the beam
 pattern and its -3 dB width, the reference's SNR sweep, the MAE summary,
-and the command line every harness takes.  The figure helpers wait for the
-last slice of the port (ROADMAP, queue 1 item 7)."""
+the command line every harness takes, and the figure helpers.
+
+The reference's paper_plots scripts write PDF figures; the harnesses print
+their numbers and, when ``HM2024_FIG_DIR`` is set, also render the same
+figures there (matplotlib's Agg backend, imported only then), with JAX's
+file names, styles and labels (JAX ``experiments/common.py:173-248``)."""
 from __future__ import annotations
 
 import argparse
@@ -189,3 +193,78 @@ def arg_parser(doc: str) -> argparse.ArgumentParser:
     ap.add_argument("--quick", action="store_true", help="a small run: few trials, a short frame, a coarse grid")
     ap.add_argument("--device", default=None, help="the card unless 'cpu'")
     return ap
+
+
+# ------------------------------------------------------------ figure rendering
+def _fig_dir():
+    return os.environ.get("HM2024_FIG_DIR")
+
+
+def maybe_savefig(fig, name: str):
+    """Save ``fig`` as ``name`` into ``HM2024_FIG_DIR`` when it is set."""
+    outdir = _fig_dir()
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        fig.savefig(os.path.join(outdir, name), bbox_inches="tight")
+
+
+def _plt():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def fig_polar_patterns(patterns: dict, doa_list, name: str):
+    """Polar beam patterns, one subplot per entry (paper_plots/array_resolution*.py
+    figure style): ``patterns[label] = (G,) pattern row``, each drawn
+    normalized to its peak."""
+    if not _fig_dir():
+        return
+    plt = _plt()
+    n = len(patterns)
+    fig, axes = plt.subplots(1, n, subplot_kw={"projection": "polar"}, figsize=(4 * n, 4))
+    if n == 1:
+        axes = [axes]
+    for ax, (label, pat) in zip(axes, patterns.items()):
+        pat = np.asarray(pat)
+        ax.plot(doa_list, pat / max(pat.max(), 1e-12))
+        ax.set_title(label, fontsize=9)
+    maybe_savefig(fig, name)
+    plt.close(fig)
+
+
+def fig_mae_vs_snr(curves: dict, name: str, ylabel: str = "MAE [deg]"):
+    """MAE-vs-SNR curves on a log axis (paper_plots/target_*_localization.py
+    figure style): ``curves[label] = (snr_db, mae_deg)``."""
+    if not _fig_dir():
+        return
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(6, 4))
+    for label, (snr, mae) in curves.items():
+        ax.semilogy(snr, mae, marker="o", label=label)
+    ax.set_xlabel("SNR [dB]")
+    ax.set_ylabel(ylabel)
+    ax.grid(True, which="both", alpha=0.3)
+    ax.legend()
+    maybe_savefig(fig, name)
+    plt.close(fig)
+
+
+def fig_lines(x, ys: dict, name: str, xlabel: str = "", ylabel: str = "", logy=False):
+    """A line plot: ``ys[label] = values`` over ``x``."""
+    if not _fig_dir():
+        return
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(6, 4))
+    for label, y in ys.items():
+        (ax.semilogy if logy else ax.plot)(x, y, label=label)
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    ax.grid(True, alpha=0.3)
+    if len(ys) > 1:
+        ax.legend()
+    maybe_savefig(fig, name)
+    plt.close(fig)

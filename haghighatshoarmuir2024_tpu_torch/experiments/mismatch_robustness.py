@@ -28,7 +28,7 @@ from ..models.beamformer import Beamformer
 from ..models.xylo import Demo
 from ..ops.interp import signal_from_template
 from ..parallel import folded_angle_error
-from .common import FS, arg_parser, calibrated_demo
+from .common import FS, arg_parser, calibrated_demo, fig_lines
 
 SNR_DB = 10.0
 GAIN_DB = [0.0, 1.0, 2.0, 4.0]  # per-mic gain spread (std, dB)
@@ -124,6 +124,19 @@ def run(num_trials: int = 20, num_grid: int = 16 * 7, seed: int = 0, duration: f
     }
 
 
+def figures(res: dict) -> None:
+    """With ``HM2024_FIG_DIR`` set: each method's MAE against the gain
+    spread and against the position error (JAX's two figures)."""
+    fig_lines(res["gain_spread_db"], {
+        "Hilbert": res["gain"]["hilbert_mae_deg"],
+        "quantized Xylo (matched)": res["gain"]["xylo_matched_mae_deg"],
+    }, "mismatch_gain_mae.pdf", xlabel="per-mic gain spread [dB std]", ylabel="MAE [deg]")
+    fig_lines(res["pos_error_mm"], {
+        "Hilbert": res["pos"]["hilbert_mae_deg"],
+        "quantized Xylo (matched)": res["pos"]["xylo_matched_mae_deg"],
+    }, "mismatch_pos_mae.pdf", xlabel="mic position error [mm std]", ylabel="MAE [deg]")
+
+
 def main(argv=None) -> dict:
     ap = arg_parser(__doc__)
     ap.add_argument("--trials", type=int, help="trials a value (default 20, 8 with --quick)")
@@ -132,6 +145,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     res = run(args.trials or (8 if args.quick else 20), args.grid or (17 if args.quick else 16 * 7),
               duration=args.duration or (0.05 if args.quick else 0.25), device=args.device)
+    figures(res)
     out = {"experiment": "mismatch_robustness", "results": res}
     print(json.dumps(out, indent=2))
     return out

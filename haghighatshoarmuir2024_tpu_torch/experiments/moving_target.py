@@ -30,7 +30,7 @@ from ..models.xylo import Demo
 from ..ops.interp import received_signal
 from ..utils import to_numpy
 from ..utils.tracking import track_angles
-from .common import FS, arg_parser, folded_deg, sinusoid_template
+from .common import FS, arg_parser, fig_lines, folded_deg, sinusoid_template
 
 FREQ_DESIGN = 2_000.0
 FREQ_RANGE = (0.5 * FREQ_DESIGN, FREQ_DESIGN)
@@ -76,7 +76,8 @@ def scores(est, doa_true) -> dict:
 def run(duration: float = 4.0, snr_db: float = 10.0, frame: float = 0.25, num_grid: int = 32 * 7, device=None,
         sig_in=None, demo=None) -> dict:
     """The four rows; ``sig_in`` (T, M) replaces the generated array signal
-    and ``demo`` the Xylo model built for the grid and frame."""
+    and ``demo`` the Xylo model built for the grid and frame.  With
+    ``HM2024_FIG_DIR`` set, the tracks also go to ``moving_target_track.pdf``."""
     generated, doa_true = scene(duration, snr_db, frame, device)
     dev = generated.device
     sig_in = generated if sig_in is None else torch.as_tensor(sig_in, device=dev)
@@ -92,12 +93,21 @@ def run(duration: float = 4.0, snr_db: float = 10.0, frame: float = 0.25, num_gr
     results["hilbert"] = scores(ests, doa_true)
     # the wrapped-angle alpha-beta tracker on the per-frame estimates (beyond
     # the reference, which scores raw frames)
-    results["hilbert_tracked"] = scores(to_numpy(track_angles(ests.astype(np.float32), device=dev)), doa_true)
+    tracked = to_numpy(track_angles(ests.astype(np.float32), device=dev))
+    results["hilbert_tracked"] = scores(tracked, doa_true)
 
     demo = demo or build_demo(num_grid, frame, dev)
     ests_x = np.array([float(demo.forward(f)[0]) for f in frames])
     results["xylo"] = scores(ests_x, doa_true)
-    results["xylo_tracked"] = scores(to_numpy(track_angles(ests_x.astype(np.float32), device=dev)), doa_true)
+    tracked_x = to_numpy(track_angles(ests_x.astype(np.float32), device=dev))
+    results["xylo_tracked"] = scores(tracked_x, doa_true)
+    fig_lines((np.arange(len(doa_true)) + 0.5) * frame, {
+        "true": np.rad2deg(doa_true),
+        "hilbert": np.rad2deg(ests),
+        "xylo": np.rad2deg(ests_x),
+        "hilbert tracked": np.rad2deg(tracked),
+        "xylo tracked": np.rad2deg(tracked_x),
+    }, "moving_target_track.pdf", xlabel="time [s]", ylabel="DoA [deg]")
     return results
 
 

@@ -28,7 +28,7 @@ from ..ops.interp import signal_from_template
 from ..ops.peaks import top_k_peaks
 from ..utils import to_numpy
 from ..utils.tracking import track_multi_angles
-from .common import FS, arg_parser, folded_deg
+from .common import FS, arg_parser, fig_lines, folded_deg
 
 FREQ_DESIGN = 2_000.0
 FREQ_RANGE = (0.5 * FREQ_DESIGN, FREQ_DESIGN)
@@ -52,7 +52,9 @@ def scene(duration: float = 6.0, snr_db: float = 10.0, seed: int = 0):
 
 def run(duration: float = 6.0, snr_db: float = 10.0, frame: float = 0.25, num_grid: int = 32 * 7, device=None,
         sig_in=None) -> dict:
-    """The tracked and baseline errors; ``sig_in`` (T, M) replaces the mixture."""
+    """The tracked and baseline errors; ``sig_in`` (T, M) replaces the
+    mixture.  With ``HM2024_FIG_DIR`` set, the tracks also go to
+    ``multi_target_tracking.pdf``."""
     t, traj1, traj2, mix = scene(duration, snr_db)
     sig_in = mix if sig_in is None else sig_in
     n_frames, Tf = int(duration / frame), int(frame * FS)
@@ -77,6 +79,13 @@ def run(duration: float = 6.0, snr_db: float = 10.0, frame: float = 0.25, num_gr
     s2 = int(slots[np.argmin(folded_deg(thetas[PROBE, slots], true2[PROBE]))])
     trk1 = folded_deg(thetas[PROBE:, s1], true1[PROBE:])
     trk2 = folded_deg(thetas[PROBE:, s2], true2[PROBE:])
+    fig_lines(centers, {
+        "true 1": np.rad2deg(true1),
+        "true 2": np.rad2deg(true2),
+        "track A": np.rad2deg(np.where(confirmed[:, s1], thetas[:, s1], np.nan)),
+        "track B": np.rad2deg(np.where(confirmed[:, s2], thetas[:, s2], np.nan)),
+        "peaks (sorted)": np.rad2deg(z_sorted[:, 0]),
+    }, "multi_target_tracking.pdf", xlabel="time [s]", ylabel="DoA [deg]")
     return {
         "snr_db": snr_db,
         "n_frames": n_frames,

@@ -41,7 +41,7 @@ from ..models.xylo import Demo
 from ..models.xylo.pipeline import _auto_blend_scores, _blockcos, _cos1
 from ..ops.fir import full_fp32
 from ..parallel import make_trial_fn, monte_carlo_sweep
-from .common import FS, speech_template
+from .common import FS, fig_mae_vs_snr, speech_template
 from .target_xylo_localization import reference_doa
 
 SNRS = [-10.0, -4.0, 2.0, 8.0, 14.0, 20.0]
@@ -151,6 +151,19 @@ def run_cross_segment(num_sims: int = 50, num_grid: int = 16 * 7, seed: int = 0,
     return {"snr_db": CROSS_SNRS, **mae_cols(errs, list(prof_cos))}
 
 
+def figures(res: dict) -> None:
+    """With ``HM2024_FIG_DIR`` set: the MAE-vs-SNR curves of one band
+    against three (JAX's figure)."""
+    snr = res["snr_db"]
+    one, three = res["single_band_1000_2000"], res["three_band_500_3000"]
+    fig_mae_vs_snr({
+        "single band, matched": (snr, one["matched_speech_cal_mae_deg"]),
+        "3 bands, matched (folded)": (snr, three["matched_speech_cal_mae_deg"]),
+        "3 bands, matched_stacked (cos)": (snr, three["matched_band_cos_mae_deg"]),
+        "single band, reference peak": (snr, one["reference_peak_mae_deg"]),
+    }, "multiband_speech_mae.pdf")
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true", help="8 trials a SNR")
@@ -166,6 +179,7 @@ def main(argv=None) -> dict:
         out = {"experiment": "multiband_speech_cross_segment", "results": run_cross_segment(**kw)}
     else:
         out = {"experiment": "multiband_speech", "results": run(**kw)}
+        figures(out["results"])
     print(json.dumps(out, indent=2))
     return out
 

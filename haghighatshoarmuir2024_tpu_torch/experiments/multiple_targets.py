@@ -28,7 +28,7 @@ from ..models.snn_beamformer import SNNBeamformer
 from ..ops.interp import signal_from_template
 from ..ops.peaks import find_peaks_mask
 from ..utils import to_numpy
-from .common import FS, arg_parser, sinusoid_template
+from .common import FS, arg_parser, fig_polar_patterns, sinusoid_template
 
 FREQ_DESIGN = 2_000.0
 FREQ_RANGE = (0.5 * FREQ_DESIGN, FREQ_DESIGN)
@@ -70,7 +70,9 @@ def mixtures(geometry, snr_db: float = 20.0, duration: float = 0.25, seed: int =
 
 def run(snr_db: float = 20.0, num_grid: int = 32 * 7, duration: float = 0.25, device=None, signals=None) -> dict:
     """Each method's detections in degrees; ``signals`` = :func:`mixtures`'
-    ``(sig_in, sig_in_music)`` to use instead."""
+    ``(sig_in, sig_in_music)`` to use instead.  With ``HM2024_FIG_DIR`` set,
+    the Hilbert (with interference removal), MUSIC and SNN profiles also go
+    to ``multiple_targets.pdf``."""
     geometry = CenterCircularArray(radius=4.5e-2, num_mic=7)
     doa_list = np.linspace(-np.pi, np.pi, num_grid)
     t, sig1, sig_in, sig_in_m = mixtures(geometry, snr_db, duration)
@@ -85,14 +87,18 @@ def run(snr_db: float = 20.0, num_grid: int = 32 * 7, duration: float = 0.25, de
         prof = (bf.apply_to_signal(bf_mat, sig_in).abs() ** 2).mean(dim=0)
         out[f"hilbert{'_ir' if ir else ''}"] = {"detected_deg": deg(prof)}
     music = MUSIC(geometry, FREQ_RANGE, doa_list, frame_duration=duration, fs=FS, device=device)
-    out["music"] = {"detected_deg": deg(music.beamforming(sig_in_m, 2, 2048))}
+    aps = music.beamforming(sig_in_m, 2, 2048)
+    out["music"] = {"detected_deg": deg(aps)}
     # beyond the reference: the noise subspace resolves the pair far more sharply than its Bartlett scan
     out["music_ns2"] = {"detected_deg": deg(music.beamforming(sig_in_m, 2, 2048, num_sources=2))}
     tau = 1.0 / (2 * np.pi * float(np.mean(FREQ_RANGE)))
     snn = SNNBeamformer(geometry, 10e-3, FREQ_RANGE, [tau, tau], bipolar_spikes=True, fs=FS, device=device)
     bf_snn = snn.design_from_template((t, sig1), doa_list)
-    out["snn"] = {"detected_deg": deg((snn.apply_to_signal(bf_snn, (t, sig_in)) ** 2).mean(dim=0))}
+    prof_snn = (snn.apply_to_signal(bf_snn, (t, sig_in)) ** 2).mean(dim=0)
+    out["snn"] = {"detected_deg": deg(prof_snn)}
     out["targets_deg"] = np.rad2deg(TARGETS).tolist()
+    fig_polar_patterns({"hilbert": to_numpy(prof), "music": to_numpy(aps), "snn": to_numpy(prof_snn)}, doa_list,
+                       "multiple_targets.pdf")
     return out
 
 

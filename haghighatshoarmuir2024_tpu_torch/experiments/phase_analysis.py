@@ -8,8 +8,8 @@ and of a 1600-2000 Hz chirp against its programmed sweep.
 
     python -m haghighatshoarmuir2024_tpu_torch.experiments.phase_analysis [--device cpu]
 
-Prints one JSON object with the JAX twin's keys.  The figures are not
-ported.
+Prints one JSON object with the JAX twin's keys; with ``HM2024_FIG_DIR``
+set, also writes JAX's three figures there.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 from ..geometry import resolve_device
 from ..ops.iir import butter_bandpass, iir_filter
 from ..ops.stht import stht, stht_kernel
-from .common import FS, arg_parser, chirp_template
+from .common import FS, arg_parser, chirp_template, fig_lines
 
 
 def _analytic(sig: np.ndarray, dev: torch.device, kernel_duration: float = 10e-3):
@@ -44,6 +44,10 @@ def overlapping_exponentials(dev) -> dict:
     f1, f2 = 1700.0, 1900.0
     a, K = _analytic(np.sin(2 * np.pi * f1 * t) + 0.5 * np.sin(2 * np.pi * f2 * t), dev)
     f_inst = _f_inst(a[2 * K: -2 * K])
+    # paper_plots/phase_plot.py: the two-tone sum's instantaneous frequency beside the two tones
+    fig_lines(t[2 * K: -2 * K][:-1][: len(f_inst)], {
+        "f_inst": f_inst, f"f1={f1:.0f}": np.full_like(f_inst, f1), f"f2={f2:.0f}": np.full_like(f_inst, f2),
+    }, "phase_plot.pdf", xlabel="t [s]", ylabel="inst. frequency [Hz]")
     return {"f_inst_mean": float(f_inst.mean()),
             "f_inst_in_band_frac": float(np.mean((f_inst > f1 - 150) & (f_inst < f2 + 150)))}
 
@@ -62,6 +66,10 @@ def wideband_stats(sig: np.ndarray, dev) -> dict:
     band-limited noise ``sig``."""
     an, K = _analytic(sig, dev)
     f_inst = _f_inst(an[2 * K: -2 * K])
+    # paper_plots/random_phase.py: the instantaneous frequency gathering around the band centre
+    t = np.arange(len(sig)) / FS
+    fig_lines(t[2 * K: -2 * K][:-1][: len(f_inst)], {"f_inst (1600-1900 Hz noise)": f_inst}, "random_phase.pdf",
+              xlabel="t [s]", ylabel="inst. frequency [Hz]")
     return {"f_inst_median": float(np.median(f_inst)),
             "f_inst_iqr": float(np.percentile(f_inst, 75) - np.percentile(f_inst, 25))}
 
@@ -72,7 +80,11 @@ def chirp_phase(dev) -> dict:
     a, K = _analytic(sig, dev)
     sl = slice(2 * K, len(t) - 2 * K)
     f_inst = _f_inst(a[sl])
-    err = np.abs(f_inst - (1600.0 + (2000.0 - 1600.0) * (t[sl][:-1] / t[-1])))
+    f_true = 1600.0 + (2000.0 - 1600.0) * (t[sl][:-1] / t[-1])
+    err = np.abs(f_inst - f_true)
+    # paper_plots/chirp_phase_plot.py: the recovered against the programmed sweep
+    fig_lines(t[sl][:-1], {"recovered f_inst": f_inst, "programmed sweep": f_true}, "chirp_phase_plot.pdf",
+              xlabel="t [s]", ylabel="frequency [Hz]")
     return {"freq_track_mae_hz": float(err.mean()), "freq_track_p95_hz": float(np.percentile(err, 95))}
 
 

@@ -20,8 +20,8 @@ trials)``), the same for every coefficient, or from ``noise=``.  A
 coefficient's trials are synthesized in one batch on the device and go
 through one Hilbert scan (the batched ``Beamformer.apply_to_signal``) and one
 ``Demo.rates_batch`` (on the card: K1, K2, the pack and K3 once), then the
-fold, the centring and the matched-profile product.  The figure is not
-ported.
+fold, the centring and the matched-profile product.  With
+``HM2024_FIG_DIR`` set, ``main`` also writes JAX's figure there.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ import torch
 from ..geometry import resolve_device
 from ..ops.interp import room_image_paths, signal_from_template_multipath
 from ..parallel import folded_angle_error
-from .common import FS, arg_parser
+from .common import FS, arg_parser, fig_lines
 from .mismatch_robustness import build, estimators
 
 ROOM = (5.0, 4.0)
@@ -101,12 +101,22 @@ def run(num_trials: int = 20, num_grid: int = 16 * 7, seed: int = 0, duration: f
     return res
 
 
+def figures(res: dict) -> None:
+    """With ``HM2024_FIG_DIR`` set: each method's MAE against the wall
+    reflection coefficient (JAX's figure)."""
+    fig_lines(res["reflection"], {
+        "Hilbert beamformer": res["hilbert_mae_deg"],
+        "quantized Xylo (matched)": res["xylo_matched_mae_deg"],
+    }, "reverb_robustness_mae.pdf", xlabel="wall reflection coefficient", ylabel="MAE [deg]")
+
+
 def main(argv=None) -> dict:
     ap = arg_parser(__doc__)  # --quick: 8 trials, 0.05 s frames, a 17-point grid
     ap.add_argument("--trials", type=int, default=None, help="trials a coefficient (default 20, 8 with --quick)")
     args = ap.parse_args(argv)
     res = run(args.trials or (8 if args.quick else 20), 17 if args.quick else 16 * 7,
               duration=0.05 if args.quick else 0.25, device=args.device)
+    figures(res)
     out = {"experiment": "reverb_robustness", "results": res}
     print(json.dumps(out, indent=2))
     return out

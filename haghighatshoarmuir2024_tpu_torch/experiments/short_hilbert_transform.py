@@ -12,8 +12,9 @@ tests/hilbert_snn.py:242-326):
 
     python -m haghighatshoarmuir2024_tpu_torch.experiments.short_hilbert_transform [--device cpu]
 
-Prints one JSON object with the JAX twin's keys.  Figures are not written
-(ROADMAP, queue 1 item 7).
+Prints one JSON object with the JAX twin's keys; with ``HM2024_FIG_DIR``
+set, also writes JAX's two figures there (``short_hilbert_transform.pdf``,
+``rzcc_plots.pdf``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from ..geometry import resolve_device
 from ..ops.spikes import rzcc_encode
 from ..ops.stht import stht, stht_kernel
-from .common import FS, arg_parser
+from .common import FS, _fig_dir, _plt, arg_parser, maybe_savefig
 
 DURATIONS = (5e-3, 10e-3, 20e-3)
 
@@ -69,6 +70,21 @@ def rzcc_spike_timing(dev, freq: float = 2000.0) -> dict:
     x = torch.as_tensor(sig[:, None], dtype=torch.float32, device=dev)
     spikes = rzcc_encode(x, rw, bipolar=True)[:, 0].cpu().numpy()
     pos = np.nonzero(spikes == 1)[0]
+    # paper_plots/rzcc_plots.py: the tone with its bipolar RZCC spike train
+    # (stems at the zero crossings)
+    if _fig_dir():
+        plt = _plt()
+        fig, ax = plt.subplots(figsize=(7, 3))
+        n = int(FS / freq * 8)  # ~8 periods
+        ax.plot(t[:n] * 1e3, sig[:n], lw=1, label=f"{freq:.0f} Hz tone")
+        neg = np.nonzero(spikes == -1)[0]
+        for idx, linefmt, markerfmt, lbl in ((pos, "g-", "g^", "+1 spikes"), (neg, "r-", "rv", "-1 spikes")):
+            sel = idx[idx < n]
+            ax.stem(t[sel] * 1e3, spikes[sel] * 0.9, linefmt=linefmt, markerfmt=markerfmt, basefmt=" ", label=lbl)
+        ax.set_xlabel("t [ms]")
+        ax.legend(loc="upper right", fontsize=8)
+        maybe_savefig(fig, "rzcc_plots.pdf")
+        plt.close(fig)
     phases = (t[pos] * freq) % 1.0
     return {"num_pos_spikes": int(len(pos)), "phase_mean": float(phases[2:].mean()),
             "phase_std": float(phases[2:].std())}
@@ -83,8 +99,30 @@ def run(device=None) -> dict:
     }
 
 
+def kernel_response_figure() -> None:
+    """With ``HM2024_FIG_DIR`` set: |H(f)| of the STHT kernel of each
+    duration against the ideal Hilbert response
+    (paper_plots/short_hilbert_transform.py)."""
+    if not _fig_dir():
+        return
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(6, 4))
+    freqs = np.fft.rfftfreq(1 << 16, 1 / FS)
+    for d in DURATIONS:
+        H = np.fft.rfft(stht_kernel(int(FS * d)), 1 << 16)
+        ax.plot(freqs / 1e3, np.abs(H), lw=1, label=f"{d*1e3:.0f} ms kernel")
+    ax.axhline(1.0, color="k", ls="--", lw=0.8, label="ideal Hilbert")
+    ax.set_xlim(0, 10)
+    ax.set_xlabel("frequency [kHz]")
+    ax.set_ylabel("|H(f)|")
+    ax.legend(fontsize=8)
+    maybe_savefig(fig, "short_hilbert_transform.pdf")
+    plt.close(fig)
+
+
 def main(argv=None) -> dict:
     args = arg_parser(__doc__).parse_args(argv)
+    kernel_response_figure()
     out = run(args.device)
     print(json.dumps({"experiment": "short_hilbert_transform", "results": out}, indent=2))
     return out

@@ -19,7 +19,8 @@ import numpy as np
 
 from ..geometry import CenterCircularArray
 from ..models.srp_phat import SRPPHAT
-from .common import FS, arg_parser, chirp_template, mc_sweep, sinusoid_template, speech_template, summarize
+from .common import (FS, arg_parser, chirp_template, fig_mae_vs_snr, mc_sweep, sinusoid_template,
+                     speech_template, summarize)
 
 TARGETS = ("tone", "chirp", "speech")
 
@@ -64,6 +65,7 @@ def main(argv=None) -> dict:
                                  duration=duration, speech_duration=duration if args.quick else 1.0,
                                  device=args.device))
            for target in TARGETS}
+    fig_mae_vs_snr({t: (out[t]["snr_db"], out[t]["mae_deg"]) for t in out}, "srp_phat_baseline_mae.pdf")
     res = {"experiment": "srp_phat_baseline", "results": out}
     print(json.dumps(res, indent=2))
     return res

@@ -19,7 +19,7 @@ import numpy as np
 
 from ..geometry import CenterCircularArray
 from ..models.beamformer import Beamformer
-from .common import FS, arg_parser, mc_sweep, sinusoid_template, speech_template, summarize
+from .common import FS, arg_parser, fig_mae_vs_snr, mc_sweep, sinusoid_template, speech_template, summarize
 
 FREQ_RANGE = (1_000.0, 2_000.0)  # [0.5, 1] x the 2 kHz design frequency
 TONE = 1_500.0  # 0.75 x the design frequency
@@ -64,6 +64,7 @@ def main(argv=None) -> dict:
     for target, n in (("tone", sims), ("speech", max(sims // 5, 2))):
         out[target] = summarize(run(target, n, grid, duration=duration, speech_duration=1.0 if not args.quick
                                     else duration, model=model))
+    fig_mae_vs_snr({t: (out[t]["snr_db"], out[t]["mae_deg"]) for t in out}, "target_localization_mae.pdf")
     res = {"experiment": "target_localization", "results": out}
     print(json.dumps(res, indent=2))
     return res

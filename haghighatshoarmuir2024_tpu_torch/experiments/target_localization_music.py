@@ -19,7 +19,7 @@ import numpy as np
 
 from ..geometry import CenterCircularArray
 from ..models.music import MUSIC
-from .common import FS, arg_parser, mc_sweep, summarize
+from .common import FS, arg_parser, fig_mae_vs_snr, mc_sweep, summarize
 from .target_localization import FREQ_RANGE, template
 
 NUM_ACTIVE_FREQ = 1
@@ -56,6 +56,7 @@ def main(argv=None) -> dict:
     out = {target: summarize(run(target, n, duration=duration, speech_duration=duration if args.quick else 1.0,
                                  model=music))
            for target, n in (("tone", sims), ("speech", max(sims // 5, 2)))}
+    fig_mae_vs_snr({t: (out[t]["snr_db"], out[t]["mae_deg"]) for t in out}, "target_localization_music_mae.pdf")
     res = {"experiment": "target_localization_music", "results": out}
     print(json.dumps(res, indent=2))
     return res

@@ -22,7 +22,8 @@ import numpy as np
 from ..geometry import CenterCircularArray
 from ..models.snn_beamformer import SNNBeamformer
 from ..parallel import snr_with_bandwidth_correction
-from .common import FS, arg_parser, chirp_template, mc_sweep, snr_sweep_config, speech_template, summarize
+from .common import (FS, arg_parser, chirp_template, fig_mae_vs_snr, mc_sweep, snr_sweep_config,
+                     speech_template, summarize)
 
 FREQ_RANGE = (1_000.0, 2_000.0)
 
@@ -67,6 +68,7 @@ def main(argv=None) -> dict:
     out = {target: summarize(run(target, n, duration=duration, speech_duration=duration if args.quick else 1.0,
                                  model=model))
            for target, n in (("tone", sims), ("speech", max(sims // 5, 2)))}
+    fig_mae_vs_snr({t: (out[t]["snr_db"], out[t]["mae_deg"]) for t in out}, "target_snn_localization_mae.pdf")
     res = {"experiment": "target_snn_localization", "results": out}
     print(json.dumps(res, indent=2))
     return res

@@ -38,7 +38,8 @@ from ..ops.fir import full_fp32
 from ..ops.interp import signal_from_template
 from ..parallel import make_trial_fn, monte_carlo_sweep, snr_with_bandwidth_correction, synthesize_batch
 from ..utils.peak_location import find_peak_location
-from .common import FS, chirp_template, sinusoid_template, snr_sweep_config, speech_template, summarize
+from .common import (FS, chirp_template, fig_lines, fig_mae_vs_snr, sinusoid_template, snr_sweep_config,
+                     speech_template, summarize)
 
 VARIANTS = list(itertools.product(ORDERINGS, RESETS))
 FREQ_RANGE = (1_000.0, 2_000.0)  # [0.5, 1] x the 2 kHz design frequency
@@ -238,8 +239,27 @@ def run_speech(bipolar: bool = True, num_sims: int = 100, num_grid: int = 16 * 7
     return {"beam_profiles": beam, "speech_mc": mc, "calibration_robustness": robustness}
 
 
+def figures(sm: dict, bipolar: bool) -> None:
+    """With ``HM2024_FIG_DIR`` set: each estimator's MAE against the SNR
+    (``sm``: :func:`~.common.summarize` of each of :func:`run`'s sweeps)."""
+    fig_mae_vs_snr({k: (v["snr_db"], v["mae_deg"]) for k, v in sm.items() if "mae_deg" in v},
+                   f"target_xylo_{'bipolar' if bipolar else 'unipolar'}_mae.pdf")
+
+
+def speech_figures(res: dict, bipolar: bool) -> None:
+    """With ``HM2024_FIG_DIR`` set: the speech MC's three MAE curves and
+    stage A's normalized rate profiles (JAX's two speech figures)."""
+    mc = res["speech_mc"]
+    fig_mae_vs_snr({lab: (mc["snr_db"], mc[lab]["mae_deg"]) for lab in SPEECH_LABELS},
+                   f"target_xylo_speech_{'bipolar' if bipolar else 'unipolar'}_mae.pdf")
+    grid = np.linspace(-180, 180, len(next(iter(res["beam_profiles"].values()))["profile"]))
+    fig_lines(grid, {k: v["profile"] for k, v in res["beam_profiles"].items()}, "xylo_fixed_speech_beam.pdf",
+              xlabel="DoA (deg.)", ylabel="normalized rate")
+
+
 def main_speech(bipolar: bool, sims: int, num_grid: int, duration: float, device) -> dict:
     res = run_speech(bipolar=bipolar, num_sims=sims, num_grid=num_grid, duration=duration, device=device)
+    speech_figures(res, bipolar)
     out = {
         "experiment": f"target_xylo_speech_{'bipolar' if bipolar else 'unipolar'}",
         "results": {
@@ -270,6 +290,7 @@ def main(argv=None) -> dict:
     res = run(bipolar=bipolar, num_sims=sims, num_grid=args.grid, duration=args.duration or 0.25, device=args.device)
     env = res.pop("reference_estimator_convention_envelope")
     sm = {k: summarize(v) for k, v in res.items()}
+    figures(sm, bipolar)
     sm["reference_estimator_convention_envelope"] = env
     out = {"experiment": f"target_xylo_{'bipolar' if bipolar else 'unipolar'}_localization", "results": sm}
     print(json.dumps(out, indent=2))

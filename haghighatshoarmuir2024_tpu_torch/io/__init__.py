@@ -1,6 +1,9 @@
 """Audio sources: synthetic, file (wav, flac by the bundled decoder) and the
-dev-board recorder (counterpart of ``haghighatshoarmuir2024_tpu/io``)."""
+dev-board recorder, and the live visualizer (counterpart of
+``haghighatshoarmuir2024_tpu/io``)."""
 
 from .audio import AudioRecorder, AudioSource, FileAudioSource, MultiMicDevKitNotFound, SyntheticAudioSource
+from .visualizer import Visualizer
 
-__all__ = ["AudioSource", "SyntheticAudioSource", "FileAudioSource", "AudioRecorder", "MultiMicDevKitNotFound"]
+__all__ = ["AudioSource", "SyntheticAudioSource", "FileAudioSource", "AudioRecorder", "MultiMicDevKitNotFound",
+           "Visualizer"]

@@ -1,6 +1,7 @@
 """Counterparts of haghighatshoarmuir2024_tpu/ops: the names the JAX
 package's ``ops`` exports, where the port has them."""
 
+from .batching import chunked_vmap  # noqa: F401  (public; outside __all__, which lists JAX ops' names)
 from .envelope import Envelope
 from .filterbank import ButterworthFilterbank, Filterbank
 from .fir import fir_filter, moving_average_full

@@ -2,6 +2,8 @@
 import numpy as np
 import torch
 
+from .profiling import StageTimer, benchmark_fn, device_trace
+
 
 def to_numpy(x) -> np.ndarray:
     """A tensor (complex too) or array-like → a numpy array on the host
@@ -11,4 +13,4 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-__all__ = ["to_numpy"]
+__all__ = ["to_numpy", "StageTimer", "benchmark_fn", "device_trace"]
