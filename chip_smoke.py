@@ -292,6 +292,35 @@ Phases, each failing the run with a non-zero exit:
     23's total; ``ops.chunked_vmap`` on the card (449 rows, chunks of 64)
     equal to ``torch.func.vmap`` of the whole input.
 
+26. the mesh and the native producer clients, at the serving flagship's full
+    width (96 streams, 0.25 s chunks, 48 kHz, 449 points, the bundled design
+    and table): ``StreamingLocalizer.make_sharded_step`` over 2 and 4 shards
+    on the card (and over as many of the cards as leave a shard 24 or more
+    streams, where there are several, with one shard's step alone and the
+    shards in turn on one card beside it, the overlap), 4 chunks: every
+    state field bit-identical to the unsharded step's, the matched DoAs
+    equal, K1, the pack pass and K4 once per shard per step (K2 at
+    least), and K1, K2, the pack pass and K4 at B = 48 and 24 equal to
+    their plain versions; at B = 12 (96
+    streams over 8 cards) the same kernels against their plain versions, and
+    that shard's lanes against the 96-stream step's, printed; the unipolar
+    flagship over 2 shards (the raster pack and K6, at B = 48 against the
+    plain path); the sharded and unsharded step's times; ``LocalizationServer(mesh=)`` over 4 shards on
+    the f32 wire and the u4 wire at fs/4 with 8 TCP clients of 8 chunks as
+    phase 8 (every answer equal to the unsharded direct step's, each kernel
+    once per shard per serve step), and ``max_streams=6`` over 4 shards
+    raising ``ValueError``; phase 21's Monte Carlo at full size (112 points,
+    100 trials x 11 SNRs, both estimators) over 4 shards, its ``errors``
+    equal to the unsharded sweep's element for element, K1, the pack pass
+    and K3 once per shard per SNR, and K1/K2 and K3 at B = 25 equal to the
+    plain path; ``serving_throughput.daemon_main(native_clients=True)`` over
+    TCP on i16 and over shared memory on u4 at fs/4 (64 streams x 20 rounds):
+    every answer equal to the Python clients' on the same chunks and to the
+    direct step, the C encoder's bytes equal to ``WireEncoder``'s on those
+    chunks, the rounds' wait / device / route ms beside the Python clients'
+    run just before and phase 23's; ``experiments.multichip_scaling.main()`` (8 shards over the
+    cards: a shard's block 1/8 of the trials, errors equal).
+
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
 last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -901,12 +930,13 @@ def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doa
 
 # ------------------------------------------------------------------ phase 8
 def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=4,
-                  wires=(("f32", 1), ("u4", 4)), method=None):
+                  wires=(("f32", 1), ("u4", 4)), method=None, **server_kw):
     """8 TCP clients through the daemon; each answer must equal the DoA of
     the direct streaming step at the same batch width on the same chunks
-    (by the server's estimator, ``method`` where given).  The serve-step
-    times leave out the first round of chunks: a new serving thread pays
-    one-off CUDA library set-up on its first step."""
+    (by the server's estimator, ``method`` where given; ``server_kw``, such
+    as a mesh, go to the server).  The serve-step times leave out the first
+    round of chunks: a new serving thread pays one-off CUDA library set-up
+    on its first step."""
     os.environ["HM2024_SERVE_TIMING"] = "1"
     B, Tc, M = frames.shape
     sids = list(range(0, B, B // 8))[:8]
@@ -922,7 +952,7 @@ def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, de
                 x = audio[s] / np.abs(audio[s]).max() * 0.98
                 sent[s] = [enc.encode(x) for _ in range(n_chunks)]
         with server.LocalizationServer(demo, max_streams=B, chunk_sec=Tc / demo.fs,
-                                       wire_dtype=wire, wire_upsample=up, method=method) as srv:
+                                       wire_dtype=wire, wire_upsample=up, method=method, **server_kw) as srv:
             srv.start()
             clients = {s: server.StreamClient(srv.port, s) for s in sids}
             _build.launch_counts.clear()
@@ -970,7 +1000,7 @@ def check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, de
                 fail(f"serving {wire}: chunk {k}: streams {bad} answered "
                      f"{[answers[s][k] for s in bad]}, the direct step gives {[float(direct[s]) for s in bad]}")
         steps = max(stage["steps"], 1)
-        out[wire] = dict(steps=stage["steps"],
+        out[wire] = dict(steps=stage["steps"], all_steps=srv.stage_times["steps"], launches=launches,
                          **{f"{k}_ms": stage[k] / steps * 1e3 for k in ("wait", "device", "route")})
         print(f"[serve] wire {wire} x{up}, {srv.method}: {len(sids)} clients x {n_chunks} chunks answered, every "
               f"DoA equal to the direct streaming step; launches {launches}", flush=True)
@@ -3898,6 +3928,320 @@ def check_demos(torch, _build, dev, flagship_demo, frames, event_ms, attribution
     return out
 
 
+# ------------------------------------------------------------------ phase 26
+SHARD_STEPS = 4  # chunks through each sharded step run
+# the fewest streams a shard over the cards is given: from 24 streams a shard
+# the lifted IIR rounds a stream as the unsharded 96-stream step does, below
+# that cuBLAS's level-2 products change kernel (ops/iir.iir_cumsum_blocked)
+MIN_SHARD_STREAMS = 24
+SHARD_TIMED = 10  # steps timed per reading
+NATIVE_RUNS = ((False, "i16", 1), (True, "u4", 4))  # (shm, wire, upsample) of the native daemon runs
+NATIVE_STREAMS, NATIVE_ROUNDS = 64, 20  # serving_throughput.daemon_main's, as phase 23 runs it
+
+
+def sync_all(torch, devices):
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+
+
+def shard_kernels_vs_plain(torch, sk, lk, sl, frames, label):
+    """Two chunks of one shard's streams (``frames``, B/n of them) through
+    the kernels' step and the plain step (plain RZCC + plain LIF): spikes,
+    counts and LIF state equal.  Returns the mismatches (0)."""
+    b = frames.shape[0]
+    state, pstate = sl.init_state(b), sl.init_state(b)
+    for k in range(2):
+        state, sp = sl.process_chunk(state, frames)
+        pstate, psp = plain_step(torch, sk, lk, sl, pstate, frames)
+        bad = mismatches(sp, psp) + sum(mismatches(getattr(state, f), getattr(pstate, f))
+                                        for f in ("counts", "isyn", "vmem", "spk"))
+        if bad:
+            fail(f"{label}: chunk {k} at B = {b}: {bad} spikes or LIF integers differ from the plain step")
+    return 0
+
+
+def sharded_run(torch, _build, StreamingLocalizer, StreamState, make_mesh, demo, frames, devices, expect, label):
+    """``SHARD_STEPS`` chunks through ``make_sharded_step`` over ``devices``
+    (one shard each) against the unsharded step on the same chunks: every
+    state field bit-identical and the matched DoAs equal; each
+    kernel of ``expect`` launched once per shard per step (K2 at least).
+    Returns the launches and the host ms of a sharded and an unsharded step
+    (each the mean of ``SHARD_TIMED`` steps, read unsharded, sharded,
+    sharded, unsharded)."""
+    B = frames.shape[0]
+    n = len(devices)
+    sl = StreamingLocalizer(demo)
+    step = sl.make_sharded_step(make_mesh(devices=devices))
+    step(step.init_state(B), frames)  # warm-up: the replicas' first launches
+    sync_all(torch, devices)
+    _build.launch_counts.clear()
+    states = step.init_state(B)
+    for _ in range(SHARD_STEPS):
+        states = step(states, frames)
+    sync_all(torch, devices)
+    launches = dict(_build.launch_counts)
+    ref = sl.init_state(B)
+    for _ in range(SHARD_STEPS):
+        ref = sl.process_chunk(ref, frames, return_spikes=False)
+    got = StreamState.cat(states, device=demo.device)
+    for f in dataclasses.fields(StreamState):
+        a, r = getattr(got, f.name), getattr(ref, f.name)
+        if mismatches(a, r):
+            fail(f"{label}: {mismatches(a, r)} elements of {f.name} differ from the unsharded step's")
+    if not torch.equal(sl.estimate_doa(got, "matched"), sl.estimate_doa(ref, "matched")):
+        fail(f"{label}: the matched DoAs differ from the unsharded step's")
+    for k in expect:
+        want = n * SHARD_STEPS
+        if launches.get(k, 0) != want and not (k == "rzcc_k2" and launches.get(k, 0) > want):
+            fail(f"{label}: {k} launched {launches.get(k, 0)} times, not once per shard per step ({want}); "
+                 f"launch counts {launches}")
+
+    def timed(fn):
+        st = sl.init_state(B) if fn is one else step.init_state(B)
+        sync_all(torch, devices)
+        t0 = time.perf_counter()
+        for _ in range(SHARD_TIMED):
+            st = fn(st, frames)
+        sync_all(torch, devices)
+        return (time.perf_counter() - t0) / SHARD_TIMED * 1e3
+
+    def one(st, x):
+        return sl.process_chunk(st, x, return_spikes=False)
+
+    u1, s1, s2, u2 = timed(one), timed(step), timed(step), timed(one)
+    return launches, dict(sharded_ms=(s1 + s2) / 2, unsharded_ms=(u1 + u2) / 2, readings=(u1, s1, s2, u2))
+
+
+def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, mulaw, dev, demo, udemo, frames,
+                  python_rounds, card):
+    """Phase 26: the sharded step, the sharded server, the sharded Monte
+    Carlo, the native producer clients and the scaling harness (module
+    docstring)."""
+    import tempfile
+
+    from haghighatshoarmuir2024_tpu_torch.experiments import multichip_scaling as mcs
+    from haghighatshoarmuir2024_tpu_torch.experiments import serving_throughput as st
+    from haghighatshoarmuir2024_tpu_torch.experiments import target_xylo_localization as txl
+    from haghighatshoarmuir2024_tpu_torch.experiments.common import FS, sinusoid_template, snr_sweep_config
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import FRAME
+    from haghighatshoarmuir2024_tpu_torch.parallel import make_mesh, make_trial_fn, monte_carlo_sweep
+    from haghighatshoarmuir2024_tpu_torch.runtime import StreamState
+    from haghighatshoarmuir2024_tpu_torch.runtime.native_client import NativeWireEncoder
+
+    out = {"s": {}, "launches": {}, "step": {}}
+    t_phase = time.perf_counter()
+    tag = f"[shard] [{card}]"
+    B = frames.shape[0]
+
+    # ---- (a) the sharded step: 2 and 4 shards on the card, over the cards where there are several
+    meshes = [[dev] * 2, [dev] * 4]
+    n_cards = max((k for k in range(2, torch.cuda.device_count() + 1) if B % k == 0 and B // k >= MIN_SHARD_STREAMS),
+                  default=1)
+    if n_cards > 1:
+        meshes.append([torch.device("cuda", i) for i in range(n_cards)])
+    sl = StreamingLocalizer(demo)
+    for devices in meshes:
+        n = len(devices)
+        cards = len(set(devices))
+        label = f"sharded step, {n} shards on {cards} card{'s' if cards > 1 else ''}"
+        t0 = time.perf_counter()
+        launches, r = sharded_run(torch, _build, StreamingLocalizer, StreamState, make_mesh, demo, frames, devices,
+                                  STREAM_PATH, label)
+        if cards == 1:  # each kernel at the shard's shape against its plain version
+            shard_kernels_vs_plain(torch, sk, lk, sl, frames[:B // n], f"{label}: K1, K2, pack, K4")
+        out["s"][label] = time.perf_counter() - t0
+        out["launches"][label] = launches
+        out["step"][label] = r
+        print(f"{tag} {label}: {SHARD_STEPS} chunks of {B} streams, every state field bit-identical to the unsharded "
+              f"step's, matched DoAs equal; launches {launches}" + ("; K1, K2, pack and K4 at B = "
+              f"{B // n} == their plain versions (spikes, counts, state)" if cards == 1 else "")
+              + f"; a step {r['sharded_ms']:.3f} ms sharded against {r['unsharded_ms']:.3f} ms unsharded "
+              f"(host clock, {SHARD_TIMED} steps a reading; readings unsharded, sharded, sharded, unsharded "
+              f"{', '.join(f'{x:.3f}' for x in r['readings'])})", flush=True)
+    if n_cards > 1:  # what the cards overlap: one shard's B/n alone on one card, against the cards
+        devices = meshes[-1]
+        n = len(devices)
+        _, alone = sharded_run(torch, _build, StreamingLocalizer, StreamState, make_mesh, demo, frames[:B // n],
+                               [dev], STREAM_PATH, f"one shard of {B // n} streams")
+        _, serial = sharded_run(torch, _build, StreamingLocalizer, StreamState, make_mesh, demo, frames,
+                                [dev] * n, STREAM_PATH, f"{n} shards on one card")
+        out["overlap"] = dict(cards_ms=out["step"][f"sharded step, {n} shards on {n} cards"]["sharded_ms"],
+                              one_shard_ms=alone["sharded_ms"], serial_ms=serial["sharded_ms"])
+        print(f"{tag} overlap over {n} cards: a step {out['overlap']['cards_ms']:.3f} ms, against one shard of "
+              f"{B // n} streams alone {alone['sharded_ms']:.3f} ms and {n} shards in turn on one card "
+              f"{serial['sharded_ms']:.3f} ms", flush=True)
+    # a shard of 12 streams (96 over 8 cards): the kernels against their plain versions, gated; the shard's
+    # lanes against the same lanes of the 96-stream step, printed (below MIN_SHARD_STREAMS the lifted IIR's
+    # level-2 products change cuBLAS kernel: ops/iir.iir_cumsum_blocked)
+    b = B // 8
+    shard_kernels_vs_plain(torch, sk, lk, sl, frames[:b], f"a shard of {b} streams: K1, K2, pack, K4")
+    wide, narrow = sl.init_state(B), sl.init_state(b)
+    for _ in range(SHARD_STEPS):
+        wide = sl.process_chunk(wide, frames, return_spikes=False)
+        narrow = sl.process_chunk(narrow, frames[:b], return_spikes=False)
+    lanes = StreamState.cat([wide], device=dev)
+    out["narrow"] = dict(
+        ints=sum(mismatches(getattr(narrow, f), getattr(lanes, f)[:b]) for f in ("counts", "isyn", "vmem", "spk")),
+        float_rel=max(float((getattr(narrow, f) - (getattr(lanes, f)[:, :b] if f == "pending" else
+                                                   getattr(lanes, f)[:b])).abs().max())
+                      / max(float(getattr(lanes, f).abs().max()), 1e-30) for f in ("iir_state", "int_carry", "pending")))
+    print(f"{tag} a shard of {b} streams (96 over 8 cards), {SHARD_STEPS} chunks: K1, K2, pack and K4 == their plain "
+          f"versions; against the same lanes of the 96-stream step {out['narrow']['ints']} LIF integers differ, the "
+          f"float state by {out['narrow']['float_rel']:.3g} of its largest value (printed, not gated: PERF.md §7)",
+          flush=True)
+    # the unipolar flagship through 2 shards: the raster pack and K6
+    t0 = time.perf_counter()
+    label = "sharded step, unipolar, 2 shards on 1 card"
+    launches, r = sharded_run(torch, _build, StreamingLocalizer, StreamState, make_mesh, udemo, frames, [dev] * 2,
+                              ("rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k6"), label)
+    shard_kernels_vs_plain(torch, sk, lk, StreamingLocalizer(udemo), frames[:B // 2], f"{label}: raster pack, K6")
+    out["s"][label], out["launches"][label], out["step"][label] = time.perf_counter() - t0, launches, r
+    print(f"{tag} {label}: every state field == the unsharded step's, DoAs equal; launches {launches}; K1, K2, "
+          f"the raster pack and K6 at B = {B // 2} == their plain versions; a step {r['sharded_ms']:.3f} ms "
+          f"sharded against {r['unsharded_ms']:.3f} ms", flush=True)
+
+    # ---- (b) the sharded server: 4 shards on the card, f32 and u4 at fs/4, 8 TCP clients of 8 chunks
+    t0 = time.perf_counter()
+    mesh4 = make_mesh(devices=[dev] * 4)
+    serve = check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=8,
+                          mesh=mesh4)
+    for wire, r in serve.items():
+        for k in ("rzcc_k1", "lif_pack", "lif_k4"):
+            if r["launches"].get(k, 0) != 4 * r["all_steps"]:
+                fail(f"sharded server ({wire}): {k} launched {r['launches'].get(k, 0)} times in "
+                     f"{r['all_steps']} serve steps of 4 shards")
+        out["launches"][f"sharded server {wire}"] = r["launches"]
+    try:
+        server.LocalizationServer(demo, max_streams=6, mesh=mesh4)
+    except ValueError:
+        pass
+    else:
+        fail("sharded server: max_streams=6 over 4 shards did not raise ValueError")
+    out["serve"] = serve
+    out["s"]["sharded server"] = time.perf_counter() - t0
+    print(f"{tag} sharded server, 4 shards: every answer == the unsharded direct step's, each kernel once per shard "
+          "per serve step; max_streams=6 over 4 shards raises ValueError; "
+          + "; ".join(f"{w}: {r['steps']} steps, device {r['device_ms']:.3f} ms, wait {r['wait_ms']:.3f} ms, route "
+                      f"{r['route_ms']:.3f} ms a step" for w, r in serve.items()), flush=True)
+
+    # ---- (c) the sharded Monte Carlo: phase 21's Xylo MC at full size over 4 shards
+    tmp = tempfile.TemporaryDirectory()
+    prev_cache = os.environ.get("HM2024_TORCH_CACHE")
+    os.environ["HM2024_TORCH_CACHE"] = tmp.name  # the MC model's design stays in the temp dir
+    try:
+        t0 = time.perf_counter()
+        td = txl.build_demo(True, 16 * 7, XYLO_FRAME, device=dev)  # designed on the card
+        t, sig = sinusoid_template(1500.0, XYLO_FRAME)
+        td.calibrate_profiles(template=(t, sig))
+        seen = {}
+
+        def keep(fn):
+            def estimate(f):
+                seen.setdefault("frames", f)
+                return fn(f)
+            return estimate
+
+        estimators = {"reference": lambda f: txl.reference_doa(td, td.fold(td.rates_batch(f))),
+                      "matched": lambda f: td.forward_batch(f, method="matched")[0]}
+        out["mc"] = {}
+        for name, est in estimators.items():
+            trial = make_trial_fn(td.geometry, t, sig, keep(est), FS, device=dev)
+            one = monte_carlo_sweep(trial, snr_sweep_config(), MC_TRIALS, SEED)
+            sharded, launches = counted(torch, _build, f"sharded MC ({name})", XYLO_PATH,
+                                        lambda: monte_carlo_sweep(trial, snr_sweep_config(), MC_TRIALS, SEED,
+                                                                  mesh=mesh4), out["s"])
+            if not np.array_equal(sharded["errors"], one["errors"]):
+                bad = int((sharded["errors"] != one["errors"]).sum())
+                fail(f"sharded MC ({name}): {bad} of {one['errors'].size} errors differ from the unsharded sweep's")
+            for k in ("rzcc_k1", "lif_pack", "lif_k3"):
+                if launches.get(k, 0) != 4 * len(snr_sweep_config()):
+                    fail(f"sharded MC ({name}): {k} launched {launches.get(k, 0)} times, not once per shard per SNR")
+            out["launches"][f"sharded MC {name}"] = launches
+            out["mc"][name] = np.rad2deg(one["mae"])
+        # K1, K2, pack and K3 at the shard's shape (B = 25) against their plain versions, one shard's frames
+        frames25 = seen["frames"][:MC_TRIALS // 4]
+        cs = td.encode(frames25)
+        T25, _, C25 = cs.shape
+        kp, kn = td.rzcc(cs)
+        p_kp, p_kn = sk.rzcc_encode_bipolar_tm_plain(cs.reshape(T25, -1), td.robust_width, 2 * td.robust_width)
+        counts = td.lif_counts(kp, kn)
+        p_counts = lk.lif_count_plain(td.xylo_config, p_kp.reshape(T25, -1, C25), p_kn.reshape(T25, -1, C25))
+        bad = mismatches(kp, p_kp.reshape(kp.shape)) + mismatches(kn, p_kn.reshape(kn.shape)) \
+            + mismatches(counts, p_counts)
+        if bad:
+            fail(f"sharded MC: K1/K2's masks or K3's counts at (B, T, C) = ({MC_TRIALS // 4}, {T25}, {C25}) differ "
+                 f"from the plain path's in {bad} entries")
+        out["s"]["sharded MC"] = time.perf_counter() - t0
+    finally:
+        if prev_cache is None:
+            del os.environ["HM2024_TORCH_CACHE"]
+        else:
+            os.environ["HM2024_TORCH_CACHE"] = prev_cache
+        tmp.cleanup()
+    print(f"{tag} sharded MC (1000-2000 Hz, grid 112, {MC_TRIALS} trials x 11 SNRs, both estimators) over 4 shards: "
+          f"errors == the unsharded sweep's element for element; K1, pack and K3 once per shard per SNR; K1/K2 and "
+          f"K3 at B = {MC_TRIALS // 4} == the plain path; MAE deg reference "
+          f"{np.round(out['mc']['reference'], 3).tolist()}, matched {np.round(out['mc']['matched'], 3).tolist()}; "
+          f"launches {out['launches']['sharded MC reference']}", flush=True)
+
+    # ---- (d) the native producer clients: 64 streams x 20 rounds, TCP on i16 and shm on u4 at fs/4
+    os.environ["HM2024_SERVE_TIMING"] = "1"
+    band = (1600, 1900)
+    out["native"] = {}
+    for shm, wire, up in NATIVE_RUNS:
+        label = f"serving_throughput {'--shm' if shm else '--daemon'} --native --wire={wire}" + \
+            (" --decim=4" if up == 4 else "")
+        py, nat = {}, {}
+        run = dict(batch=NATIVE_STREAMS, n_steps=NATIVE_ROUNDS, use_shm=shm, wire=wire, wire_upsample=up, demo=demo)
+        res_py = st.daemon_main(**run, answers=py)
+        res, launches = counted(torch, _build, label, STREAM_PATH,
+                                lambda: st.daemon_main(**run, answers=nat, native_clients=True), out["s"])
+        nb = res["streams"]
+        got, want_py = np.float32([nat[i] for i in range(nb)]), np.float32([py[i] for i in range(nb)])
+        if not np.array_equal(got, want_py):
+            fail(f"{label}: streams {np.flatnonzero(got != want_py).tolist()} answered otherwise than the Python "
+                 "clients on the same chunks")
+        chunks_d, _, _ = st.stream_chunks(demo, nb, FRAME, band)
+        want = st.direct_answers(demo, st.wire_chunks(chunks_d, wire, up), NATIVE_ROUNDS + 1, wire, up)
+        if not np.array_equal(got, want):
+            fail(f"{label}: answers differ from the direct step on the decoded wire chunks")
+        # the C encoder's bytes on the same chunks (zero history, as the harness encodes them)
+        audio = chunks_d.cpu().numpy()
+        audio = audio / np.abs(audio).max() * 0.98
+        n_bad = 0
+        for x in audio:
+            enc = NativeWireEncoder(wire, up, n_ch=x.shape[-1])
+            try:
+                n_bad += int((enc.encode(x) != server.encode_wire(x, wire, up)).sum())
+            finally:
+                enc.close()
+        if n_bad:
+            fail(f"{label}: the C encoder's bytes differ from WireEncoder's in {n_bad} codes")
+        out["native"][label] = dict(native=res, python=res_py)
+        out["launches"][label] = launches
+        p23 = python_rounds.get(label.replace(" --native", ""), {})
+        print(f"{tag} {label}: {json.dumps(res)}; every answer == the Python clients' (and the direct step's); the C "
+              f"encoder's bytes == WireEncoder's on the {nb} streams' chunks; the Python clients just before: "
+              f"{res_py['daemon-step-ms']} ms a round, stages {json.dumps(res_py.get('stage-ms'))}; phase 23's: "
+              f"{p23.get('daemon-step-ms', 'not run')} ms, {json.dumps(p23.get('stage-ms'))}; launches {launches}",
+              flush=True)
+
+    # ---- (e) the scaling harness on the card
+    res, launches = counted(torch, _build, "multichip_scaling", XYLO_PATH, mcs.main, out["s"])
+    n = f"mesh{mcs.SHARDS}"
+    if not res["errors_equal"] or res["per_device_work_ratio"] != int(n[4:]):
+        fail(f"multichip_scaling: errors equal {res['errors_equal']}, per-device work ratio "
+             f"{res['per_device_work_ratio']} over {n}")
+    out["scaling"] = res
+    out["launches"]["multichip_scaling"] = launches
+    print(f"{tag} multichip_scaling: {n} over {res['cards']} card(s): per-shard block {res[n]['per_device_key_block']} "
+          f"of {res[n]['num_sims']}, {res[n]['bytes_leaving_shard']} bytes leave a shard; trials/s "
+          f"{res['mesh1']['trials_per_sec_wall']:.1f} at 1 shard, {res[n]['trials_per_sec_wall']:.1f} at "
+          f"{n[4:]}; errors equal; launches {launches}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def sweep_label(name: str) -> str:
     return name if name.startswith("srp") else f"{name} tone"
 
@@ -4095,6 +4439,10 @@ def main() -> int:
                       "pack + K3 (integers uploaded once)": lif["params_ms"]},
                      bx["attribution"]["stages_ms"]["TOTAL (matched)"], batch_ms)
     lap(start, "the live demos, profiling and batching")
+    # ---- phase 26: the sharded step, server and MC, the native producer clients, the scaling harness
+    shx = check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, mulaw, dev, demo, udemo, frames,
+                        bx["serving"], card)
+    lap(start, "the mesh and the native producer clients")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -4231,6 +4579,7 @@ def main() -> int:
                                      **{name: n.get(key, 0) for name, n in bx["launches"].items()},
                                      **{name: n.get(key, 0) for name, n in spx["launches"].items()},
                                      **{name: n.get(key, 0) for name, n in dx["launches"].items()},
+                                     **{name: n.get(key, 0) for name, n in shx["launches"].items()},
                                      **{f"multiband_bench {fs // 1000} kHz": three[fs]["bench_launches"].get(key, 0)
                                         for fs in three}}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -4297,6 +4646,14 @@ def main() -> int:
               f"{100 * r['compute_share']:.1f} % of the loop")
     print(f"{tag} benchmark_fn(forward_batch(matched)) {dx['bench']['mean_ms']:.3f} ms; phase 25 seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in dx["s"].items()) + f"; phase 25 {dx['phase_s']:.1f} s")
+    for label, r in shx["step"].items():
+        print(f"{tag} {label}: a step {r['sharded_ms']:.3f} ms sharded against {r['unsharded_ms']:.3f} ms unsharded")
+    for label, r in shx["native"].items():
+        print(f"{tag} {label}: {r['native']['daemon-step-ms']} ms a round, stages "
+              f"{json.dumps(r['native'].get('stage-ms'))}; the Python clients {r['python']['daemon-step-ms']} ms, "
+              f"{json.dumps(r['python'].get('stage-ms'))}")
+    print(f"{tag} phase 26 seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in shx["s"].items())
+          + f"; phase 26 {shx['phase_s']:.1f} s")
     lap(start, "the times")
     print(f"[clock] the whole script: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

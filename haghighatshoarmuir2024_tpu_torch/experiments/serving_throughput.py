@@ -14,12 +14,14 @@ chunk, median of 10) and pipelined (50 chunks, synchronized once).
 with ``use_shm``, on the f32, i16, u8 or u4 wire, at fs/4 with
 ``wire_upsample=4``; the wall time covers ingestion, the device step and
 the answers.  With ``HM2024_SERVE_TIMING=1`` the server's stage times
-(wait / device / route) are reported per step.  The C producer clients
-(``native_clients=True``) are not ported: they do not touch the device.
+(wait / device / route) are reported per step.  ``native_clients=True``
+(``--native``) streams through the C producer clients of
+``runtime.native_client`` (``native/streamc.cpp``) instead of the Python
+ones, over TCP or shared memory alike.
 
     python -m haghighatshoarmuir2024_tpu_torch.experiments.serving_throughput \\
-        [--daemon | --shm] [--wire=f32|i16|u8|u4] [--decim=4] [--sources=2] \\
-        [--fs=48000] [--quick] [--device cpu]
+        [--daemon | --shm] [--native] [--wire=f32|i16|u8|u4] [--decim=4] \\
+        [--sources=2] [--fs=48000] [--quick] [--device cpu]
 
 Prints one JSON object with the JAX twin's keys.  Each stream is a tone of
 the band centre from its own direction plus 0.1 white noise from
@@ -40,6 +42,7 @@ from ..models.xylo import Demo
 from ..parallel import synthesize_batch
 from ..runtime import StreamingLocalizer
 from ..ops.resample import TAPS_PER_PHASE, design_upsample_fir, phase_table, upsample_poly_stream
+from ..runtime.native_client import NativeShmClient, NativeStreamClient
 from ..runtime.server import LocalizationServer, ShmStreamClient, StreamClient, encode_wire
 from .common import FS, arg_parser, calibrated_demo, folded_deg, sinusoid_template, sync
 from .wire_accuracy import decode_wire
@@ -154,8 +157,6 @@ def daemon_main(batch: int = 64, chunk_sec: float = 0.25, n_steps: int = 20, fre
     """Serving throughput through the daemon (module docstring); ``demo``
     replaces :func:`main`'s model, and ``answers``, where given, receives
     each stream's last answer by stream id."""
-    if native_clients:
-        raise NotImplementedError("the native C clients are not ported: they do not touch the device")
     demo = demo or calibrated_demo(num_grid, chunk_sec, fs, freq_band, resolve_device(device))
     chunks, doas, doas_b = stream_chunks(demo, batch, chunk_sec, freq_band, sources)
     sent = wire_chunks(chunks, wire, wire_upsample)
@@ -180,11 +181,13 @@ def daemon_main(batch: int = 64, chunk_sec: float = 0.25, n_steps: int = 20, fre
         try:
             for i in range(batch):
                 if use_shm:
-                    clients.append(ShmStreamClient(f"hm2024_bench_{os.getpid()}_{i}"))
+                    shm_client = NativeShmClient if native_clients else ShmStreamClient
+                    clients.append(shm_client(f"hm2024_bench_{os.getpid()}_{i}"))
                     srv.attach_shm(i, clients[-1].name)
                     attached.append(i)
                 else:
-                    clients.append(StreamClient(srv.port, i, sources=sources))
+                    tcp_client = NativeStreamClient if native_clients else StreamClient
+                    clients.append(tcp_client(srv.port, i, sources=sources))
             round_trip(clients)  # warm-up: the first step's one-off set-up
             srv.stage_times.update({k: 0 if k == "steps" else 0.0 for k in srv.stage_times})
             t0 = time.perf_counter()
@@ -232,7 +235,7 @@ def cli(argv=None) -> dict:
     ap.add_argument("--shm", action="store_true", help="through the serving daemon, shared-memory clients")
     ap.add_argument("--wire", choices=("f32", "i16", "u8", "u4"), default="i16")
     ap.add_argument("--decim", type=int, choices=(1, 4), default=1, help="4: the wire at fs/4")
-    ap.add_argument("--native", action="store_true", help="the C clients (not ported: raises)")
+    ap.add_argument("--native", action="store_true", help="the C producer clients (native/streamc.cpp)")
     ap.add_argument("--sources", type=int, choices=(1, 2), default=1)
     ap.add_argument("--fs", type=int, default=FS)
     args = ap.parse_args(argv)

@@ -37,6 +37,7 @@ CUDA tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -183,17 +184,40 @@ def rzcc_encode_bipolar_tm(cs_tm: torch.Tensor, distance, max_plateau: int):
     ``local_extrema_mask_bounded(cs, max_plateau)`` on (maxima, cs) and
     (minima, -cs).
     """
+    return rzcc_encode_bipolar_tm_finish(rzcc_encode_bipolar_tm_launch(cs_tm, distance, max_plateau))
+
+
+def rzcc_encode_bipolar_tm_launch(cs_tm: torch.Tensor, distance, max_plateau: int):
+    """The first half of :func:`rzcc_encode_bipolar_tm`: K1 and the first K2
+    round launched, the host not yet waiting on the card.  Pass the result
+    to :func:`rzcc_encode_bipolar_tm_finish`, which reads K2's flags; between
+    the two a caller may launch other cards' work (a sharded step)."""
     if cs_tm.device.type == "cpu":
         return rzcc_encode_bipolar_tm_plain(cs_tm, distance, max_plateau)
     w, W = _windows(distance, max_plateau)
     act_p, act_n, kept_p, kept_n = rzcc_k1(cs_tm, w, W)
+    act_p, act_n, flags = rzcc_k2(cs_tm, act_p, act_n, kept_p, kept_n, w)
+    return _PendingRZCC(cs_tm, w, act_p, act_n, kept_p, kept_n, flags)
+
+
+def rzcc_encode_bipolar_tm_finish(pending):
+    """``(kept_pos, kept_neg)`` of a launched encode: K2 rounds until its
+    flags say no candidate is left, each read on the host."""
+    if not isinstance(pending, _PendingRZCC):  # the CPU's plain result
+        return pending
+    cs_tm, w, act_p, act_n, kept_p, kept_n, flags = pending
     # every round keeps at least the rightmost window-max of each row that
-    # still has candidates, so T rounds always reach the fixed point
-    for _ in range(cs_tm.shape[0] + 1):
-        act_p, act_n, flags = rzcc_k2(cs_tm, act_p, act_n, kept_p, kept_n, w)
+    # still has candidates, so T + 1 rounds always reach the fixed point
+    for _ in range(cs_tm.shape[0]):
         if not bool(flags.any()):
             return kept_p, kept_n
+        act_p, act_n, flags = rzcc_k2(cs_tm, act_p, act_n, kept_p, kept_n, w)
+    if not bool(flags.any()):
+        return kept_p, kept_n
     raise RuntimeError("RZCC suppression did not reach its fixed point")
+
+
+_PendingRZCC = collections.namedtuple("_PendingRZCC", "cs_tm w act_p act_n kept_p kept_n flags")
 
 
 def suppress_k7(height_tm: torch.Tensor, act: torch.Tensor, kept: torch.Tensor, w: int):

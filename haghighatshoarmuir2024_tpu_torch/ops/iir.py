@@ -193,6 +193,13 @@ def _device_matrices(b_key, a_key, SB: int, Q: int, device: torch.device):
     if lvl2 is not None:
         names = ("Ws", "Ps", "Bm2", "h1m", "Hc", "sum_h", "LTex", "ASBQ", "Tm", "Tinv", "Bmm", "H2m")
         out.update(dict(zip(names, lvl2)))
+        # the level-2 maps of the block increments in one matrix, and the
+        # exclusive prefix with the full sum below it (iir_cumsum_blocked)
+        out["WsBm2"] = np.concatenate([out["Ws"], out["Bm2"]])
+        out["LTexSum"] = np.concatenate([out["LTex"], np.ones((1, Q))])
+    # every per-block projection of the input in one matrix: the within-block
+    # prefix sums, the block sums and the state increments
+    out["proj"] = np.concatenate([out["G2"], out["g1"][None], out["Bmm"] if lvl2 is not None else Bm_np])
     return {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in out.items()}
 
 
@@ -383,8 +390,17 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
     Q = max((q for q in range(1, min(nb, Qmax) + 1) if nb % q == 0), default=1)
     m = _device_matrices(b_key, a_key, SB, Q, x.device)
 
-    zP = torch.einsum("ji,bil->bjl", m["G2"], xb)  # within-block prefix sums of y
-    cP = torch.einsum("i,bil->bl", m["g1"], xb)  # per-block sums of y
+    # Each contraction over the block's samples or the super-block's blocks
+    # runs as one GEMM of many rows, and the N-term one is written out: on
+    # the card a GEMM of one or two rows changes kernel, and so its rounding,
+    # with the number of columns, and a batch split into shards must give
+    # each stream the unsharded result (chip_smoke.py phase 26).  It does
+    # down to 336 columns (24 streams of the flagship); below that the
+    # level-2 products change kernel too.
+    P = torch.einsum("ji,bil->bjl", m["proj"], xb)
+    zP = P[:, :SB]  # within-block prefix sums of y
+    cP = P[:, SB]  # per-block sums of y
+    sP = P[:, SB + 1:]  # state increments (modal basis at level 2)
     if zi is None:
         s = xf.new_zeros((N, L))
         c = xf.new_zeros((L,))
@@ -395,15 +411,18 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
 
     if "Ws" in m:
         nb2 = nb // Q
-        sP = torch.einsum("ni,bil->bnl", m["Bmm"], xb)  # modal-basis increments
         s = m["Tinv"] @ s  # the carried state enters the modal basis
         sP2 = sP.reshape(nb2, Q * N, L)
         cP2 = cP.reshape(nb2, Q, L)
-        U = torch.einsum("ab,ibl->ial", m["Ws"], sP2)  # (nb2, Q·N, L)
-        V = torch.einsum("nb,ibl->inl", m["Bm2"], sP2)  # (nb2, N, L)
-        e = cP2 + torch.einsum("n,iqnl->iql", m["h1m"], U.reshape(nb2, Q, N, L))
-        cumE = torch.einsum("pq,iql->ipl", m["LTex"], e)  # exclusive in-super prefix
-        sumE = e.sum(dim=1)  # (nb2, L)
+        UV = torch.einsum("ab,ibl->ial", m["WsBm2"], sP2)
+        U, V = UV[:, :Q * N], UV[:, Q * N:]  # (nb2, Q·N, L), (nb2, N, L)
+        Uq = U.reshape(nb2, Q, N, L)
+        hU = m["h1m"][0] * Uq[:, :, 0]
+        for n in range(1, N):
+            hU = hU + m["h1m"][n] * Uq[:, :, n]
+        e = cP2 + hU
+        cs = torch.einsum("pq,iql->ipl", m["LTexSum"], e)
+        cumE, sumE = cs[:, :Q], cs[:, Q]  # exclusive in-super prefix, (nb2, L) sums
         s_prev, c_prev = [], []
         for i in range(nb2):  # outer recurrence: nb2 sequential steps
             s_prev.append(U[i] + m["Ps"] @ s)
@@ -414,7 +433,6 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
         s = m["Tm"] @ s  # and leaves it, back in the TDF2 basis
         Hout = m["H2m"]
     else:
-        sP = torch.einsum("ni,bil->bnl", m["Bm"], xb)
         s_prev, c_prev = [], []
         for i in range(nb):  # level-1 recurrence: one step per block
             s_prev.append(s)

@@ -26,7 +26,16 @@ per slot over its answers (``utils.tracking``: ``DoaTracker``, or
 ``MultiDoaTracker`` with K + 2 slots when K > 1), reset when the slot is
 reclaimed (``server.py:207-240, 595-625``).
 
-Not ported: ``mesh=`` (one GPU); it raises ``NotImplementedError``.
+With ``mesh=`` (``parallel.make_mesh``) the B stream slots split into
+B/n lanes per shard of the mesh's data axis (JAX ``server.py:235-284,
+385-420, 480-530``): each shard keeps its own state, wire carry and
+``forget`` EMA on its device, over its own copy of the demo
+(``parallel.replicate_demo``), receives its slice of the staging buffer
+and runs the serve step on it; only the DoAs come back, gathered once on
+the host.  One host thread drives the shards: every shard's step is
+launched up to its one host synchronization (K2's flag read) before any
+shard finishes, so every card has its work queued while the host waits on
+one.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from ..models.xylo.pipeline import STACKED
 from ..ops.mulaw import mulaw4_decode_table, mulaw4_encode, mulaw_decode_table, mulaw_encode, pack4
 from ..ops.peaks import top_k_peaks
 from ..ops.resample import TAPS_PER_PHASE, decimate_fir, design_upsample_fir, phase_table, upsample_poly_stream
+from ..parallel.mesh import canonical_device, device_scope, replicate_demo
 from ..utils.tracking import DoaTracker, MultiDoaTracker
 from .streaming import StreamingLocalizer
 
@@ -94,6 +104,93 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+class _Shard:
+    """One shard's stream lanes ``[lo, hi)`` of a :class:`LocalizationServer`
+    on its device: its localizer over its copy of the demo, its carried
+    state, wire carry and ``forget`` EMA, and the serve step on its slice of
+    the staging buffer.  Without a mesh one shard holds every lane."""
+
+    def __init__(self, srv: "LocalizationServer", index: int, demo):
+        self.srv, self.demo, self.device = srv, demo, demo.device
+        self.B = srv._lanes
+        self.lo, self.hi = index * self.B, (index + 1) * self.B
+        self.sl = StreamingLocalizer(demo)
+        self._tbl8 = torch.as_tensor(mulaw_decode_table(), device=self.device)
+        self._tbl4 = torch.as_tensor(mulaw4_decode_table(), device=self.device)
+        self._wire_carry = None
+        if srv.wire_upsample > 1:
+            self._hp = torch.as_tensor(phase_table(design_upsample_fir(srv.wire_upsample), srv.wire_upsample),
+                                       device=self.device)
+            self._wire_carry = torch.zeros((self.B, TAPS_PER_PHASE - 1, srv.M), device=self.device)
+        self._state = self.sl.init_state(batch=self.B)
+        self._active = self._launched = None  # a launched step's lanes and state (launch, finish)
+        self._ema = None
+        if srv.forget is not None:
+            self._ema = torch.zeros((self.B, self.sl.n_hidden), device=self.device)
+
+    def _decode(self, raw_bytes: torch.Tensor) -> torch.Tensor:
+        """The uploaded wire bytes → (B, Tw, M) float32 wire-rate audio."""
+        srv = self.srv
+        raw = raw_bytes.view(srv._torch_dt).reshape(self.B, srv.Tb, srv.M)
+        if srv.wire_dtype == "i16":
+            return raw.to(torch.float32) * (1.0 / 32768.0)
+        if srv.wire_dtype == "u8":
+            return self._tbl8[raw.long()]
+        if srv.wire_dtype == "u4":
+            r = raw.long()
+            hi, lo = self._tbl4[(r >> 4) & 0xF], self._tbl4[r & 0xF]  # even sample in the high nibble
+            return torch.stack([hi, lo], dim=2).reshape(self.B, srv.Tb * 2, srv.M)
+        return raw
+
+    def reset_lanes(self, reset: torch.Tensor) -> None:
+        self._state = self._state.zero_where(reset)
+        if self._wire_carry is not None:
+            self._wire_carry = self._wire_carry.masked_fill(reset[:, None, None], 0.0)
+        if self._ema is not None:
+            self._ema = self._ema.masked_fill(reset[:, None], 0.0)
+
+    def _estimate(self, rate: torch.Tensor) -> torch.Tensor:
+        """Rates (B, H) → (B,) DoAs, or for K > 1 the (B, K) DoAs of each
+        row's top-K score peaks, NaN where a row has fewer (JAX
+        ``server.py:455-475``)."""
+        srv = self.srv
+        if srv.K == 1:
+            return self.demo.estimate_doa_from_rate(rate, srv.method)
+        scores = self.demo.doa_scores(rate, srv.method)
+        G = len(self.demo.doa_list)
+        dist = max(int(round(srv.source_min_sep_deg / (360.0 / max(G - 1, 1)))), 1)
+        idx, _, valid = top_k_peaks(scores, srv.K, distance=dist, rel_height=srv.source_rel_height)
+        doas = self.demo._doa_t.to(torch.float32)[idx]
+        return torch.where(valid, doas, torch.full_like(doas, float("nan")))
+
+    def launch(self, data: torch.Tensor, masks: torch.Tensor) -> None:
+        """The first half of a serve step on this shard's uploaded chunk rows
+        and (2, B) lane masks (active, reset): reset, decode, upsample and
+        the step up to K2's flag read (``StreamingLocalizer._step_launch``)."""
+        srv = self.srv
+        self._active, reset = masks[:self.B].bool(), masks[self.B:].bool()
+        self.reset_lanes(reset)
+        chunks = self._decode(data)
+        if self._wire_carry is not None:
+            chunks, adv = upsample_poly_stream(chunks, self._wire_carry, self._hp, srv.wire_upsample)
+            self._wire_carry = torch.where(self._active[:, None, None], adv, self._wire_carry)
+        self._launched = self.sl._step_launch(self._state, chunks)
+
+    def finish(self) -> torch.Tensor:
+        """The rest of the serve step: the LIF, the merge of the active lanes
+        and the estimate → (B,) or (B, K) DoAs on the device."""
+        srv, active, state = self.srv, self._active, self._state
+        new, _, _ = self.sl._step_finish(self._launched)
+        self._launched = None
+        self._state = new.where(active, state)
+        if self._ema is None:
+            return self._estimate(self.sl.rate(self._state, fold=srv.method not in STACKED))
+        # the merged counts of idle lanes are their old counts: chunk counts 0
+        chunk_counts = (self._state.counts - state.counts).to(torch.float32)
+        self._ema = torch.where(active[:, None], srv.forget * self._ema + chunk_counts, self._ema)
+        return self._estimate(self._ema if srv.method in STACKED else self.demo.fold(self._ema))
+
+
 class LocalizationServer:
     """TCP / shared-memory serving front end around :class:`StreamingLocalizer`.
 
@@ -110,16 +207,17 @@ class LocalizationServer:
     ``track=True`` tracks each slot's answers on the host (gate
     ``track_gate_deg``, gain ``track_alpha``); with K > 1 an answer holds
     the confirmed tracks.  ``HM2024_SERVE_TIMING=1`` accumulates seconds per
-    stage in ``stage_times``.
+    stage in ``stage_times``.  ``mesh`` (``parallel.make_mesh``) splits the
+    slots over the devices of its ``mesh_axis``, B/n a shard; ``max_streams``
+    must divide that axis.
     """
 
     def __init__(self, demo, max_streams: int = 64, chunk_sec: float = 0.25, port: int = 0,
                  method: str | None = None, batch_window_ms: int = 10, wire_dtype: str = "f32",
                  wire_upsample: int = 1, forget: float | None = None, mesh=None,
                  track: bool = False, track_alpha: float = 0.35, track_gate_deg: float = 25.0,
-                 sources: int = 1, source_min_sep_deg: float = 20.0, source_rel_height: float = 0.2):
-        if mesh is not None:
-            raise NotImplementedError("mesh= serving shards over TPU chips; the port serves on one GPU")
+                 sources: int = 1, source_min_sep_deg: float = 20.0, source_rel_height: float = 0.2,
+                 mesh_axis: str = "data"):
         if not 1 <= int(sources) <= 8:
             raise ValueError("sources must be in [1, 8]")
         self.K = int(sources)
@@ -127,7 +225,6 @@ class LocalizationServer:
         self.source_rel_height = float(source_rel_height)
         self.demo = demo
         self.device = demo.device
-        self.sl = StreamingLocalizer(demo)
         self.B = int(max_streams)
         self.Tc = int(round(chunk_sec * demo.fs))
         self.M = len(demo.geometry)
@@ -156,6 +253,10 @@ class LocalizationServer:
             raise ValueError("u4 wire needs an even wire-rate chunk")
         self.Tb = self.Tw // 2 if wire_dtype == "u4" else self.Tw  # wire rows per chunk
         self.forget = None if forget is None else float(forget)
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        devices = [canonical_device(demo.device)] if mesh is None else mesh.axis_devices(mesh_axis)
+        if self.B % len(devices):
+            raise ValueError("max_streams must divide the mesh axis size")
 
         np_dt, self._torch_dt = _WIRE[wire_dtype]
         elem = np.dtype(np_dt).itemsize
@@ -174,25 +275,18 @@ class LocalizationServer:
         self._reset_buf = (ctypes.c_uint32 * self.B)()
         self._n_resets = ctypes.c_int(0)
         # one staging buffer per step: the daemon's (B, Tb, M) chunk rows,
-        # then the active and reset lane masks (B bytes each); pinned on a
-        # GPU so that the step's single upload is a DMA
+        # then each shard's active and reset lane masks (B/n bytes each);
+        # pinned on a GPU so that each upload is a DMA
         self._nbytes = self.B * self.Tb * self.M * elem
         self._staging = torch.zeros(self._nbytes + 2 * self.B, dtype=torch.uint8,
-                                    pin_memory=self.device.type == "cuda")
+                                    pin_memory=any(d.type == "cuda" for d in devices))
         staging_np = self._staging.numpy()
         self._data_buf = staging_np[:self._nbytes].view(np_dt).reshape(self.B, self.Tb, self.M)
-        self._active = staging_np[self._nbytes:self._nbytes + self.B]
-        self._reset = staging_np[self._nbytes + self.B:]
+        self._lanes = self.B // len(devices)
+        self._masks = staging_np[self._nbytes:].reshape(len(devices), 2, self._lanes)  # (shard, active/reset, lane)
         self.stage_times = {"wait": 0.0, "device": 0.0, "route": 0.0, "steps": 0}
         self._timing = os.environ.get("HM2024_SERVE_TIMING") in ("1", "2")
 
-        self._tbl8 = torch.as_tensor(mulaw_decode_table(), device=self.device)
-        self._tbl4 = torch.as_tensor(mulaw4_decode_table(), device=self.device)
-        self._wire_carry = None
-        if self.wire_upsample > 1:
-            self._hp = torch.as_tensor(phase_table(design_upsample_fir(self.wire_upsample), self.wire_upsample),
-                                       device=self.device)
-            self._wire_carry = torch.zeros((self.B, TAPS_PER_PHASE - 1, self.M), device=self.device)
         # per-slot host trackers over the answers; a reclaimed slot's is reset
         self._trackers = None
         if track:
@@ -200,63 +294,34 @@ class LocalizationServer:
                 MultiDoaTracker(num_tracks=self.K + 2, alpha=track_alpha, gate_deg=track_gate_deg, max_misses=4)
                 if self.K > 1 else DoaTracker(alpha=track_alpha, gate_deg=track_gate_deg)
                 for _ in range(self.B)]
-        self._state = self.sl.init_state(batch=self.B)
-        self._ema = None
-        if self.forget is not None:
-            self._ema = torch.zeros((self.B, self.sl.n_hidden), device=self.device)
+        demos = {canonical_device(demo.device): demo}
+        for d in devices:
+            if d not in demos:
+                demos[d] = replicate_demo(demo, d)
+        self._shards = [_Shard(self, i, demos[d]) for i, d in enumerate(devices)]
 
     # ---- device side ------------------------------------------------------
-    def _decode(self, raw_bytes: torch.Tensor) -> torch.Tensor:
-        """The uploaded wire bytes → (B, Tw, M) float32 wire-rate audio."""
-        raw = raw_bytes.view(self._torch_dt).reshape(self.B, self.Tb, self.M)
-        if self.wire_dtype == "i16":
-            return raw.to(torch.float32) * (1.0 / 32768.0)
-        if self.wire_dtype == "u8":
-            return self._tbl8[raw.long()]
-        if self.wire_dtype == "u4":
-            r = raw.long()
-            hi, lo = self._tbl4[(r >> 4) & 0xF], self._tbl4[r & 0xF]  # even sample in the high nibble
-            return torch.stack([hi, lo], dim=2).reshape(self.B, self.Tb * 2, self.M)
-        return raw
-
-    def _reset_lanes(self, reset: torch.Tensor) -> None:
-        self._state = self._state.zero_where(reset)
-        if self._wire_carry is not None:
-            self._wire_carry = self._wire_carry.masked_fill(reset[:, None, None], 0.0)
-        if self._ema is not None:
-            self._ema = self._ema.masked_fill(reset[:, None], 0.0)
-
-    def _estimate(self, rate: torch.Tensor) -> torch.Tensor:
-        """Rates (B, H) → (B,) DoAs, or for K > 1 the (B, K) DoAs of each
-        row's top-K score peaks, NaN where a row has fewer (JAX
-        ``server.py:455-475``)."""
-        if self.K == 1:
-            return self.demo.estimate_doa_from_rate(rate, self.method)
-        scores = self.demo.doa_scores(rate, self.method)
-        G = len(self.demo.doa_list)
-        dist = max(int(round(self.source_min_sep_deg / (360.0 / max(G - 1, 1)))), 1)
-        idx, _, valid = top_k_peaks(scores, self.K, distance=dist, rel_height=self.source_rel_height)
-        doas = self.demo._doa_t.to(torch.float32)[idx]
-        return torch.where(valid, doas, torch.full_like(doas, float("nan")))
-
-    def _serve(self, staged: torch.Tensor) -> torch.Tensor:
-        """One serve step on the uploaded staging buffer → (B,) or (B, K) DoAs."""
-        active = staged[self._nbytes:self._nbytes + self.B].bool()
-        reset = staged[self._nbytes + self.B:].bool()
-        self._reset_lanes(reset)
-        chunks = self._decode(staged[:self._nbytes])
-        if self._wire_carry is not None:
-            chunks, adv = upsample_poly_stream(chunks, self._wire_carry, self._hp, self.wire_upsample)
-            self._wire_carry = torch.where(active[:, None, None], adv, self._wire_carry)
-        state = self._state
-        new, _, _ = self.sl._step(state, chunks)
-        self._state = new.where(active, state)
-        if self._ema is None:
-            return self._estimate(self.sl.rate(self._state, fold=self.method not in STACKED))
-        # the merged counts of idle lanes are their old counts: chunk counts 0
-        chunk_counts = (self._state.counts - state.counts).to(torch.float32)
-        self._ema = torch.where(active[:, None], self.forget * self._ema + chunk_counts, self._ema)
-        return self._estimate(self._ema if self.method in STACKED else self.demo.fold(self._ema))
+    def _serve(self) -> np.ndarray:
+        """One serve step over the shards: each uploads its slice of the
+        staging buffer (its lanes' rows and masks; the whole buffer at once
+        without a mesh) and launches its step, then each finishes it; the
+        (B,) or (B, K) DoAs come back to the host."""
+        for sh in self._shards:
+            with device_scope(sh.device):
+                if len(self._shards) == 1:
+                    staged = self._staging.to(sh.device, non_blocking=True)
+                    data, masks = staged[:self._nbytes], staged[self._nbytes:]
+                else:
+                    row = self._nbytes // self.B
+                    data = self._staging[sh.lo * row:sh.hi * row].to(sh.device, non_blocking=True)
+                    off = self._nbytes + 2 * sh.lo
+                    masks = self._staging[off:off + 2 * self._lanes].to(sh.device, non_blocking=True)
+                sh.launch(data, masks)
+        doas = []
+        for sh in self._shards:
+            with device_scope(sh.device):
+                doas.append(sh.finish())
+        return np.concatenate([d.to("cpu", torch.float32).numpy() for d in doas])
 
     def _answers(self, ids: np.ndarray, all_doas: np.ndarray) -> list:
         """The served streams' result floats, n·K of them: each stream's DoA
@@ -292,25 +357,26 @@ class LocalizationServer:
             self._reset_buf, self.B, ctypes.byref(self._n_resets),
         )
         t1 = time.monotonic() if self._timing else 0.0
-        self._reset[:] = 0
+        self._masks[:, 1] = 0
         n_reset = self._n_resets.value
         if n_reset > 0:
             reset_slots = np.ctypeslib.as_array(self._reset_buf)[:n_reset]
-            self._reset[reset_slots] = 1
+            self._masks[reset_slots // self._lanes, 1, reset_slots % self._lanes] = 1
             if self._trackers is not None:
                 for s in reset_slots:
                     self._trackers[int(s)].reset()
         if n <= 0:
             if n_reset > 0:
-                self._reset_lanes(torch.as_tensor(self._reset, device=self.device).bool())
+                for i, sh in enumerate(self._shards):
+                    with device_scope(sh.device):
+                        sh.reset_lanes(torch.as_tensor(self._masks[i, 1], device=sh.device).bool())
             if self._timing:
                 self.stage_times["wait"] += t1 - t0
             return 0
         ids = np.ctypeslib.as_array(self._ids_buf)[:n].copy()
-        self._active[:] = 0
-        self._active[ids] = 1
-        staged = self._staging.to(self.device, non_blocking=True)
-        all_doas = self._serve(staged).to("cpu", torch.float32).numpy()
+        self._masks[:, 0] = 0
+        self._masks[ids // self._lanes, 0, ids % self._lanes] = 1
+        all_doas = self._serve()
         t2 = time.monotonic() if self._timing else 0.0
         out_ids = (ctypes.c_uint32 * n)(*ids.tolist())
         out_doas = (ctypes.c_float * (n * self.K))(*self._answers(ids, all_doas))

@@ -39,7 +39,7 @@ from ..geometry import resolve_device
 from ..models.xylo.pipeline import STACKED
 from ..models.xylo.sim import uniform_rec_coef
 from ..ops.cuda.lif_kernel import lif_count_stateful, lif_count_stateful_bipolar
-from ..ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
+from ..ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm_finish, rzcc_encode_bipolar_tm_launch
 from ..ops.iir import iir_cumsum_blocked, iir_scan
 from ..ops.stht import stht_stream
 
@@ -89,6 +89,13 @@ class StreamState:
             f.name: torch.where(self._lanes(f.name, mask), getattr(self, f.name), getattr(other, f.name))
             for f in dataclasses.fields(self)
         })
+
+    @classmethod
+    def cat(cls, states, device="cpu") -> "StreamState":
+        """Per-shard states put back together on ``device``, in order."""
+        return cls(**{f.name: torch.cat([getattr(s, f.name).to(device) for s in states],
+                                        dim=1 if f.name in _TIME_MAJOR else 0)
+                      for f in dataclasses.fields(cls)})
 
     @classmethod
     def from_numpy(cls, arrays, device=None) -> "StreamState":
@@ -196,11 +203,23 @@ class StreamingLocalizer:
         """Advance all B streams by one (B, Tc, M) chunk: the new state and
         the two decided (Tc, B, C) polarity masks; a unipolar model's
         negative mask is None."""
+        return self._step_finish(self._step_launch(state, chunks))
+
+    def _step_launch(self, state: StreamState, chunks: torch.Tensor):
+        """The first half of :meth:`_step`, up to K2's first round: the
+        encode and the RZCC launched, the host not yet waiting on the card."""
         B, Tc, _ = chunks.shape
         fir_tail, delay_line, iir_state, int_carry, integrated = self._encode(state, chunks.transpose(0, 1))
         analysis = torch.cat([state.pending, integrated], dim=0)  # (L, B, C), time-major
         L = analysis.shape[0]
-        kp, kn = rzcc_encode_bipolar_tm(analysis.reshape(L, B * self.C), self.rw, 2 * self.rw)
+        rzcc = rzcc_encode_bipolar_tm_launch(analysis.reshape(L, B * self.C), self.rw, 2 * self.rw)
+        return state, (fir_tail, delay_line, iir_state, int_carry), analysis, rzcc
+
+    def _step_finish(self, launched):
+        """The rest of :meth:`_step`: K2's flags read, then the LIF."""
+        state, (fir_tail, delay_line, iir_state, int_carry), analysis, rzcc = launched
+        B, Tc = state.batch, analysis.shape[0] - state.pending.shape[0]
+        kp, kn = rzcc_encode_bipolar_tm_finish(rzcc)
         kp = kp[self.guard:self.guard + Tc].reshape(Tc, B, self.C)
         # spike_bound=1: binary masks from a zero start state, so the
         # no-saturation proof carries across chunks
@@ -228,6 +247,16 @@ class StreamingLocalizer:
         for a unipolar one: (Tc, C') for a single stream, time-major
         (Tc, B, C') for a batch.  ``return_spikes=False`` returns the new
         state alone (the serving loop needs only the counts)."""
+        x, single = self._as_chunks(state, chunk)
+        new, kp, kn = self._step(state, x)
+        if not return_spikes:
+            return new
+        spikes = (kp if kn is None else torch.cat([kp & ~kn, kn], dim=-1)).to(torch.int8)
+        return new, spikes[:, 0] if single else spikes
+
+    def _as_chunks(self, state: StreamState, chunk):
+        """``chunk`` as a (B, Tc, M) float32 batch on this device for
+        ``state``, and whether it was a single stream's (Tc, M)."""
         x = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
         single = x.dim() == 2
         if single:
@@ -237,11 +266,54 @@ class StreamingLocalizer:
                 f"chunk must be (Tc, {self.num_mic}) or ({state.batch}, Tc, {self.num_mic}) "
                 f"for this state; got {tuple(torch.as_tensor(chunk).shape)}"
             )
-        new, kp, kn = self._step(state, x)
-        if not return_spikes:
-            return new
-        spikes = (kp if kn is None else torch.cat([kp & ~kn, kn], dim=-1)).to(torch.int8)
-        return new, spikes[:, 0] if single else spikes
+        return x, single
+
+    def make_sharded_step(self, mesh, axis_name: str = "data"):
+        """The data-parallel serving step over a device mesh (JAX
+        ``streaming.py:378-405``): ``step(states, chunks) -> new states``
+        over per-shard states, B/n streams each on its shard's device (made
+        by ``step.init_state(B)``; ``StreamState.cat`` puts them together).
+        ``chunks`` is the whole (B, Tc, M) batch, split here on the stream
+        axis, or a list of per-shard (B/n, Tc, M) pieces.  Each shard runs
+        :meth:`_step` (no spike raster) on a localizer of its device over a
+        copy of the demo (``parallel.replicate_demo``; shards on this
+        localizer's device share it), and no tensor moves between shards.
+        One host thread drives every shard: each shard's step is launched up
+        to K2's flag read (:meth:`_step_launch`) before any flag is read, so
+        that every card has its work queued while the host waits on one.
+        ``step.localizers`` holds each shard's localizer."""
+        from ..parallel.mesh import canonical_device, device_scope, replicate_demo, split
+
+        devices = mesh.axis_devices(axis_name)
+        n = len(devices)
+        by_device = {canonical_device(self.device): self}
+        for d in devices:
+            if d not in by_device:
+                by_device[d] = StreamingLocalizer(replicate_demo(self.demo, d), self.pending)
+        localizers = [by_device[d] for d in devices]
+
+        def init_state(batch: int) -> list:
+            if batch % n:
+                raise ValueError(f"{batch} streams do not divide the {n} shards of {axis_name!r}")
+            return [sl.init_state(batch // n) for sl in localizers]
+
+        def step(states, chunks) -> list:
+            if len(states) != n:
+                raise ValueError(f"{len(states)} states for the {n} shards of {axis_name!r}")
+            pieces = list(chunks) if isinstance(chunks, (list, tuple)) else split(chunks, mesh, 0, axis_name)
+            launched = []
+            for sl, st, x in zip(localizers, states, pieces):
+                with device_scope(sl.device):
+                    launched.append(sl._step_launch(st, sl._as_chunks(st, x)[0]))
+            out = []
+            for sl, pending in zip(localizers, launched):
+                with device_scope(sl.device):
+                    out.append(sl._step_finish(pending)[0])
+            return out
+
+        step.init_state = init_state
+        step.localizers = localizers
+        return step
 
     def rate(self, state: StreamState, fold: bool = True) -> torch.Tensor:
         """Per-DoA spike rates (B, G) from the accumulated counts

@@ -2,13 +2,14 @@
 (counterpart of ``haghighatshoarmuir2024_tpu/utils/cache.py:144-186``).
 
 The flagship design and calibration tables are committed as ``.npz`` files
-inside the JAX package (``haghighatshoarmuir2024_tpu/data/designs/``).  They
-are read here by path, never written: importing that package would import
-JAX.  What the port designs or calibrates itself goes to its own user
-directory (:class:`DesignCache`), never to the JAX package's
-``~/.cache/hm2024_tpu``: a design computed in float32 on the card differs
-from the JAX package's by about 1e-5 per column, and neither package's
-parity may rest on the other's numbers.
+in the port's own ``data/designs/``, byte for byte the JAX package's bundled
+files (``haghighatshoarmuir2024_tpu/data/designs/``, a test holds their
+hashes equal), so the port needs nothing of the JAX package's tree.  They
+are read, never written.  What the port designs or calibrates itself goes
+to its own user directory (:class:`DesignCache`), never to the JAX
+package's ``~/.cache/hm2024_tpu``: a design computed in float32 on the card
+differs from the JAX package's by about 1e-5 per column, and neither
+package's parity may rest on the other's numbers.
 """
 from __future__ import annotations
 
@@ -22,9 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 
 CACHE_ENV = "HM2024_TORCH_CACHE"  # the user directory's override
-BUNDLED_DIR = (
-    Path(__file__).resolve().parent.parent.parent / "haghighatshoarmuir2024_tpu" / "data" / "designs"
-)
+BUNDLED_DIR = Path(__file__).resolve().parent.parent / "data" / "designs"
 
 
 def design_cache_key(**kwargs) -> str:

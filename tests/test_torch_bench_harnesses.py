@@ -199,7 +199,8 @@ def test_torch_serving_batched_step_matches_jax(sources):
 def test_torch_serving_daemon_round(shm, wire, up):
     """One TCP and one shared-memory run of ``daemon_main`` on localhost:
     every stream answered, each answer the direct step's on the decoded
-    wire chunks, JAX's keys, and no shared-memory ring left behind."""
+    wire chunks, JAX's keys, and no shared-memory ring left behind; then
+    the same run through the C producer clients, answering alike."""
     B, Tc_s, n_steps = 2, 0.1, 1
     _, td = models(duration=Tc_s)
     answers = {}
@@ -213,8 +214,13 @@ def test_torch_serving_daemon_round(shm, wire, up):
     want = serving_throughput.direct_answers(td, sent, n_steps + 1, wire, up)
     np.testing.assert_array_equal(np.float32([answers[i] for i in range(B)]), want)
     assert not glob.glob(f"/dev/shm/hm2024_bench_{os.getpid()}_*")
-    with pytest.raises(NotImplementedError):
-        serving_throughput.daemon_main(native_clients=True, demo=td)
+    # the C producer clients (native/streamc.cpp) on the same chunks: the Python clients' answers
+    native = {}
+    m = serving_throughput.daemon_main(batch=B, chunk_sec=Tc_s, n_steps=n_steps, num_grid=G, use_shm=shm,
+                                       wire=wire, wire_upsample=up, demo=td, answers=native, native_clients=True)
+    assert m["native-clients"] is True
+    np.testing.assert_array_equal(np.float32([native[i] for i in range(B)]), want)
+    assert not glob.glob(f"/dev/shm/hm2024_bench_{os.getpid()}_*")
 
 
 # ------------------------------------------------------------ reduced_rate

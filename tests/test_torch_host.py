@@ -3,6 +3,7 @@ design cache keys and the bundled designs, the quantized config, the static
 no-saturation proof, JAX ``Demo.save`` → port ``Demo.load``, and a JAX
 checkpoint through the port's ``load`` → ``save`` back into the JAX
 ``Demo.load`` with every array byte-equal (``profiles_stacked`` included)."""
+import hashlib
 import os
 
 import numpy as np
@@ -85,13 +86,25 @@ def test_torch_flagship_keys_resolve_to_bundled(demos):
         kernel_duration=10e-3, bipolar=True, fs=FS, version=1,
     )
     assert torch_cache.bundled_path(key).exists()
-    assert torch_cache.BUNDLED_DIR == jax_cache._BUNDLED_DIR
+    # the port's own copy, byte for byte the JAX package's file
+    assert torch_cache.BUNDLED_DIR != jax_cache._BUNDLED_DIR
+    assert torch_cache.bundled_path(key).read_bytes() == (jax_cache._BUNDLED_DIR / f"{key}.npz").read_bytes()
     bundled = jax_cache.DesignCache(cache_dir=os.devnull).load(key)
     np.testing.assert_array_equal(td.bf_mats[0], bundled["bf_0"])
     np.testing.assert_array_equal(td.bf_mats[0], jd.bf_mats[0])
     assert td.bf_mats[0].shape == (14, G)
     np.testing.assert_array_equal(td._profiles, np.asarray(jd._profiles))
     assert td._profiles.shape == (G, G)
+
+
+def test_torch_bundled_designs_are_the_jax_files():
+    """Every bundled design of the port is a copy of the JAX package's file
+    of the same name (sha256), and none is missing."""
+    ours = sorted(torch_cache.BUNDLED_DIR.glob("*.npz"))
+    theirs = sorted(jax_cache._BUNDLED_DIR.glob("*.npz"))
+    assert [p.name for p in ours] == [p.name for p in theirs] and len(ours) == 4
+    for a, b in zip(ours, theirs):
+        assert hashlib.sha256(a.read_bytes()).hexdigest() == hashlib.sha256(b.read_bytes()).hexdigest(), a.name
 
 
 def test_torch_xylo_config_integers_identical(demos):

@@ -31,6 +31,7 @@ import haghighatshoarmuir2024_tpu_torch as tpkg
 from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo
 from haghighatshoarmuir2024_tpu_torch.ops import mulaw, resample
 from haghighatshoarmuir2024_tpu_torch.ops.peaks import top_k_peaks
+from haghighatshoarmuir2024_tpu_torch.parallel import make_mesh
 from haghighatshoarmuir2024_tpu_torch.runtime import LocalizationServer, StreamingLocalizer
 from haghighatshoarmuir2024_tpu_torch.runtime.server import (
     ShmStreamClient,
@@ -354,8 +355,8 @@ def test_torch_server_multi_source_and_tracks(demo, sources, track):
 
 
 def test_torch_server_rejects_unported_options(demo):
-    with pytest.raises(NotImplementedError, match="one GPU"):
-        LocalizationServer(demo, mesh=object())
+    with pytest.raises(ValueError, match="mesh axis"):  # 6 slots do not split over 4 shards
+        LocalizationServer(demo, max_streams=6, mesh=make_mesh(devices=["cpu"] * 4))
     for k in (0, 9):
         with pytest.raises(ValueError, match="sources"):
             LocalizationServer(demo, sources=k)
