@@ -294,16 +294,21 @@ Phases, each failing the run with a non-zero exit:
 
 26. the mesh and the native producer clients, at the serving flagship's full
     width (96 streams, 0.25 s chunks, 48 kHz, 449 points, the bundled design
-    and table): ``StreamingLocalizer.make_sharded_step`` over 2 and 4 shards
-    on the card (and over as many of the cards as leave a shard 24 or more
+    and table): ``StreamingLocalizer.make_sharded_step`` over 2, 4 and 8
+    shards on the card (and over as many of the cards as divide the 96
     streams, where there are several, with one shard's step alone and the
     shards in turn on one card beside it, the overlap), 4 chunks: every
     state field bit-identical to the unsharded step's, the matched DoAs
-    equal, K1, the pack pass and K4 once per shard per step (K2 at
-    least), and K1, K2, the pack pass and K4 at B = 48 and 24 equal to
-    their plain versions; at B = 12 (96
-    streams over 8 cards) the same kernels against their plain versions, and
-    that shard's lanes against the 96-stream step's, printed; the unipolar
+    equal, the lifted IIR kernel, K1, the pack pass and K4 once per shard
+    per step (K2 at least), and K1, K2, the pack pass and K4 at B = 48, 24
+    and 12 equal to their plain versions; the width contract: steps of 1,
+    4, 7, 12, 24 and 48 streams against the same lanes of the 96-stream
+    step, stage by stage (the STHT FIR, the lifted IIR's ``P``, ``UV``,
+    ``cs``, ``z`` and state by the tensor-op route, printed, then ``z`` and
+    state by the step's own route, the K1/K2 masks, the K4 integers, the
+    float state and the peak and matched DoAs, gated bit for bit), and the
+    matched scores of 1, 4, 7, 12, 24, 25 and 96 frames against the same
+    frames among 96, bit for bit; the unipolar
     flagship over 2 shards (the raster pack and K6, at B = 48 against the
     plain path); the sharded and unsharded step's times; ``LocalizationServer(mesh=)`` over 4 shards on
     the f32 wire and the u4 wire at fs/4 with 8 TCP clients of 8 chunks as
@@ -319,7 +324,22 @@ Phases, each failing the run with a non-zero exit:
     direct step, the C encoder's bytes equal to ``WireEncoder``'s on those
     chunks, the rounds' wait / device / route ms beside the Python clients'
     run just before and phase 23's; ``experiments.multichip_scaling.main()`` (8 shards over the
-    cards: a shard's block 1/8 of the trials, errors equal).
+    cards: a shard's block 1/8 of the trials, errors equal);
+27. the device-parity checks of ``tests_tpu/test_device_parity.py`` that no
+    earlier phase makes (``tests_gpu/`` calls these functions): the lifted
+    IIR kernel (``csrc/iir_lifted.cu``) against ``cumsum(iir_filter(method=
+    "scan"))`` on the card, a float64 ``scipy.signal.lfilter`` cumsum and its
+    plain version at (1600-1900 Hz, T = 12 000) and (500-3000 Hz, T =
+    24 000), and two carried halves against one run at blocks of 32 and 48,
+    within 3 sqrt(T) eps_f32 of each column's largest value;
+    ``generalized_top_eigvec`` against ``scipy.linalg.eigh``; the lifted IIR
+    kernel against its plain version at the flagship's encode input, at
+    level 1, a ragged T and the streaming block sizes with a carried state,
+    and bit for bit per stream at 1 to 48 streams against 96; the matched
+    scoring kernel (``csrc/matched.cu``) against its plain version within
+    the dot products' error bound 2 K eps sum |r t|; both kernels timed
+    beside their plain versions (the cuBLAS routes they replace), with their
+    bounds.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -890,7 +910,7 @@ def check_streaming(torch, sk, lk, _build, StreamingLocalizer, demo, frames, doa
         spikes.append(sp)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    for name in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4"):
+    for name in ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4"):
         if launches.get(name, 0) < 1:
             fail(f"the streaming run never launched {name} (launch counts {launches})")
     pstate = sl.init_state(B)
@@ -2873,8 +2893,8 @@ PHASE_RTOL = 1e-3
 JAX_TWO_SOURCES = {"nearest-source-frac@5deg": 0.03125, "both-sources-frac@10deg": 0.0}
 GRID_STEP_113, GRID_STEP_449 = 360.0 / 112, 360.0 / 448
 SERVE_WIRES = (("f32", 1), ("i16", 1), ("u8", 1), ("u4", 1), ("u8", 4), ("u4", 4))
-XYLO_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3")
-STREAM_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4")
+XYLO_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3")
+STREAM_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4")
 
 
 def counted(torch, _build, label, expect, fn, seconds=None):
@@ -3374,7 +3394,7 @@ JAX_MB_SPEECH_SD = {
     "cross/self_segment": [16.5579, 3.7834, 1.2427],
     "cross/cross_segment": [16.5579, 3.7834, 1.2427],
 }
-RASTER_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5")
+RASTER_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5")
 
 
 def seed_gaps(got, seeds, sd, n: int, step: float):
@@ -3682,7 +3702,7 @@ FRAME_MS = 250.0  # the demos' frame: a live demo handles a frame in less
 # the most active bins the MUSIC demo's band allows at nfft 2048 (1200-2000 Hz / 23.4 Hz a bin): the
 # reference's default of 100 raises ValueError in MUSIC.beamforming, in JAX's demo and in the port's alike
 MUSIC_DEMO_BINS = int((2000.0 - 1200.0) / (48_000 / 2048))
-XYLO_DEMO_PATH = ("rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5")
+XYLO_DEMO_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5")
 TRACE_KERNELS = {"rzcc_k1_kernel": "K1", "rzcc_k2_kernel": "K2", "lif_pack_bipolar_kernel": "pack",
                  "lif_count_bipolar_kernel": "K3"}
 
@@ -3930,10 +3950,13 @@ def check_demos(torch, _build, dev, flagship_demo, frames, event_ms, attribution
 
 # ------------------------------------------------------------------ phase 26
 SHARD_STEPS = 4  # chunks through each sharded step run
-# the fewest streams a shard over the cards is given: from 24 streams a shard
-# the lifted IIR rounds a stream as the unsharded 96-stream step does, below
-# that cuBLAS's level-2 products change kernel (ops/iir.iir_cumsum_blocked)
-MIN_SHARD_STREAMS = 24
+# streams a step, each held bit for bit to the same lanes of the 96-stream step (the width contract), and the
+# chunks of each; the matched scores' widths (frames a call)
+WIDTHS, WIDTH_STEPS = (1, 4, 7, 12, 24, 48), 2
+SCORE_WIDTHS = (1, 4, 7, 12, 24, 25, 96)
+# the stages the width contract holds: the step's own route (the cuBLAS stages are printed beside them)
+WIDTH_GATED = ("FIR", "z (step's route)", "state (step's route)", "masks (K1/K2)", "LIF integers (K4)",
+               "float state", "peak DoA", "matched DoA")
 SHARD_TIMED = 10  # steps timed per reading
 NATIVE_RUNS = ((False, "i16", 1), (True, "u4", 4))  # (shm, wire, upsample) of the native daemon runs
 NATIVE_STREAMS, NATIVE_ROUNDS = 64, 20  # serving_throughput.daemon_main's, as phase 23 runs it
@@ -3942,6 +3965,99 @@ NATIVE_STREAMS, NATIVE_ROUNDS = 64, 20  # serving_throughput.daemon_main's, as p
 def sync_all(torch, devices):
     for d in set(devices):
         torch.cuda.synchronize(d)
+
+
+def by_stream(t, B: int):
+    """A tensor whose last axis holds the B streams' columns (stream-major)
+    with the stream axis moved to the front: (B, ..., columns a stream)."""
+    return t.reshape(*t.shape[:-1], B, -1).movedim(-2, 0)
+
+
+def step_stages(torch, iir, stht_stream, sl, state, x):
+    """The encode of one streaming step of ``sl`` on ``state`` and the chunks
+    ``x`` (B, Tc, M), stage by stage, each stream-leading: the STHT FIR's
+    output, then for each band the lifted IIR's ``P``, level 2's ``UV`` and
+    ``cs`` and its ``z`` and final state by the tensor-op route (cuBLAS's
+    GEMMs on the card), and its ``z`` and final state by the step's own
+    route (the hand kernel on the card)."""
+    B, Tc, _ = x.shape
+    xt = x.transpose(0, 1)
+    inphase, quad, _, _ = stht_stream(xt, state.fir_tail, state.delay_line, sl.kernel)
+    out = {"FIR": by_stream(quad.reshape(Tc, -1), B)}
+    sig_real = torch.cat([inphase, quad], dim=-1)
+    sb, ch = sl.block_size(Tc), 2 * sl.num_mic
+    for i, (b, a) in enumerate(sl._bp):
+        zi = torch.cat([state.iir_state[:, i * ch:(i + 1) * ch], state.int_carry[:, i * ch:(i + 1) * ch, None]], -1)
+        got = {}
+        z, zf = iir.iir_cumsum_blocked_plain(b, a, sig_real, zi=zi, return_state=True, sb=sb, stages=got)
+        band = f" band {i}" if len(sl._bp) > 1 else ""
+        for k in ("P", "UV", "cs"):
+            if k in got:
+                out[f"{k} (cuBLAS){band}"] = by_stream(got[k], B)
+        out[f"z (cuBLAS){band}"], out[f"state (cuBLAS){band}"] = by_stream(z.reshape(Tc, -1), B), zf
+        z, zf = iir.iir_cumsum_blocked(b, a, sig_real, zi=zi, return_state=True, sb=sb)
+        out[f"z (step's route){band}"], out[f"state (step's route){band}"] = by_stream(z.reshape(Tc, -1), B), zf
+    return out
+
+
+def width_diagnostic(torch, sl, frames, widths, steps):
+    """``steps`` chunks of the first w streams of ``frames`` against the same
+    lanes of the whole batch's steps, for each width w, stage by stage (the
+    encode's stages of :func:`step_stages` before each step, then the step's
+    masks, its LIF integers, its float state, and the peak and matched DoAs
+    after the last), bit for bit.  Returns ``{w: {stage: elements that
+    differ}}`` in the order the step runs the stages."""
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+    from haghighatshoarmuir2024_tpu_torch.ops.stht import stht_stream
+
+    def run(x):
+        state, rows = sl.init_state(x.shape[0]), []
+        for _ in range(steps):
+            stages = step_stages(torch, iir, stht_stream, sl, state, x)
+            state, spikes = sl.process_chunk(state, x)
+            stages["masks (K1/K2)"] = by_stream(spikes.reshape(spikes.shape[0], -1), x.shape[0])
+            rows.append(stages)
+        return state, rows
+
+    wide, wide_rows = run(frames)
+    out = {}
+    for w in widths:
+        narrow, rows = run(frames[:w])
+        diff = {}
+        for k, stages in enumerate(rows):
+            for name, t in stages.items():
+                diff[name] = diff.get(name, 0) + mismatches_bits(torch, t, wide_rows[k][name][:w])
+        diff["LIF integers (K4)"] = sum(mismatches(getattr(narrow, f), getattr(wide, f)[:w])
+                                        for f in ("counts", "isyn", "vmem", "spk"))
+        diff["float state"] = sum(mismatches_bits(torch, getattr(narrow, f), getattr(wide, f)[:w])
+                                  for f in ("iir_state", "int_carry"))
+        diff["float state"] += mismatches_bits(torch, narrow.pending, wide.pending[:, :w])
+        for method in ("peak", "matched"):
+            diff[f"{method} DoA"] = mismatches_bits(torch, sl.estimate_doa(narrow, method),
+                                                    sl.estimate_doa(wide, method)[:w])
+        out[w] = diff
+    return out
+
+
+def mismatches_bits(torch, a, b) -> int:
+    """Elements of two float or integer tensors whose bits differ."""
+    if a.shape != b.shape:
+        fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.is_floating_point():
+        a, b = a.contiguous().view(torch.int32 if a.element_size() == 4 else torch.int64), \
+            b.contiguous().view(torch.int32 if b.element_size() == 4 else torch.int64)
+    return int((a != b).sum())
+
+
+def scoring_diagnostic(torch, demo, rate, widths):
+    """The matched scores of the first w rows of ``rate`` against the same
+    rows scored in the whole batch, for each width w: ``{w: (scores whose
+    bits differ, DoAs that differ)}``."""
+    full = demo.doa_scores(rate, "matched")
+    full_doa = demo.estimate_doa_from_rate(rate, "matched")
+    return {w: (mismatches_bits(torch, demo.doa_scores(rate[:w], "matched"), full[:w]),
+                mismatches_bits(torch, demo.estimate_doa_from_rate(rate[:w], "matched"), full_doa[:w]))
+            for w in widths}
 
 
 def shard_kernels_vs_plain(torch, sk, lk, sl, frames, label):
@@ -4033,10 +4149,9 @@ def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, m
     tag = f"[shard] [{card}]"
     B = frames.shape[0]
 
-    # ---- (a) the sharded step: 2 and 4 shards on the card, over the cards where there are several
-    meshes = [[dev] * 2, [dev] * 4]
-    n_cards = max((k for k in range(2, torch.cuda.device_count() + 1) if B % k == 0 and B // k >= MIN_SHARD_STREAMS),
-                  default=1)
+    # ---- (a) the sharded step: 2, 4 and 8 shards on the card, over the cards where there are several
+    meshes = [[dev] * 2, [dev] * 4, [dev] * 8]
+    n_cards = max((k for k in range(2, torch.cuda.device_count() + 1) if B % k == 0), default=1)
     if n_cards > 1:
         meshes.append([torch.device("cuda", i) for i in range(n_cards)])
     sl = StreamingLocalizer(demo)
@@ -4070,25 +4185,24 @@ def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, m
         print(f"{tag} overlap over {n} cards: a step {out['overlap']['cards_ms']:.3f} ms, against one shard of "
               f"{B // n} streams alone {alone['sharded_ms']:.3f} ms and {n} shards in turn on one card "
               f"{serial['sharded_ms']:.3f} ms", flush=True)
-    # a shard of 12 streams (96 over 8 cards): the kernels against their plain versions, gated; the shard's
-    # lanes against the same lanes of the 96-stream step, printed (below MIN_SHARD_STREAMS the lifted IIR's
-    # level-2 products change cuBLAS kernel: ops/iir.iir_cumsum_blocked)
-    b = B // 8
-    shard_kernels_vs_plain(torch, sk, lk, sl, frames[:b], f"a shard of {b} streams: K1, K2, pack, K4")
-    wide, narrow = sl.init_state(B), sl.init_state(b)
-    for _ in range(SHARD_STEPS):
-        wide = sl.process_chunk(wide, frames, return_spikes=False)
-        narrow = sl.process_chunk(narrow, frames[:b], return_spikes=False)
-    lanes = StreamState.cat([wide], device=dev)
-    out["narrow"] = dict(
-        ints=sum(mismatches(getattr(narrow, f), getattr(lanes, f)[:b]) for f in ("counts", "isyn", "vmem", "spk")),
-        float_rel=max(float((getattr(narrow, f) - (getattr(lanes, f)[:, :b] if f == "pending" else
-                                                   getattr(lanes, f)[:b])).abs().max())
-                      / max(float(getattr(lanes, f).abs().max()), 1e-30) for f in ("iir_state", "int_carry", "pending")))
-    print(f"{tag} a shard of {b} streams (96 over 8 cards), {SHARD_STEPS} chunks: K1, K2, pack and K4 == their plain "
-          f"versions; against the same lanes of the 96-stream step {out['narrow']['ints']} LIF integers differ, the "
-          f"float state by {out['narrow']['float_rel']:.3g} of its largest value (printed, not gated: PERF.md §7)",
-          flush=True)
+    # the width contract: a step of w streams against the same lanes of the 96-stream step, stage by stage
+    t0 = time.perf_counter()
+    out["widths"] = width_diagnostic(torch, sl, frames, WIDTHS, WIDTH_STEPS)
+    for w, diff in out["widths"].items():
+        first = next((k for k, v in diff.items() if v), "none")
+        print(f"{tag} {w} streams a step against the same lanes of {B}, {WIDTH_STEPS} chunks: first stage that "
+              f"differs: {first}; elements whose bits differ by stage {json.dumps(diff)}", flush=True)
+        bad = {k: diff[k] for k in WIDTH_GATED if diff[k]}
+        if bad:
+            fail(f"the width contract at {w} streams: these stages differ from the {B}-stream step's lanes: {bad}")
+    rate = demo.rates_batch(frames)
+    out["scores"] = scoring_diagnostic(torch, demo, rate, SCORE_WIDTHS)
+    print(f"{tag} matched scores of the first w frames against the same frames among {B}: (scores, DoAs) whose bits "
+          f"differ {json.dumps(out['scores'])}", flush=True)
+    bad = {w: d for w, d in out["scores"].items() if any(d)}
+    if bad:
+        fail(f"the width contract of matched scoring: {bad}")
+    out["s"]["width contract"] = time.perf_counter() - t0
     # the unipolar flagship through 2 shards: the raster pack and K6
     t0 = time.perf_counter()
     label = "sharded step, unipolar, 2 shards on 1 card"
@@ -4106,7 +4220,7 @@ def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, m
     serve = check_serving(torch, _build, StreamingLocalizer, server, resample, mulaw, demo, frames, n_chunks=8,
                           mesh=mesh4)
     for wire, r in serve.items():
-        for k in ("rzcc_k1", "lif_pack", "lif_k4"):
+        for k in ("iir_lifted", "rzcc_k1", "lif_pack", "lif_k4"):
             if r["launches"].get(k, 0) != 4 * r["all_steps"]:
                 fail(f"sharded server ({wire}): {k} launched {r['launches'].get(k, 0)} times in "
                      f"{r['all_steps']} serve steps of 4 shards")
@@ -4242,6 +4356,205 @@ def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, m
     return out
 
 
+# ------------------------------------------------------------------ phase 27
+# the lifted IIR's checks of tests_tpu/test_device_parity.py:398-497: (band, T, columns), seeded
+IIR_SCAN_CASES = (((1600.0, 1900.0), 12_000, 16), ((500.0, 3000.0), 24_000, 8))
+IIR_SEAMS = ((32, 48_000.0, 12_800, 5), (48, 24_000.0, 12_000, 6))  # (sb, fs, T, seed), 8 columns
+# the kernel against its plain version on other paths: (T, columns, sb, zi): level 1 at nb = 2 and at
+# a prime nb = 257 (Q = 1), a ragged T, the streaming block sizes with a carried state
+IIR_PLAIN_CASES = ((64, 14, 32, False), (8224, 28, 32, False), (12_001, 42, 32, False), (12_000, 98, 48, True),
+                   (12_000, 70, 40, True), (6000, 14, 24, True), (480, 14, 8, True))
+EIG_GRID, EIG_DIM, EIG_TOL = 16, 7, 5e-3
+
+
+def iir_bound(T: int) -> float:
+    """tests_tpu's bound on the lifted IIR against another float32 order of
+    the same sums: 3 sqrt(T) eps_f32 of each column's largest value."""
+    return 3.0 * np.sqrt(T) * float(np.finfo(np.float32).eps)
+
+
+def col_rel_err(got, ref) -> float:
+    """The largest error of ``got`` against ``ref`` (T, L), each column's
+    relative to that column's largest value of ``ref``."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = np.maximum(np.abs(ref).max(axis=0, keepdims=True), 1e-12)
+    return float((np.abs(got - ref) / scale).max())
+
+
+def check_iir_scan(torch, dev, band, T, L, seed=3):
+    """``iir_cumsum_blocked`` on the card (the kernel) against
+    ``cumsum(iir_filter(method="scan"))`` on the card, against a float64
+    ``scipy.signal.lfilter`` cumsum and against its plain version, each
+    within :func:`iir_bound`.  Returns the three errors."""
+    from scipy.signal import lfilter
+
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+
+    b, a = iir.butter_bandpass(1, band, 48_000.0)
+    x = np.random.default_rng(seed).standard_normal((T, L)).astype(np.float32)
+    xt = torch.as_tensor(x, device=dev)
+    got = iir.iir_cumsum_blocked(b, a, xt).cpu().numpy()
+    errs = dict(scan=col_rel_err(got, torch.cumsum(iir.iir_filter(b, a, xt, method="scan"), 0).cpu().numpy()),
+                float64=col_rel_err(got, np.cumsum(lfilter(b, a, x.astype(np.float64), axis=0), axis=0)),
+                plain=col_rel_err(got, iir.iir_cumsum_blocked_plain(b, a, xt).cpu().numpy()))
+    for k, e in errs.items():
+        if not e <= iir_bound(T):
+            fail(f"lifted IIR {band} Hz, T = {T}: {e:.3e} of a column's largest value from the {k} reference "
+                 f"(bound 3 sqrt(T) eps = {iir_bound(T):.3e})")
+    return errs
+
+
+def check_iir_seam(torch, dev, sb, fs, T, seed, L=8):
+    """Two carried halves (``return_state`` then ``zi``) against one run of
+    the whole at block ``sb``, by the kernel, within :func:`iir_bound`; the
+    final state against the plain version's.  Returns the two errors."""
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+
+    b, a = iir.butter_bandpass(1, (1600.0, 1900.0), fs)
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal((T, L)).astype(np.float32), device=dev)
+    full, zf = iir.iir_cumsum_blocked(b, a, x, return_state=True, sb=sb)
+    y1, s = iir.iir_cumsum_blocked(b, a, x[:T // 2], return_state=True, sb=sb)
+    y2 = iir.iir_cumsum_blocked(b, a, x[T // 2:], zi=s, sb=sb)
+    seam = col_rel_err(torch.cat([y1, y2]).cpu().numpy(), full.cpu().numpy())
+    _, p_zf = iir.iir_cumsum_blocked_plain(b, a, x, return_state=True, sb=sb)
+    state = col_rel_err(zf.cpu().numpy().T, p_zf.cpu().numpy().T)
+    for k, e in (("seam", seam), ("final state against the plain version", state)):
+        if not e <= iir_bound(T):
+            fail(f"lifted IIR sb = {sb} at {fs:.0f} Hz, T = {T}: {k} {e:.3e} (bound {iir_bound(T):.3e})")
+    return dict(seam=seam, state=state)
+
+
+def check_eigvec(torch, dev):
+    """``ops/linalg.generalized_top_eigvec`` on the card on
+    tests_tpu's 16 pencils (complex64) against ``scipy.linalg.eigh`` in
+    float64: ``| |<ref, got>| - 1 |`` below 5e-3.  Returns the worst."""
+    import scipy.linalg
+
+    from haghighatshoarmuir2024_tpu_torch.ops.linalg import generalized_top_eigvec
+
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((EIG_GRID, EIG_DIM, 12)) + 1j * rng.standard_normal((EIG_GRID, EIG_DIM, 12))
+    C = A @ A.conj().swapaxes(-1, -2)
+    Bm = C.sum(axis=0)[None] - C + np.mean(np.trace(C.sum(axis=0)).real / EIG_DIM) / 10.0 * np.eye(EIG_DIM)[None]
+    got = generalized_top_eigvec(torch.as_tensor(C, dtype=torch.complex64, device=dev),
+                                 torch.as_tensor(Bm, dtype=torch.complex64, device=dev)).cpu().numpy()
+    worst = 0.0
+    for g in range(EIG_GRID):
+        U = scipy.linalg.eigh(C[g], Bm[g])[1]
+        worst = max(worst, abs(abs(np.vdot(U[:, -1] / np.linalg.norm(U[:, -1]), got[g])) - 1.0))
+    if not worst < EIG_TOL:
+        fail(f"generalized_top_eigvec on the card: | |<ref, got>| - 1 | = {worst:.3e} (gate {EIG_TOL})")
+    return worst
+
+
+def check_new_kernels(torch, roofline, dev, demo, frames):
+    """The lifted IIR kernel and the matched-scoring kernel against their
+    plain versions at the main path's shapes (the flagship's encode input,
+    its rates) and at the IIR's other paths, timed beside them; their bounds
+    (``experiments/roofline.lifted_iir_work``, ``matched_work``)."""
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import iir_kernel, matched_kernel
+    from haghighatshoarmuir2024_tpu_torch.ops.stht import stht
+
+    out = {}
+    # the lifted IIR at the main path's shape: forward_batch's (T, B, 2M) encode input
+    x = frames.transpose(0, 1)
+    inphase, quad = stht(x, demo.kernel)
+    sig = torch.cat([inphase, quad], dim=-1)
+    T, B, C = sig.shape
+    b, a = demo.filterbank.ba_list[0]
+    got = iir.iir_cumsum_blocked(b, a, sig)
+    ref = iir.iir_cumsum_blocked_plain(b, a, sig)
+    err = col_rel_err(got.reshape(T, -1).cpu().numpy(), ref.reshape(T, -1).cpu().numpy())
+    if not err <= iir_bound(T):
+        fail(f"iir_lifted at the flagship ({T}, {B * C}): {err:.3e} of a column's largest value from its plain "
+             f"version (bound {iir_bound(T):.3e})")
+    N = len(a) - 1
+    nb, Q = iir.lifted_plan(N, T, iir.SB)
+    m = iir_kernel.kernel_matrices(tuple(np.asarray(b, np.float64).tolist()),
+                                   tuple(np.asarray(a, np.float64).tolist()), iir.SB, Q, sig.device)
+    w2_terms = None
+    if "kend" in m:
+        rows = (Q + 1) * N
+        w2_terms = sum(min(iir_kernel.RT, rows - t * iir_kernel.RT) * int(k) for t, k in enumerate(m["kend"].tolist()))
+    ops, nbytes = roofline.lifted_iir_work(T, B * C, iir.SB, N, Q, w2_terms)
+    # the plain version is the cuBLAS route the kernel replaces: its time is also the library time
+    plain_ms = timed_ms(torch, lambda: iir.iir_cumsum_blocked_plain(b, a, sig), 20)
+    out["iir_lifted"] = dict(max_abs_err=float((got - ref).abs().max()), rel_err=err,
+                             ms=timed_ms(torch, lambda: iir.iir_cumsum_blocked(b, a, sig), 20), plain_ms=plain_ms,
+                             library_ms=plain_ms, ops=ops, bytes=nbytes, level2=w2_terms is not None, Q=Q)
+    out["iir_lifted"]["bound_ms"], out["iir_lifted"]["bound_by"] = roofline.bound(ops, roofline.FP32_FLOP_PER_S,
+                                                                                  nbytes)
+    # the IIR's other paths against the plain version: level 1, a ragged T, the streaming blocks carried
+    rng = np.random.default_rng(SEED + 27)
+    for Tc, L, sb, carried in IIR_PLAIN_CASES:
+        xc = torch.as_tensor(rng.standard_normal((Tc, L)).astype(np.float32), device=dev)
+        zi = torch.as_tensor(rng.standard_normal((L, N + 1)).astype(np.float32), device=dev) if carried else None
+        kw = dict(zi=zi, return_state=True, sb=sb) if carried else dict(sb=sb)
+        g, r = iir.iir_cumsum_blocked(b, a, xc, **kw), iir.iir_cumsum_blocked_plain(b, a, xc, **kw)
+        e = max(col_rel_err(p.cpu().numpy(), q.cpu().numpy()) for p, q in (zip(g, r) if carried else [(g, r)]))
+        if not e <= iir_bound(Tc):
+            fail(f"iir_lifted at T = {Tc}, {L} columns, sb = {sb}{', carried' if carried else ''} (Q = "
+                 f"{iir.lifted_plan(N, Tc, sb)[1]}): {e:.3e} from its plain version (bound {iir_bound(Tc):.3e})")
+    # the width contract at the kernel: the first w streams' columns alone, bit for bit, with a carried state
+    zi = torch.as_tensor(rng.standard_normal((B * C, N + 1)).astype(np.float32), device=dev)
+    flat = sig.reshape(T, -1)
+    whole = iir.iir_cumsum_blocked(b, a, flat, zi=zi, return_state=True)
+    for w in (1, 4, 7, 12, 24, 48):
+        part = iir.iir_cumsum_blocked(b, a, flat[:, :w * C], zi=zi[:w * C], return_state=True)
+        bad = mismatches_bits(torch, part[0], whole[0][:, :w * C]) + mismatches_bits(torch, part[1], whole[1][:w * C])
+        if bad:
+            fail(f"iir_lifted: {bad} outputs of the first {w} streams alone differ from the same columns of {B}")
+    # matched scoring at the main path's rates
+    rate = demo.rates_batch(frames)
+    table = demo._profiles_t
+    got = matched_kernel.matched_scores(rate, table)
+    ref = matched_kernel.matched_scores_plain(rate, table)
+    cent = (rate - rate.mean(dim=-1, keepdim=True)).double()
+    K = rate.shape[-1]
+    tol = 2 * K * float(np.finfo(np.float32).eps) * (cent.abs() @ table.double().abs().T)
+    worst = float(((got - ref).double().abs() / tol).max())
+    if not worst <= 1.0:
+        fail(f"matched scores: {worst:.3f} of the dot products' error bound (2 K eps sum |r t|) from the plain version")
+    ops, nbytes = roofline.matched_work(rate.shape[0], K, table.shape[0])
+    plain_ms = timed_ms(torch, lambda: matched_kernel.matched_scores_plain(rate, table), 50)
+    out["matched"] = dict(max_abs_err=float((got - ref).abs().max()), of_bound=worst,
+                          ms=timed_ms(torch, lambda: matched_kernel.matched_scores(rate, table), 50),
+                          plain_ms=plain_ms, library_ms=plain_ms, ops=ops, bytes=nbytes)
+    out["matched"]["bound_ms"], out["matched"]["bound_by"] = roofline.bound(ops, roofline.FP32_FLOP_PER_S, nbytes)
+    return out
+
+
+def check_parity(torch, roofline, dev, demo, frames, card):
+    """Phase 27: the checks of tests_tpu/test_device_parity.py that no earlier
+    phase makes on the card (the lifted IIR against the scan and float64, its
+    carried seams, the eigensolver), the new kernels against their plain
+    versions, and their times and bounds."""
+    t_phase = time.perf_counter()
+    tag = f"[parity] [{card}]"
+    out = dict(scan={}, seam={})
+    for band, T, L in IIR_SCAN_CASES:
+        e = out["scan"][f"{band}, T = {T}"] = check_iir_scan(torch, dev, band, T, L)
+        print(f"{tag} lifted IIR {band} Hz, T = {T}, {L} columns: from cumsum(scan) {e['scan']:.3e}, from float64 "
+              f"lfilter {e['float64']:.3e}, from the plain version {e['plain']:.3e} of a column's largest value "
+              f"(bound {iir_bound(T):.3e})", flush=True)
+    for sb, fs, T, seed in IIR_SEAMS:
+        e = out["seam"][sb] = check_iir_seam(torch, dev, sb, fs, T, seed)
+        print(f"{tag} lifted IIR seam sb = {sb} ({fs:.0f} Hz, T = {T}): two carried halves from one run "
+              f"{e['seam']:.3e}, the final state from the plain version's {e['state']:.3e} (bound "
+              f"{iir_bound(T):.3e})", flush=True)
+    out["eig"] = check_eigvec(torch, dev)
+    print(f"{tag} generalized_top_eigvec ({EIG_GRID} pencils of {EIG_DIM}): worst | |<ref, got>| - 1 | "
+          f"{out['eig']:.3e} (gate {EIG_TOL})", flush=True)
+    out["kernels"] = check_new_kernels(torch, roofline, dev, demo, frames)
+    for name, k in out["kernels"].items():
+        print(f"{tag} kernel {name}: {k['ms']:.4f} ms vs plain (the cuBLAS route) {k['plain_ms']:.4f} ms; bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['ops']:.4g} float32 operations, {k['bytes']:.4g} "
+              f"bytes); max abs err {k['max_abs_err']:.3e}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def sweep_label(name: str) -> str:
     return name if name.startswith("srp") else f"{name} tone"
 
@@ -4338,7 +4651,7 @@ def main() -> int:
     doa, rate = demo.forward_batch(frames, method="matched")
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    for name in ("rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3"):
+    for name in ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3", "matched"):
         if launches.get(name, 0) < 1:
             fail(f"the slice run never launched {name} (launch counts {launches})")
     if doa.shape != (B,) or rate.shape != (B, G) or not bool(torch.isfinite(rate).all()):
@@ -4443,6 +4756,9 @@ def main() -> int:
     shx = check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, mulaw, dev, demo, udemo, frames,
                         bx["serving"], card)
     lap(start, "the mesh and the native producer clients")
+    # ---- phase 27: the device-parity checks no earlier phase makes, the new kernels against their plain versions
+    px = check_parity(torch, roofline, dev, demo, frames, card)
+    lap(start, "the device-parity checks and the new kernels")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -4587,6 +4903,23 @@ def main() -> int:
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": res.get("library_ms"),
                         **{k: res[k] for k in ("params_ms", "raw_ms") if k in res}, **extra})
+    # the kernels with no TPU kernel behind them: XLA computes these in the JAX package; the time of the
+    # cuBLAS route each replaces (its plain version) is their library time
+    for name, src, repl in (
+        ("iir_lifted", "haghighatshoarmuir2024_tpu_torch/csrc/iir_lifted.cu", "haghighatshoarmuir2024_tpu/ops/iir.py:375"),
+        ("matched", "haghighatshoarmuir2024_tpu_torch/csrc/matched.cu",
+         "haghighatshoarmuir2024_tpu/models/xylo/pipeline.py:779"),
+    ):
+        res = px["kernels"][name]
+        print(f"{tag} bound {name}: {res['ms']:.4f} ms against a bound of {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+              f"{res['ops']:.4g} float32 operations, {res['bytes']:.4g} bytes); the bound is "
+              f"{100 * res['bound_ms'] / res['ms']:.1f} % of the kernel's time")
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl, "tpu_kernel": None,
+                        "launches": launches.get(name, 0), "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                        "library_ms": res["library_ms"],
+                        "harness_launches": {"streaming step": stream_launches.get(name, 0),
+                                             **{lbl: n.get(name, 0) for lbl, n in shx["launches"].items()}}})
     for name in ("hilbert", "music", "srp"):
         f = fam[name]
         print(f"{tag} {name}: {f['frame_ms']:.3f} ms per frame in a batch of {B} ({f['batch_ms']:.1f} ms), one "
@@ -4653,7 +4986,7 @@ def main() -> int:
               f"{json.dumps(r['native'].get('stage-ms'))}; the Python clients {r['python']['daemon-step-ms']} ms, "
               f"{json.dumps(r['python'].get('stage-ms'))}")
     print(f"{tag} phase 26 seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in shx["s"].items())
-          + f"; phase 26 {shx['phase_s']:.1f} s")
+          + f"; phase 26 {shx['phase_s']:.1f} s; phase 27 {px['phase_s']:.1f} s")
     lap(start, "the times")
     print(f"[clock] the whole script: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_TENSOR_OPS_PER_S = 1.979e15  # H100 SXM data sheet: dense int8 on the tensor cores
 INT32_PER_CLK_SM = 64  # CUDA Programming Guide, cc 9.0: 32-bit integer add, shift, compare
 CMP_PER_CLK_SM = 64  # CUDA Programming Guide, cc 9.0: compare, minimum, maximum
+FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
 # the peak each kernel's operations are priced at
 UNIT = {"rzcc_k1": "compares", "rzcc_k2": "compares", "suppress_k7": "compares", "probe_p2": "compares",
         "lif_pack": "int32", "lif_pack_raster": "int32", "lif_k3": "int32", "lif_k4": "int32", "lif_k5": "int32", "lif_k6": "int32",
@@ -257,6 +258,31 @@ def raster_fill_ms(T: int, B: int, C: int, N: int) -> float:
     each, over the data sheet's dense int8 rate."""
     c_pad = lk.padded_channels(C)
     return 2.0 * B * T * N * c_pad / INT8_TENSOR_OPS_PER_S * 1e3
+
+
+def lifted_iir_work(T: int, L: int, SB: int, N: int, Q: int, w2_terms: int | None) -> tuple[float, float]:
+    """(float32 operations, bytes) of ``csrc/iir_lifted.cu`` on (T, L): two
+    operations a multiply-add.  Per block of SB samples and column, the N + 1
+    increment rows and the assembly's SB × SB and SB × N products; at level 2
+    (``w2_terms``, the level-2 multiply-adds a super-block and column: each
+    row tile's rows times its columns up to its last nonzero one) the level-2
+    products and the recurrence's h1m·U, Ps·s and Hc·s a block, ASBQ·s and
+    sum_h·s a super-block; at level 1 (None) ASB·s and h1·s a block.  Bytes:
+    x read and z written once, the carried state in and out."""
+    nb = -(-T // SB)
+    fma = nb * ((N + 1) * SB + SB * SB + SB * N)
+    if w2_terms is None:
+        fma += nb * (N * N + N)
+    else:
+        fma += (nb // Q) * (w2_terms + N * N + N) + nb * (N + N * N + N)
+    return 2.0 * fma * L, 4.0 * (2 * T * L + 2 * L * (N + 1))
+
+
+def matched_work(B: int, K: int, G: int) -> tuple[float, float]:
+    """(float32 operations, bytes) of ``csrc/matched.cu``: a frame's mean
+    and centring (2K), its G dot products of K multiply-adds; the rates and
+    the table read once, the scores written once."""
+    return float(B * (2 * K + 2 * G * K)), 4.0 * (B * K + G * K + B * G)
 
 
 def k1_work(T: int, R: int, w: int, W: int) -> tuple[float, float]:

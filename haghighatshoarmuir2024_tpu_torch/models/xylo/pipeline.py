@@ -14,7 +14,8 @@ band-stacked.
 Inference, time-major on ``device``:
 
 1. encode: STHT (blocked-Toeplitz FIR) → order-1 Butterworth bandpass with
-   its integrator folded into a lifted blocked cumsum → ``cs`` (T, B, C);
+   its integrator folded into a lifted blocked cumsum (on the card the hand
+   kernel ``csrc/iir_lifted.cu``) → ``cs`` (T, B, C);
 2. fused bipolar RZCC on (T, B·C): kernels K1/K2
    (``ops/cuda/suppress_kernel.py``); a unipolar model keeps the positive
    plane;
@@ -23,8 +24,13 @@ Inference, time-major on ``device``:
    raster, the bool masks as they are (unipolar :meth:`forward_batch`, and :meth:`forward` for both
    polarities);
 4. the unfolded (B, F·G) rates; fold over bands and the matched (or peak)
-   argmax on the DoA grid, or the band-stacked estimators on the unfolded
+   argmax on the DoA grid (matched scores on the card by the hand kernel
+   ``csrc/matched.cu``), or the band-stacked estimators on the unfolded
    rates (``matched_stacked``, ``matched_auto``).
+
+On the card a frame's or a stream's answer does not depend on how many
+others share its call: the lifted IIR and matched scoring sum in one fixed
+order per column and per frame.
 
 CPU tensors run the kernels' plain versions.
 """
@@ -36,6 +42,7 @@ import torch
 from ...config import FS
 from ...geometry import ArrayGeometry, resolve_device
 from ...ops.cuda import lif_kernel
+from ...ops.cuda.matched_kernel import matched_scores
 from ...ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
 from ...ops.filterbank import ButterworthFilterbank
 from ...ops.fir import full_fp32
@@ -505,7 +512,7 @@ class Demo:
             return _auto_blend_scores(rate, table, G)
         if method == "matched_stacked":
             return torch.matmul(_blockcos(rate, G), self._stacked_cos_t.T)
-        return torch.matmul(rate - rate.mean(dim=-1, keepdim=True), table.T)
+        return matched_scores(rate, table)  # one fixed order of summation a frame on the card
 
     def estimate_doa_from_rate(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:
         """Rates (..., G), or (..., F·G) unfolded for the stacked

@@ -343,6 +343,44 @@ def iir_filter(b, a, x: torch.Tensor, axis: int = 0, method: str = "scan", zi: t
     raise ValueError(f"unknown IIR method: {method}")
 
 
+def _dot_terms(h: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``h`` (N,) · ``s`` (N, ...) with its N terms added in order: a
+    vector-matrix product's kernel, and so its rounding, follows the width
+    of ``s`` even on the CPU."""
+    acc = h[0] * s[0]
+    for n in range(1, h.shape[0]):
+        acc = acc + h[n] * s[n]
+    return acc
+
+
+def lifted_plan(N: int, T: int, SB: int):
+    """``(nb, Q)``: the SB-sample blocks of a ragged ``T`` padded to whole
+    blocks, and the level-2 super-block of Q blocks (the largest divisor of
+    nb up to ``512 // N``, so that Q·N ≤ 512)."""
+    nb = -(-int(T) // SB)
+    Qmax = max(1, 512 // max(N, 1))
+    Q = max((q for q in range(1, min(nb, Qmax) + 1) if nb % q == 0), default=1)
+    return nb, Q
+
+
+def _lifted_args(b, a, x: torch.Tensor, return_state: bool, sb: int):
+    """The keys, sizes and float32 (T, L) view of an ``iir_cumsum_blocked``
+    call, after its checks."""
+    full_fp32()
+    SB = int(sb)
+    b_key = tuple(np.asarray(b, np.float64).tolist())
+    a_key = tuple(np.asarray(a, np.float64).tolist())
+    N = len(a_key) - 1
+    T = x.shape[0]
+    if T % SB and return_state:
+        raise ValueError(
+            "return_state requires the time axis to be a multiple of the block "
+            f"size {SB} (got T={T})"
+        )
+    xf = x.reshape(T, -1).to(torch.float32)
+    return b_key, a_key, SB, N, xf
+
+
 def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
                        return_state: bool = False, sb: int = SB):
     """``cumsum(lfilter(b, a, x), dim 0)`` as one lifted blocked pass;
@@ -356,6 +394,12 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
     collapse into matmuls in the modal basis (level 2); with Q ≤ 2 or no
     well-conditioned modal basis the plain level-1 recurrence runs.
 
+    On a CPU tensor this is :func:`iir_cumsum_blocked_plain`; on any other
+    it is the hand kernel ``csrc/iir_lifted.cu`` (``ops/cuda/iir_kernel.py``),
+    which raises off the card, and whose every output is a sum taken in one
+    fixed order per column: a stream's result does not depend on how many
+    other columns share the call.
+
     Args:
         zi: initial state, ``x.shape[1:] + (N+1,)``: the TDF2 filter state
             with the running integrator total appended (zeros when None).
@@ -365,39 +409,39 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
         sb: the lifted block size (32, the tuned default; a streaming caller
             passes a divisor of its chunk length).
     """
-    full_fp32()
-    SB = int(sb)
-    b_key = tuple(np.asarray(b, np.float64).tolist())
-    a_key = tuple(np.asarray(a, np.float64).tolist())
-    N = len(a_key) - 1
+    if x.device.type == "cpu":
+        return iir_cumsum_blocked_plain(b, a, x, zi=zi, return_state=return_state, sb=sb)
+    from .cuda.iir_kernel import iir_lifted
 
+    return iir_lifted(b, a, x, zi=zi, return_state=return_state, sb=sb)
+
+
+def iir_cumsum_blocked_plain(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
+                             return_state: bool = False, sb: int = SB, stages: dict | None = None):
+    """:func:`iir_cumsum_blocked` in tensor ops: the CPU's route, and the
+    plain version the kernel is held to on the card.  ``stages``, when a
+    dict, receives the intermediates ``P`` (nb, SB+1+N, L), ``UV`` and
+    ``cs`` (level 2 only) for the width diagnostic of ``chip_smoke.py``.
+
+    Each contraction over the block's samples or the super-block's blocks
+    runs as one GEMM of many rows, and the N-term vector products are
+    written out, so that on the CPU a column's result does not depend on L.
+    On the card the GEMMs' kernels, and so their rounding, still follow L
+    (below 336 columns the level-2 products' do), which is why the card runs
+    the hand kernel instead."""
+    b_key, a_key, SB, N, xf = _lifted_args(b, a, x, return_state, sb)
     T = x.shape[0]
     rest = x.shape[1:]
-    xf = x.reshape(T, -1).to(torch.float32)
     L = xf.shape[1]
-    pad = (-T) % SB
-    if pad and return_state:
-        raise ValueError(
-            "return_state requires the time axis to be a multiple of the block "
-            f"size {SB} (got T={T})"
-        )
-    if pad:
-        xf = torch.cat([xf, xf.new_zeros((pad, L))], dim=0)
-    nb = xf.shape[0] // SB
+    nb, Q = lifted_plan(N, T, SB)
+    if nb * SB > T:
+        xf = torch.cat([xf, xf.new_zeros((nb * SB - T, L))], dim=0)
     xb = xf.reshape(nb, SB, L)
-
-    Qmax = max(1, 512 // max(N, 1))
-    Q = max((q for q in range(1, min(nb, Qmax) + 1) if nb % q == 0), default=1)
     m = _device_matrices(b_key, a_key, SB, Q, x.device)
 
-    # Each contraction over the block's samples or the super-block's blocks
-    # runs as one GEMM of many rows, and the N-term one is written out: on
-    # the card a GEMM of one or two rows changes kernel, and so its rounding,
-    # with the number of columns, and a batch split into shards must give
-    # each stream the unsharded result (chip_smoke.py phase 26).  It does
-    # down to 336 columns (24 streams of the flagship); below that the
-    # level-2 products change kernel too.
     P = torch.einsum("ji,bil->bjl", m["proj"], xb)
+    if stages is not None:
+        stages["P"] = P
     zP = P[:, :SB]  # within-block prefix sums of y
     cP = P[:, SB]  # per-block sums of y
     sP = P[:, SB + 1:]  # state increments (modal basis at level 2)
@@ -416,18 +460,16 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
         cP2 = cP.reshape(nb2, Q, L)
         UV = torch.einsum("ab,ibl->ial", m["WsBm2"], sP2)
         U, V = UV[:, :Q * N], UV[:, Q * N:]  # (nb2, Q·N, L), (nb2, N, L)
-        Uq = U.reshape(nb2, Q, N, L)
-        hU = m["h1m"][0] * Uq[:, :, 0]
-        for n in range(1, N):
-            hU = hU + m["h1m"][n] * Uq[:, :, n]
-        e = cP2 + hU
+        e = cP2 + _dot_terms(m["h1m"], U.reshape(nb2, Q, N, L).movedim(2, 0))
         cs = torch.einsum("pq,iql->ipl", m["LTexSum"], e)
+        if stages is not None:
+            stages.update(UV=UV, cs=cs)
         cumE, sumE = cs[:, :Q], cs[:, Q]  # exclusive in-super prefix, (nb2, L) sums
         s_prev, c_prev = [], []
         for i in range(nb2):  # outer recurrence: nb2 sequential steps
             s_prev.append(U[i] + m["Ps"] @ s)
             c_prev.append(c[None, :] + cumE[i] + m["Hc"] @ s)
-            s, c = m["ASBQ"] @ s + V[i], c + sumE[i] + m["sum_h"] @ s
+            s, c = m["ASBQ"] @ s + V[i], c + sumE[i] + _dot_terms(m["sum_h"], s)
         s_prev = torch.stack(s_prev).reshape(nb, N, L)
         c_prev = torch.stack(c_prev).reshape(nb, L)
         s = m["Tm"] @ s  # and leaves it, back in the TDF2 basis
@@ -437,7 +479,7 @@ def iir_cumsum_blocked(b, a, x: torch.Tensor, zi: torch.Tensor | None = None,
         for i in range(nb):  # level-1 recurrence: one step per block
             s_prev.append(s)
             c_prev.append(c)
-            s, c = m["ASB"] @ s + sP[i], c + cP[i] + m["h1"] @ s
+            s, c = m["ASB"] @ s + sP[i], c + cP[i] + _dot_terms(m["h1"], s)
         s_prev = torch.stack(s_prev)
         c_prev = torch.stack(c_prev)
         Hout = m["H2"]
