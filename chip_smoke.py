@@ -308,7 +308,9 @@ Phases, each failing the run with a non-zero exit:
     state by the step's own route, the K1/K2 masks, the K4 integers, the
     float state and the peak and matched DoAs, gated bit for bit), and the
     matched scores of 1, 4, 7, 12, 24, 25 and 96 frames against the same
-    frames among 96, bit for bit; the unipolar
+    frames among 96, bit for bit, and the ``matched_stacked`` and
+    ``matched_auto`` scores and DoAs of phase 19's three-band model (48
+    kHz) at 1, 4, 7, 12, 24 and 48 of its 96 frames, bit for bit; the unipolar
     flagship over 2 shards (the raster pack and K6, at B = 48 against the
     plain path); the sharded and unsharded step's times; ``LocalizationServer(mesh=)`` over 4 shards on
     the f32 wire and the u4 wire at fs/4 with 8 TCP clients of 8 chunks as
@@ -337,9 +339,18 @@ Phases, each failing the run with a non-zero exit:
     level 1, a ragged T and the streaming block sizes with a carried state,
     and bit for bit per stream at 1 to 48 streams against 96; the matched
     scoring kernel (``csrc/matched.cu``) against its plain version within
-    the dot products' error bound 2 K eps sum |r t|; both kernels timed
+    the dot products' error bound 2 K eps sum |r t|, and its routes for the
+    band-stacked estimators on phase 19's three-band model (48 kHz, 96
+    frames): ``matched_scores(center=False)`` at K = 1347, ``band_scores``
+    and ``row_sums`` at K = 3, 4 and 449 against their plain versions
+    within the same bound, and the ``matched_stacked`` and ``matched_auto``
+    scores against the CPU route's on the same rates within
+    ``hand_kernels.stacked_tolerance``, their DoAs equal but at a tie within
+    it; both kernels timed
     beside their plain versions (the cuBLAS routes they replace), with their
-    bounds.
+    bounds, and each of their launches' device time at the flagship from
+    CUPTI's kernel records (``experiments/hand_kernels.traced_ms``: the
+    lifted IIR's super-block pass and assembly, the matched kernel).
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -1911,7 +1922,7 @@ def check_multiband(torch, sk, lk, _build, Demo, StreamingLocalizer, server, res
     work = {**roofline.rzcc_work(cs_tm, w, W), **roofline.lif_bipolar_work(kp, kn, N)}
     times["bounds"] = {k: dict(zip(("bound_ms", "bound_by", "ops", "bytes"), (*b, *work[k])))
                        for k, b in roofline.bounds(work, peaks_per_s).items()}
-    times.update(bench=bench, bench_launches=bench_launches)
+    times.update(bench=bench, bench_launches=bench_launches, model=(demo, frames))
     return times
 
 # ------------------------------------------------------------------ phase 20
@@ -4129,10 +4140,12 @@ def sharded_run(torch, _build, StreamingLocalizer, StreamState, make_mesh, demo,
 
 
 def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, mulaw, dev, demo, udemo, frames,
-                  python_rounds, card):
+                  python_rounds, card, three_band):
     """Phase 26: the sharded step, the sharded server, the sharded Monte
     Carlo, the native producer clients and the scaling harness (module
-    docstring)."""
+    docstring); ``three_band`` is phase 19's three-band model, calibrated
+    band-stacked, and its frames, for the band-stacked estimators' width
+    contract."""
     import tempfile
 
     from haghighatshoarmuir2024_tpu_torch.experiments import multichip_scaling as mcs
@@ -4202,6 +4215,15 @@ def check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, m
     bad = {w: d for w, d in out["scores"].items() if any(d)}
     if bad:
         fail(f"the width contract of matched scoring: {bad}")
+    # the band-stacked estimators of the three-band model (phase 19's, 48 kHz), scored on the card by the same kernel
+    from haghighatshoarmuir2024_tpu_torch.experiments.hand_kernels import stacked_width
+
+    out["stacked"] = stacked_width(*three_band, WIDTHS)
+    print(f"{tag} three-band matched_stacked and matched_auto scores of the first w frames against the same frames "
+          f"among {three_band[1].shape[0]}: (scores, DoAs) whose bits differ {json.dumps(out['stacked'])}", flush=True)
+    bad = {m: {w: d for w, d in r.items() if any(d)} for m, r in out["stacked"].items()}
+    if any(bad.values()):
+        fail(f"the width contract of the band-stacked estimators: {bad}")
     out["s"]["width contract"] = time.perf_counter() - t0
     # the unipolar flagship through 2 shards: the raster pack and K6
     t0 = time.perf_counter()
@@ -4447,25 +4469,86 @@ def check_eigvec(torch, dev):
     return worst
 
 
+def iir_against_plain(torch, b, a, x, zi, sb):
+    """``iir_cumsum_blocked`` (the kernel on the card) against its plain
+    version on ``x`` (T, L) with the carried ``zi`` or none: the largest
+    error of z (and of the final state, where carried) relative to each
+    column's largest value, and the largest absolute difference of z."""
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+
+    kw = dict(zi=zi, return_state=True, sb=sb) if zi is not None else dict(sb=sb)
+    g, r = iir.iir_cumsum_blocked(b, a, x, **kw), iir.iir_cumsum_blocked_plain(b, a, x, **kw)
+    pairs = list(zip(g, r)) if zi is not None else [(g, r)]
+    err = max(col_rel_err(p.reshape(p.shape[0], -1).cpu().numpy(), q.reshape(q.shape[0], -1).cpu().numpy())
+              for p, q in pairs)
+    return err, float((pairs[0][0] - pairs[0][1]).abs().max())
+
+
+def iir_width_bits(torch, b, a, flat, zi, C, widths, sb=32):
+    """The first w streams' columns (C a stream) of ``flat`` (T, L) with
+    their carried state, alone, against the same columns of the whole call,
+    for each width w: ``{w: outputs whose bits differ}`` (z and the final
+    state)."""
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+
+    whole = iir.iir_cumsum_blocked(b, a, flat, zi=zi, return_state=True, sb=sb)
+    out = {}
+    for w in widths:
+        part = iir.iir_cumsum_blocked(b, a, flat[:, :w * C], zi=zi[:w * C], return_state=True, sb=sb)
+        out[w] = mismatches_bits(torch, part[0], whole[0][:, :w * C]) + mismatches_bits(torch, part[1], whole[1][:w * C])
+    return out
+
+
+def matched_against_plain(torch, rate, table, center=True):
+    """The matched-scoring kernel against its plain version: the worst
+    difference as a fraction of the dot products' error bound
+    2 K eps sum |r t| (r centred when ``center``), and the largest
+    absolute difference."""
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import matched_kernel
+
+    got = matched_kernel.matched_scores(rate, table, center)
+    ref = matched_kernel.matched_scores_plain(rate, table, center)
+    r = (rate - rate.mean(dim=-1, keepdim=True)) if center else rate
+    K = rate.shape[-1]
+    tol = 2 * K * float(np.finfo(np.float32).eps) * (r.double().abs() @ table.double().abs().T)
+    return float(((got - ref).double().abs() / tol).max()), float((got - ref).abs().max())
+
+
+def matched_width_bits(torch, rate, table, widths, center=True):
+    """``{w: scores whose bits differ}``: the first w rows of ``rate`` scored
+    by the kernel alone against the same rows scored among all of them."""
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import matched_kernel
+
+    full = matched_kernel.matched_scores(rate, table, center)
+    return {w: mismatches_bits(torch, matched_kernel.matched_scores(rate[:w], table, center), full[:w])
+            for w in widths}
+
+
+def flagship_encode_input(torch, demo, frames):
+    """``forward_batch``'s lifted-IIR input: the STHT of the frames, (T, B, 2M)."""
+    from haghighatshoarmuir2024_tpu_torch.ops.stht import stht
+
+    inphase, quad = stht(frames.transpose(0, 1), demo.kernel)
+    return torch.cat([inphase, quad], dim=-1)
+
+
 def check_new_kernels(torch, roofline, dev, demo, frames):
     """The lifted IIR kernel and the matched-scoring kernel against their
     plain versions at the main path's shapes (the flagship's encode input,
-    its rates) and at the IIR's other paths, timed beside them; their bounds
+    its rates) and at the IIR's other paths, timed beside them, and each
+    launch's device time from CUPTI's kernel records
+    (``experiments/hand_kernels.traced_ms``); their bounds
     (``experiments/roofline.lifted_iir_work``, ``matched_work``)."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import hand_kernels
     from haghighatshoarmuir2024_tpu_torch.ops import iir
-    from haghighatshoarmuir2024_tpu_torch.ops.cuda import iir_kernel, matched_kernel
-    from haghighatshoarmuir2024_tpu_torch.ops.stht import stht
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build, iir_kernel, matched_kernel
 
     out = {}
     # the lifted IIR at the main path's shape: forward_batch's (T, B, 2M) encode input
-    x = frames.transpose(0, 1)
-    inphase, quad = stht(x, demo.kernel)
-    sig = torch.cat([inphase, quad], dim=-1)
+    sig = flagship_encode_input(torch, demo, frames)
     T, B, C = sig.shape
     b, a = demo.filterbank.ba_list[0]
-    got = iir.iir_cumsum_blocked(b, a, sig)
-    ref = iir.iir_cumsum_blocked_plain(b, a, sig)
-    err = col_rel_err(got.reshape(T, -1).cpu().numpy(), ref.reshape(T, -1).cpu().numpy())
+    err, max_abs = iir_against_plain(torch, b, a, sig, None, iir.SB)
     if not err <= iir_bound(T):
         fail(f"iir_lifted at the flagship ({T}, {B * C}): {err:.3e} of a column's largest value from its plain "
              f"version (bound {iir_bound(T):.3e})")
@@ -4480,9 +4563,11 @@ def check_new_kernels(torch, roofline, dev, demo, frames):
     ops, nbytes = roofline.lifted_iir_work(T, B * C, iir.SB, N, Q, w2_terms)
     # the plain version is the cuBLAS route the kernel replaces: its time is also the library time
     plain_ms = timed_ms(torch, lambda: iir.iir_cumsum_blocked_plain(b, a, sig), 20)
-    out["iir_lifted"] = dict(max_abs_err=float((got - ref).abs().max()), rel_err=err,
+    out["iir_lifted"] = dict(max_abs_err=max_abs, rel_err=err,
                              ms=timed_ms(torch, lambda: iir.iir_cumsum_blocked(b, a, sig), 20), plain_ms=plain_ms,
-                             library_ms=plain_ms, ops=ops, bytes=nbytes, level2=w2_terms is not None, Q=Q)
+                             library_ms=plain_ms, ops=ops, bytes=nbytes, level2=w2_terms is not None, Q=Q,
+                             traced=hand_kernels.traced_ms(lambda: iir.iir_cumsum_blocked(b, a, sig), 20),
+                             traced_calls=20)
     out["iir_lifted"]["bound_ms"], out["iir_lifted"]["bound_by"] = roofline.bound(ops, roofline.FP32_FLOP_PER_S,
                                                                                   nbytes)
     # the IIR's other paths against the plain version: level 1, a ragged T, the streaming blocks carried
@@ -4490,46 +4575,76 @@ def check_new_kernels(torch, roofline, dev, demo, frames):
     for Tc, L, sb, carried in IIR_PLAIN_CASES:
         xc = torch.as_tensor(rng.standard_normal((Tc, L)).astype(np.float32), device=dev)
         zi = torch.as_tensor(rng.standard_normal((L, N + 1)).astype(np.float32), device=dev) if carried else None
-        kw = dict(zi=zi, return_state=True, sb=sb) if carried else dict(sb=sb)
-        g, r = iir.iir_cumsum_blocked(b, a, xc, **kw), iir.iir_cumsum_blocked_plain(b, a, xc, **kw)
-        e = max(col_rel_err(p.cpu().numpy(), q.cpu().numpy()) for p, q in (zip(g, r) if carried else [(g, r)]))
+        e, _ = iir_against_plain(torch, b, a, xc, zi, sb)
         if not e <= iir_bound(Tc):
             fail(f"iir_lifted at T = {Tc}, {L} columns, sb = {sb}{', carried' if carried else ''} (Q = "
                  f"{iir.lifted_plan(N, Tc, sb)[1]}): {e:.3e} from its plain version (bound {iir_bound(Tc):.3e})")
     # the width contract at the kernel: the first w streams' columns alone, bit for bit, with a carried state
     zi = torch.as_tensor(rng.standard_normal((B * C, N + 1)).astype(np.float32), device=dev)
-    flat = sig.reshape(T, -1)
-    whole = iir.iir_cumsum_blocked(b, a, flat, zi=zi, return_state=True)
-    for w in (1, 4, 7, 12, 24, 48):
-        part = iir.iir_cumsum_blocked(b, a, flat[:, :w * C], zi=zi[:w * C], return_state=True)
-        bad = mismatches_bits(torch, part[0], whole[0][:, :w * C]) + mismatches_bits(torch, part[1], whole[1][:w * C])
+    for w, bad in iir_width_bits(torch, b, a, sig.reshape(T, -1), zi, C, (1, 4, 7, 12, 24, 48)).items():
         if bad:
             fail(f"iir_lifted: {bad} outputs of the first {w} streams alone differ from the same columns of {B}")
     # matched scoring at the main path's rates
     rate = demo.rates_batch(frames)
     table = demo._profiles_t
-    got = matched_kernel.matched_scores(rate, table)
-    ref = matched_kernel.matched_scores_plain(rate, table)
-    cent = (rate - rate.mean(dim=-1, keepdim=True)).double()
-    K = rate.shape[-1]
-    tol = 2 * K * float(np.finfo(np.float32).eps) * (cent.abs() @ table.double().abs().T)
-    worst = float(((got - ref).double().abs() / tol).max())
+    if _build.library().hm_matched_max_k() != matched_kernel.K_MAX:
+        fail(f"matched_kernel.K_MAX {matched_kernel.K_MAX} is not csrc/matched.cu's {_build.library().hm_matched_max_k()}")
+    worst, max_abs = matched_against_plain(torch, rate, table)
     if not worst <= 1.0:
         fail(f"matched scores: {worst:.3f} of the dot products' error bound (2 K eps sum |r t|) from the plain version")
+    K = rate.shape[-1]
     ops, nbytes = roofline.matched_work(rate.shape[0], K, table.shape[0])
     plain_ms = timed_ms(torch, lambda: matched_kernel.matched_scores_plain(rate, table), 50)
-    out["matched"] = dict(max_abs_err=float((got - ref).abs().max()), of_bound=worst,
+    out["matched"] = dict(max_abs_err=max_abs, of_bound=worst,
                           ms=timed_ms(torch, lambda: matched_kernel.matched_scores(rate, table), 50),
-                          plain_ms=plain_ms, library_ms=plain_ms, ops=ops, bytes=nbytes)
+                          plain_ms=plain_ms, library_ms=plain_ms, ops=ops, bytes=nbytes,
+                          traced=hand_kernels.traced_ms(lambda: matched_kernel.matched_scores(rate, table), 50),
+                          traced_calls=50)
     out["matched"]["bound_ms"], out["matched"]["bound_by"] = roofline.bound(ops, roofline.FP32_FLOP_PER_S, nbytes)
+    for k in out.values():  # each launch's device time a call, from the records the traced calls left
+        k["device_ms"] = hand_kernels.device_ms(k["traced"], k["traced_calls"])
+        k["launches_a_call"] = {kn: hand_kernels.launches_a_call(v, k["traced_calls"]) for kn, v in k["traced"].items()}
     return out
 
 
-def check_parity(torch, roofline, dev, demo, frames, card):
+def check_stacked_route(torch, three_band, tag):
+    """The band-stacked estimators' scoring through ``csrc/matched.cu`` on
+    the card (phase 19's three-band model, 48 kHz, and its 96 frames): each
+    route (``matched_scores(center=False)``, ``band_scores``, ``row_sums``)
+    against its plain version on the same card tensors within 2 K eps
+    sum |r t|, and the ``matched_stacked`` and ``matched_auto`` scores
+    against the CPU route's on the same rates within
+    ``hand_kernels.stacked_tolerance``, their DoAs equal but at a tie within
+    that bound (``experiments/hand_kernels.stacked_parts_against_plain``,
+    ``stacked_against_cpu``)."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import hand_kernels
+
+    out = dict(parts=hand_kernels.stacked_parts_against_plain(*three_band),
+               scores=hand_kernels.stacked_against_cpu(*three_band))
+    for part, (worst, max_abs) in out["parts"].items():
+        print(f"{tag} three-band {part} on the card: {worst:.3f} of 2 K eps sum |r t| from its plain version "
+              f"(max abs {max_abs:.3e})", flush=True)
+        if not worst <= 1.0:
+            fail(f"three-band {part}: {worst:.3f} of the error bound 2 K eps sum |r t| from its plain version")
+    for m, r in out["scores"].items():
+        print(f"{tag} three-band {m} scores on the card against the CPU route: {r['of_bound']:.3f} of their bound "
+              f"(max abs {r['max_abs_err']:.3e}); DoAs that differ {r['doas_differ']} (at a tie "
+              f"{r['doas_differ_at_ties']})", flush=True)
+        if not r["of_bound"] <= 1.0:
+            fail(f"three-band {m}: the card's scores {r['of_bound']:.3f} of their bound from the CPU route's")
+        if r["doas_differ"] != r["doas_differ_at_ties"]:
+            fail(f"three-band {m}: {r['doas_differ'] - r['doas_differ_at_ties']} DoAs differ from the CPU route's "
+                 "beyond a tie")
+    return out
+
+
+def check_parity(torch, roofline, dev, demo, frames, card, three_band):
     """Phase 27: the checks of tests_tpu/test_device_parity.py that no earlier
     phase makes on the card (the lifted IIR against the scan and float64, its
     carried seams, the eigensolver), the new kernels against their plain
-    versions, and their times and bounds."""
+    versions, and their times and bounds; the band-stacked estimators' routes
+    through the matched kernel (:func:`check_stacked_route`, ``three_band``
+    phase 19's three-band model and frames)."""
     t_phase = time.perf_counter()
     tag = f"[parity] [{card}]"
     out = dict(scan={}, seam={})
@@ -4546,11 +4661,19 @@ def check_parity(torch, roofline, dev, demo, frames, card):
     out["eig"] = check_eigvec(torch, dev)
     print(f"{tag} generalized_top_eigvec ({EIG_GRID} pencils of {EIG_DIM}): worst | |<ref, got>| - 1 | "
           f"{out['eig']:.3e} (gate {EIG_TOL})", flush=True)
+    out["stacked"] = check_stacked_route(torch, three_band, tag)
     out["kernels"] = check_new_kernels(torch, roofline, dev, demo, frames)
     for name, k in out["kernels"].items():
-        print(f"{tag} kernel {name}: {k['ms']:.4f} ms vs plain (the cuBLAS route) {k['plain_ms']:.4f} ms; bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['ops']:.4g} float32 operations, {k['bytes']:.4g} "
-              f"bytes); max abs err {k['max_abs_err']:.3e}", flush=True)
+        n = k["traced_calls"]
+        split = "; ".join(f"{kn} {k['launches_a_call'][kn]} a call ({len(v)} records of {n} calls), "
+                          f"{np.mean(v):.4f} ms a launch (min {np.min(v):.4f}, max {np.max(v):.4f})"
+                          for kn, v in k["traced"].items())
+        traced = k["device_ms"]
+        print(f"{tag} kernel {name}: {k['ms']:.4f} ms (CUDA events) vs plain (the cuBLAS route) {k['plain_ms']:.4f} ms; "
+              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}: {k['ops']:.4g} float32 operations, {k['bytes']:.4g} "
+              f"bytes), {k['bound_ms'] / k['ms']:.1%} of it; max abs err {k['max_abs_err']:.3e}; device time by "
+              f"launch (CUPTI): {split}; device time {traced:.4f} ms a call, the bound {k['bound_ms'] / traced:.1%} of it",
+              flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4754,10 +4877,10 @@ def main() -> int:
     lap(start, "the live demos, profiling and batching")
     # ---- phase 26: the sharded step, server and MC, the native producer clients, the scaling harness
     shx = check_sharded(torch, _build, sk, lk, StreamingLocalizer, server, resample, mulaw, dev, demo, udemo, frames,
-                        bx["serving"], card)
+                        bx["serving"], card, three[48_000]["model"])
     lap(start, "the mesh and the native producer clients")
     # ---- phase 27: the device-parity checks no earlier phase makes, the new kernels against their plain versions
-    px = check_parity(torch, roofline, dev, demo, frames, card)
+    px = check_parity(torch, roofline, dev, demo, frames, card, three[48_000]["model"])
     lap(start, "the device-parity checks and the new kernels")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
@@ -4918,6 +5041,8 @@ def main() -> int:
                         "launches": launches.get(name, 0), "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                         "library_ms": res["library_ms"],
+                        "device_ms": res["device_ms"],
+                        "launch_device_ms": {k: float(np.mean(v)) for k, v in res["traced"].items()},
                         "harness_launches": {"streaming step": stream_launches.get(name, 0),
                                              **{lbl: n.get(name, 0) for lbl, n in shx["launches"].items()}}})
     for name in ("hilbert", "music", "srp"):

@@ -9,7 +9,10 @@ differences attribute the whole batch time:
     fold+argmax         = t(forward_batch(peak)) - t(encode + K1/K2 + pack + K3)
     matched epilogue    = t(forward_batch(matched)) - t(forward_batch(peak))
 
-and the RZCC and LIF stages again, isolated, on device-resident inputs.  The
+and the RZCC and LIF stages again, isolated, on device-resident inputs, and
+the epilogue's parts alone on the counts and rates they take (``epilogue_ms``:
+the rates and their fold, the peak argmax, the matched scores through their
+wrapper, the matched argmax).  The
 prefixes are ``Demo.encode``, ``Demo.rzcc`` and ``Demo.lif_counts``, the
 functions ``forward_batch`` runs.  On the card each prefix is timed by CUDA
 events around ``--reps`` back-to-back calls after a warm-up, in three
@@ -66,6 +69,10 @@ def prefixes(demo: Demo, x: torch.Tensor) -> dict:
     arguments."""
     cs = demo.encode(x)
     kp, kn = demo.rzcc(cs)
+    counts = demo.lif_counts(kp, kn)
+    T = cs.shape[0]
+    rate = demo.fold(counts.to(torch.float32) / T * demo.fs)
+    scores = demo.doa_scores(rate, "matched")
     return {
         "encode": lambda: demo.encode(x),
         "encode+RZCC": lambda: demo.rzcc(demo.encode(x)),
@@ -74,6 +81,10 @@ def prefixes(demo: Demo, x: torch.Tensor) -> dict:
         "forward_batch (matched)": lambda: demo.forward_batch(x, method="matched"),
         "[isolated] RZCC": lambda: demo.rzcc(cs),
         "[isolated] LIF": lambda: demo.lif_counts(kp, kn),
+        "[epilogue] rate+fold": lambda: demo.fold(counts.to(torch.float32) / T * demo.fs),
+        "[epilogue] peak argmax": lambda: demo.estimate_doa_from_rate(rate, "peak"),
+        "[epilogue] matched scores": lambda: demo.doa_scores(rate, "matched"),
+        "[epilogue] matched argmax": lambda: demo._doa_t[torch.argmax(scores, dim=-1)],
     }
 
 
@@ -120,6 +131,7 @@ def run(batch: int = 96, reps: int = 50, num_grid: int = 64 * 7 + 1, rounds: int
         "grid": len(demo.doa_list),
         "stages_ms": stages,
         "isolated_ms": {"RZCC": prefix_ms["[isolated] RZCC"], "LIF": prefix_ms["[isolated] LIF"]},
+        "epilogue_ms": {k[len("[epilogue] "):]: v for k, v in prefix_ms.items() if k.startswith("[epilogue]")},
         "prefix_ms": prefix_ms, "spread_ms": spread_ms,
         "stage_sum_isolated_ms": isolated_sum,
         "k2_flag_reads": flag_reads,
@@ -137,7 +149,8 @@ def print_stages(res: dict, file=sys.stdout) -> None:
     print(f"RZCC (in-program)      {s['RZCC (in-program)']:7.3f} ms   [isolated {iso['RZCC']:.3f}]", file=file)
     print(f"LIF (in-program)       {s['LIF (in-program)']:7.3f} ms   [isolated {iso['LIF']:.3f}]", file=file)
     print(f"fold+argmax epilogue   {s['fold+argmax epilogue']:7.3f} ms", file=file)
-    print(f"matched epilogue       {s['matched epilogue']:7.3f} ms", file=file)
+    print(f"matched epilogue       {s['matched epilogue']:7.3f} ms   [alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res["epilogue_ms"].items()) + "]", file=file)
     print(f"TOTAL (matched)        {s['TOTAL (matched)']:7.3f} ms", file=file)
     print(f"throughput             {res['throughput_audio_sec_per_sec']:7.1f} audio-sec/sec", file=file)
 

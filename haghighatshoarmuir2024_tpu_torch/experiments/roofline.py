@@ -263,14 +263,15 @@ def raster_fill_ms(T: int, B: int, C: int, N: int) -> float:
 def lifted_iir_work(T: int, L: int, SB: int, N: int, Q: int, w2_terms: int | None) -> tuple[float, float]:
     """(float32 operations, bytes) of ``csrc/iir_lifted.cu`` on (T, L): two
     operations a multiply-add.  Per block of SB samples and column, the N + 1
-    increment rows and the assembly's SB × SB and SB × N products; at level 2
+    increment rows and the assembly's products: G2's lower triangle (its
+    upper one is zero), SB (SB + 1) / 2, and SB × N; at level 2
     (``w2_terms``, the level-2 multiply-adds a super-block and column: each
     row tile's rows times its columns up to its last nonzero one) the level-2
     products and the recurrence's h1m·U, Ps·s and Hc·s a block, ASBQ·s and
     sum_h·s a super-block; at level 1 (None) ASB·s and h1·s a block.  Bytes:
     x read and z written once, the carried state in and out."""
     nb = -(-T // SB)
-    fma = nb * ((N + 1) * SB + SB * SB + SB * N)
+    fma = nb * ((N + 1) * SB + SB * (SB + 1) // 2 + SB * N)
     if w2_terms is None:
         fma += nb * (N * N + N)
     else:

@@ -42,7 +42,7 @@ import torch
 from ...config import FS
 from ...geometry import ArrayGeometry, resolve_device
 from ...ops.cuda import lif_kernel
-from ...ops.cuda.matched_kernel import matched_scores
+from ...ops.cuda.matched_kernel import band_scores, matched_scores, row_sums
 from ...ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
 from ...ops.filterbank import ButterworthFilterbank
 from ...ops.fir import full_fp32
@@ -60,21 +60,35 @@ STACKED = ("matched_stacked", "matched_auto")  # the estimators of the unfolded 
 
 
 # ----------------------------------------------------- band-stacked scoring
-def _blockcos(x: torch.Tensor, G: int) -> torch.Tensor:
-    """Mean-remove and unit-normalize each G-wide band block of the trailing
-    axis (JAX ``_blockcos``, ``pipeline.py:33-45``): a noise-dominated band
-    then adds a bounded cosine to the summed score."""
-    xb = x.reshape(*x.shape[:-1], -1, G)
-    xb = xb - xb.mean(dim=-1, keepdim=True)
-    n = torch.linalg.vector_norm(xb, dim=-1, keepdim=True)
-    return (xb / n.clamp_min(1e-12)).reshape(x.shape)
+def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.sum(dim)``; on the card by :func:`row_sums`, one fixed order a
+    row, so a frame's sum does not depend on how many frames share the call."""
+    if x.device.type == "cpu":
+        return x.sum(dim=dim)
+    return row_sums(x.movedim(dim, -1))
+
+
+def _mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.mean(dim)``; on the card the :func:`_sum` over the length."""
+    if x.device.type == "cpu":
+        return x.mean(dim=dim)
+    return _sum(x, dim) / x.shape[dim]
 
 
 def _cos1(x: torch.Tensor) -> torch.Tensor:
     """Mean-remove and unit-normalize the trailing axis (JAX ``_cos1``,
-    ``pipeline.py:48-54``)."""
-    xc = x - x.mean(dim=-1, keepdim=True)
-    return xc / torch.linalg.vector_norm(xc, dim=-1, keepdim=True).clamp_min(1e-12)
+    ``pipeline.py:48-54``); on the card every sum in one fixed order a row."""
+    xc = x - _mean(x, -1)[..., None]
+    if x.device.type == "cpu":
+        return xc / torch.linalg.vector_norm(xc, dim=-1, keepdim=True).clamp_min(1e-12)
+    return xc / torch.sqrt(_sum(xc * xc, -1))[..., None].clamp_min(1e-12)
+
+
+def _blockcos(x: torch.Tensor, G: int) -> torch.Tensor:
+    """Mean-remove and unit-normalize each G-wide band block of the trailing
+    axis (JAX ``_blockcos``, ``pipeline.py:33-45``): a noise-dominated band
+    then adds a bounded cosine to the summed score."""
+    return _cos1(x.reshape(*x.shape[:-1], -1, G)).reshape(x.shape)
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -100,10 +114,10 @@ def _auto_blend_scores(rate: torch.Tensor, prof_stacked: torch.Tensor, G: int,
     P = prof_stacked.shape[0]
     cb = _blockcos(rate, G).reshape(*rate.shape[:-1], F, G)
     pb = _blockcos(prof_stacked, G).reshape(P, F, G)
-    Sb = torch.einsum("...fg,pfg->...fp", cb, pb)
-    rf = _cos1(rate.reshape(*rate.shape[:-1], F, G).mean(dim=-2))
-    pf = _cos1(prof_stacked.reshape(P, F, G).mean(dim=-2))
-    Sf = torch.matmul(rf, pf.T)
+    Sb = band_scores(cb, pb)  # one fixed order of summation a frame on the card
+    rf = _cos1(_mean(rate.reshape(*rate.shape[:-1], F, G), -2))
+    pf = _cos1(_mean(prof_stacked.reshape(P, F, G), -2))
+    Sf = matched_scores(rf, pf, center=False)
     comp = torch.cat([Sb, Sf[..., None, :]], dim=-2)  # (..., F + 1, P)
     pk = comp.amax(dim=-1)
     if weight == "peak":
@@ -114,7 +128,7 @@ def _auto_blend_scores(rate: torch.Tensor, prof_stacked: torch.Tensor, G: int,
         w = torch.clamp_min(pk - _median(comp), 0.0)
     else:
         raise ValueError(f"unknown auto-blend weight {weight!r}")
-    return (comp * w[..., None]).sum(dim=-2)
+    return _sum(comp * w[..., None], -2)
 
 
 class Demo:
@@ -511,7 +525,7 @@ class Demo:
         if method == "matched_auto":
             return _auto_blend_scores(rate, table, G)
         if method == "matched_stacked":
-            return torch.matmul(_blockcos(rate, G), self._stacked_cos_t.T)
+            return matched_scores(_blockcos(rate, G), self._stacked_cos_t, center=False)
         return matched_scores(rate, table)  # one fixed order of summation a frame on the card
 
     def estimate_doa_from_rate(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:

@@ -63,9 +63,10 @@ _SIGNATURES = {
     "hm_lif_pack_raster": ([_P] * 2 + [_I] * 4 + [_P], _I),
     "hm_lif_count": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "hm_lif_count_stateful": ([_P] * 12 + [_I] * 8 + [_P], _I),
-    "hm_iir_lifted": ([_P] * 18 + [_I] * 7 + [_P], _I),
+    "hm_iir_lifted_scratch": ([_I] * 5, _L),
+    "hm_iir_lifted": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "hm_matched_max_k": ([], _I),
-    "hm_matched": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "hm_matched": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -3,7 +3,7 @@
 for a CUDA tensor.
 
 It computes what :func:`ops.iir.iir_cumsum_blocked_plain` computes, from the
-same float32 matrices, in four launches (three at level 1), and it replaces
+same float32 matrices, in two launches (three at level 1), and it replaces
 no TPU kernel: the JAX package leaves this to XLA.  What it adds is one
 fixed order of summation for every output element, whatever the number of
 columns, so a stream's encode on the card is the same alone, in a shard or
@@ -23,7 +23,7 @@ import torch
 from .. import iir
 from ._build import check, launch_counts, library, stream_handle
 
-SB_MAX, N_MAX, K2_MAX, RT = 64, 8, 512, 16  # csrc/iir_lifted.cu's constants
+SB_MAX, N_MAX, K2_MAX, RT = 64, 8, 512, 8  # csrc/iir_lifted.cu's constants
 
 
 @functools.lru_cache(maxsize=16)
@@ -32,7 +32,9 @@ def kernel_matrices(b_key, a_key, SB: int, Q: int, device: torch.device) -> dict
     ``proj`` (SB+1+N, SB), ``hout`` (SB, N), ``ablk`` (N, N) and ``hblk`` (N,)
     of the outer recurrence, and at level 2 ``tinv``, ``tm``, ``h1m``,
     ``ps``, ``hc``, ``w2`` (``WsBm2``) with ``kend``, the columns up to the
-    last nonzero one of each tile of RT rows of ``w2``."""
+    last nonzero one of each tile of RT rows of ``w2``, and ``w2t``, ``w2``
+    transposed with its rows padded with zeros to whole tiles (the kernel
+    reads a tile's RT coefficients of one column as four float4s)."""
     m = iir._device_matrices(b_key, a_key, SB, Q, device)
     lvl2 = "Ws" in m
     out = dict(proj=m["proj"], hout=m["H2m" if lvl2 else "H2"], ablk=m["ASBQ" if lvl2 else "ASB"],
@@ -43,6 +45,9 @@ def kernel_matrices(b_key, a_key, SB: int, Q: int, device: torch.device) -> dict
         tiles = -(-nz.shape[0] // RT)
         kend = [int(np.flatnonzero(nz[t * RT:(t + 1) * RT].any(axis=0)).max(initial=-1)) + 1 for t in range(tiles)]
         out["kend"] = torch.as_tensor(kend, dtype=torch.int32, device=device)
+        w2t = out["w2"].new_zeros((out["w2"].shape[1], tiles * RT))
+        w2t[:, :out["w2"].shape[0]] = out["w2"].T
+        out["w2t"] = w2t
     return {k: v.contiguous() for k, v in out.items()}
 
 
@@ -67,15 +72,14 @@ def iir_lifted(b, a, x: torch.Tensor, zi: torch.Tensor | None = None, return_sta
     m = kernel_matrices(b_key, a_key, SB, Q, x.device)
     lvl2 = "w2" in m
     zi_t = None if zi is None else zi.to(x.device, torch.float32).reshape(L, N + 1).contiguous()
-    sp = torch.empty((2, nb, N + 1, L), dtype=torch.float32, device=x.device)
-    uv = torch.empty(((nb // Q) * (Q + 1) * N, L) if lvl2 else (1,), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((lib.hm_iir_lifted_scratch(L, N, Q, nb, int(lvl2)),), dtype=torch.float32,
+                          device=x.device)
     z = torch.empty((T, L), dtype=torch.float32, device=x.device)
     state = torch.empty((L, N + 1), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.hm_iir_lifted(
-        xf.data_ptr(), ptr(zi_t), z.data_ptr(), state.data_ptr(), sp[0].data_ptr(), sp[1].data_ptr(),
-        uv.data_ptr(), *(ptr(m.get(k)) for k in ("proj", "hout", "ablk", "hblk", "tinv", "tm", "h1m", "ps", "hc",
-                                                  "w2", "kend")),
+        xf.data_ptr(), ptr(zi_t), z.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+        *(ptr(m.get(k)) for k in ("proj", "hout", "ablk", "hblk", "tinv", "tm", "h1m", "ps", "hc", "w2t", "kend")),
         T, L, SB, N, Q, nb, int(lvl2), stream_handle(x.device))
     check(rc, "iir_lifted")
     launch_counts["iir_lifted"] += 1
