@@ -136,7 +136,9 @@ Phases, each failing the run with a non-zero exit:
     frames, 1600-1900 Hz, 449 DoAs): the Hilbert beamformer designed on the
     card, plain and with interference removal (seconds printed); bench.py's
     96 frames through ``Beamformer.apply_to_signal``, ``MUSIC.beamforming``
-    (Bartlett, 2 active bins, nfft 2048) and batched ``SRPPHAT``: the
+    (Bartlett, 2 active bins, nfft 2048) and batched ``SRPPHAT`` (the
+    Hilbert and MUSIC batches launch the scan kernel ``iir_scan`` and no
+    other hand kernel, SRP-PHAT none): the
     profiles equal the port's CPU path on the same frames within each
     family's stated tolerance, the DoAs equal where the CPU profile's top-two
     margin exceeds it and within a grid step elsewhere, the folded error
@@ -152,13 +154,15 @@ Phases, each failing the run with a non-zero exit:
     top-K + tracker, K1, K2, pack and K4 launched, the final tracks within 25
     deg (folded) of each stream's two sources;
 21. the Xylo deployment (after the main path's times): ``XyloSim`` on the
-    flagship's rasters (``spike_encoding`` of 25 of bench.py's frames, T =
-    12 000, N = 449), record=True, in all four step conventions with the
+    flagship's rasters (``spike_encoding`` of bench.py's 96 frames, T =
+    12 000, N = 449; the scan kernel ``xylo_sim`` twice a call, the hidden
+    layer and the readout), record=True, in all four step conventions with the
     flagship's uniform ``w_rec`` and with the dense push-to-hidden block
     ``w_rec`` ``[[0, W], [0, R]]`` (W the truncated flagship projection, R a
     sparse random stage-2 recurrence from the seed, since the truncation
     zeroes the flagship's own): spikes, ``Isyn``, ``Vmem``, the readout,
-    ``synops`` and the states bit-exact against the CPU path, and the block
+    ``synops`` and the states of the first 25 rows bit-exact against the
+    CPU path on those rows, and the block
     run equal to ``XyloSimPushToHidden``'s two stages; ``spike_encoding``
     equal to the CPU path on the same ``cs`` (and within 1e-3 of the spikes
     from the same audio), ``xylo_process`` equal, ``Demo.forward(matched)``'s
@@ -243,8 +247,8 @@ Phases, each failing the run with a non-zero exit:
     and unipolar (20 trials), ``multiband_speech.run`` and
     ``run_cross_segment`` (50 trials, chunks of 16, one band against three:
     C = 42, N = 336), ``xylo_ordering_sensitivity --speech`` cut to 10
-    trials at 10 dB (its simulator is a host-bound loop of 12 000 steps a
-    convention) and ``short_hilbert_transform``; every MAE column within one
+    trials at 10 dB (the size of JAX's numbers it is gated against; its
+    simulator runs on ``xylo_sim``) and ``short_hilbert_transform``; every MAE column within one
     grid step of the mean of what the JAX package's harness prints today at
     seeds 0 and 1 (its own draws, on the CPU), widened by the larger of half
     the two seeds' spread and four standard errors of the card's mean
@@ -268,8 +272,9 @@ Phases, each failing the run with a non-zero exit:
     reference defaults on the card, a synthetic 1750 Hz tone from 0.7 rad at
     10 dB, the designs made on the card (a temporary design cache): the
     Hilbert, SNN, MUSIC and SRP-PHAT demos 8 frames each, the quantized
-    Xylo demo 4 (unipolar; K1, K2, the raster pack and K5 on every frame,
-    no other hand kernel anywhere in the phase's demos).  MUSIC's reference
+    Xylo demo 4 (unipolar; K1, K2, the raster pack and K5 on every frame;
+    the Hilbert, SNN and MUSIC demos the scan kernel ``iir_scan`` at least
+    once a frame, SRP-PHAT none; no other hand kernel in any of them).  MUSIC's reference
     default of 100 active bins must raise ``ValueError`` as JAX's does, and
     the demo runs at the 34 the band allows.  Each demo: the folded error
     within its JAX test's threshold (the Xylo demo, whose test asks only for
@@ -329,8 +334,8 @@ Phases, each failing the run with a non-zero exit:
     cards: a shard's block 1/8 of the trials, errors equal);
 27. the device-parity checks of ``tests_tpu/test_device_parity.py`` that no
     earlier phase makes (``tests_gpu/`` calls these functions): the lifted
-    IIR kernel (``csrc/iir_lifted.cu``) against ``cumsum(iir_filter(method=
-    "scan"))`` on the card, a float64 ``scipy.signal.lfilter`` cumsum and its
+    IIR kernel (``csrc/iir_lifted.cu``) against the cumsum of the plain
+    per-sample scan on the card, a float64 ``scipy.signal.lfilter`` cumsum and its
     plain version at (1600-1900 Hz, T = 12 000) and (500-3000 Hz, T =
     24 000), and two carried halves against one run at blocks of 32 and 48,
     within 3 sqrt(T) eps_f32 of each column's largest value;
@@ -351,6 +356,27 @@ Phases, each failing the run with a non-zero exit:
     bounds, and each of their launches' device time at the flagship from
     CUPTI's kernel records (``experiments/hand_kernels.traced_ms``: the
     lifted IIR's super-block pass and assembly, the matched kernel).
+
+28. the two scan kernels, which carry the JAX package's two long
+    ``lax.scan``s as one launch each (``experiments/scan_kernels.py``):
+    the Hilbert apply and ``MUSIC.beamforming`` of 96 frames (``iir_scan``
+    once each) and ``XyloSim`` on phase 21's 96 rasters (``xylo_sim`` twice)
+    through their entry points, the counts set to 0 just before each;
+    ``iir_scan`` against the plain loop with ``torch.equal``, outputs and
+    final states, at the Hilbert apply's complex64 (T, B, 7) analytic signal
+    of 1 and 96 frames (order-2 1600-1900 Hz), MUSIC's order-1 band over
+    (96, T, 7) along dim 1, the SNN beamformer's 14 real columns and a
+    streaming-fallback chunk of 96 x 14 with a state carried over two chunks
+    (equal to one pass), each within twice JAX's error from scipy's float64
+    ``lfilter`` plus 1e-6 of the peak (``JAX_SCAN_REL64``); ``xylo_sim``
+    against the plain loop with ``torch.equal`` (spikes, counts, ``Isyn``,
+    ``Vmem``, the readout, both layers' states) on phase 21's cases at 96
+    frames (four conventions x the flagship's uniform ``w_rec`` and the
+    dense push-to-hidden block), a uniform ``w_rec`` of -1, two carried
+    halves against one pass, and wider layers (N = 700, 1347, 4096); both
+    timed by CUDA events beside their plain loops, with their bounds and
+    the scan's chain floor; one timed call of each host loop left
+    (``Envelope.evolve``, ``track_angles``, ``track_multi_angles``).
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -1937,6 +1963,7 @@ FAMILY_GATE_DEG = {"hilbert": 3.0, "music": 4.0, "srp": 3.0}
 # SRP power is bounded by 1 and PHAT-whitens tiny cross-spectra
 FAMILY_RTOL = {"hilbert": 1e-3, "music": 1e-4, "srp": 5e-4}
 HILBERT_CHUNK = 48  # frames a Beamformer.apply_to_signal call: its (48, T, 449) complex64 output is 2.1 GB
+FAMILY_KERNELS = {"hilbert": ("iir_scan",), "music": ("iir_scan",), "srp": ()}  # the hand kernels of each path
 
 
 def folded_deg(a, b):
@@ -2036,15 +2063,17 @@ def check_families(torch, _build, server, StreamingLocalizer, demo, frames, doas
         "srp": (srp.apply_to_signal, srp_cpu.apply_to_signal),
     }
     frames_cpu = frames.cpu()
+    out["launches"] = {}
     for name, (on_card, on_cpu) in fams.items():
         # warm-up: a frame of 2048 samples for the scanning families (their FFT and
         # matmul shapes but a sixth of the scan), SRP's whole frame for its plans
         on_card(frames[:1] if name == "srp" else frames[:1, :2048])
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prof = on_card(frames)
-        torch.cuda.synchronize()
+        prof, launches = counted(torch, _build, f"{name} batch", FAMILY_KERNELS[name], lambda: on_card(frames))
         batch_ms = (time.perf_counter() - t0) * 1e3
+        if set(launches) != set(FAMILY_KERNELS[name]):
+            fail(f"{name} batch: launched {launches}; its path runs {FAMILY_KERNELS[name] or 'no hand kernel'}")
+        out["launches"][f"{name} batch"] = launches
         t0 = time.perf_counter()
         on_card(frames[:1])
         torch.cuda.synchronize()
@@ -2075,6 +2104,8 @@ def check_families(torch, _build, server, StreamingLocalizer, demo, frames, doas
               f"(tolerance {FAMILY_RTOL[name]}), DoAs equal on the {int(decided.sum())} frames whose top-two margin "
               f"exceeds it ({int((~decided).sum())} others, {int((~decided & ~same).sum())} of them a grid step off); "
               f"folded error at most {errs.max():.2f} deg (gate {FAMILY_GATE_DEG[name]})", flush=True)
+
+    out.update(bf=bf, bf_mat=bf_mat, music_model=music)  # phase 28 drives the same models
 
     # the per-sample scan's share of one frame (the Hilbert and MUSIC apply paths)
     x1 = frames[:1].movedim(1, 0)  # (T, 1, M)
@@ -2231,18 +2262,22 @@ JAX_XYLO_RECORDS = ("matched 3.0 deg @-10 dB -> 1.5 deg @20 dB (1.6-3.2 over the
                     "peak 4-10 deg; its convention envelope 4.5-6.1 @-10, 3.9-9.3 @2, 4.9-14.1 @11, 6.7-13.8 "
                     "@20 dB; push-to-hidden about 276 uW")
 MATCHED_MAE_GATE, REFERENCE_MAE_GATE = 4.0, 15.0  # deg at every SNR, 100 trials each
-SIM_ROWS = 25  # frames through the simulator at full width: (25, 12 000, 449) int32 rasters
+SIM_ROWS = 96  # frames through the simulator at full width: bench.py's 96, (96, 12 000, 449) int32 records
+SIM_HOST_ROWS = 25  # of them also through the CPU path (a batch row's integers depend on that row alone)
 MC_TRIALS, ENVELOPE_TRIALS, XYLO_FRAME = 100, 25, 0.25  # target_xylo_localization's trials a SNR, frame s
 SPIKE_MOVE_TOL = 1e-3  # the card's raster from audio against the CPU path's, as a fraction of the spikes
 
 
-def sim_run(torch, XyloSim, cfg, spikes, ordering, reset):
+def sim_run(torch, XyloSim, cfg, spikes, ordering, reset, _build=None):
     """One recorded ``XyloSim`` call on ``spikes``' device: every output,
-    and its seconds (host clock, synchronized)."""
+    its seconds (host clock, synchronized) and, with ``_build``, its kernel
+    launches (the counts set to 0 just before it)."""
     dev = spikes.device
     sim = XyloSim(cfg, ordering=ordering, reset=reset, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    if _build is not None:
+        _build.launch_counts.clear()
     t0 = time.perf_counter()
     out, state, rec = sim(spikes, record=True, record_power=True)
     if dev.type == "cuda":
@@ -2250,7 +2285,7 @@ def sim_run(torch, XyloSim, cfg, spikes, ordering, reset):
     sec = time.perf_counter() - t0
     res = {"readout": out, **rec}
     res.update({f"state.{part}[{i}]": s for part in ("hidden", "out") for i, s in enumerate(state[part])})
-    return res, sec
+    return res, sec, (None if _build is None else dict(_build.launch_counts))
 
 
 def equal_on_host(torch, card: dict, host: dict, label: str):
@@ -2271,7 +2306,7 @@ def check_xylo(torch, _build, Demo, flagship, demo, frames, dev):
     from haghighatshoarmuir2024_tpu_torch.experiments import target_xylo_localization as txl
     from haghighatshoarmuir2024_tpu_torch.experiments.common import FS, sinusoid_template, snr_sweep_config
     from haghighatshoarmuir2024_tpu_torch.models.xylo import DemoPushToHidden, XyloSim, estimate_power
-    from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import XyloSimPushToHidden
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
     from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import ORDERINGS, RESETS
     from haghighatshoarmuir2024_tpu_torch.parallel import make_trial_fn
 
@@ -2279,36 +2314,35 @@ def check_xylo(torch, _build, Demo, flagship, demo, frames, dev):
     t_phase = time.perf_counter()
     cpu_demo = Demo(**{**flagship, "device": "cpu"})  # the bundled design, on the CPU path
 
-    # ---- (a) the simulator on the card against the CPU path, bit-exact, at full width
-    spk = demo.spike_encoding(frames[:SIM_ROWS])  # (25, 12 000, 28) int32
-    spk_host = spk.cpu()
+    # ---- (a) the simulator on the card (the kernel, bench.py's 96 frames) against the CPU path, bit-exact
+    spk = demo.spike_encoding(frames[:SIM_ROWS])  # (96, 12 000, 28) int32
+    spk_host = spk[:SIM_HOST_ROWS].cpu()
     pdemo = DemoPushToHidden(**flagship)  # the bundled design, fan-out truncated
     runs = [(f"{o}/{r}, uniform w_rec", demo.xylo_config, o, r) for o in ORDERINGS for r in RESETS]
-    # stage 2 with a sparse random recurrence R: the truncation zeroes the flagship's own
-    n2 = pdemo.xylo.n_stage2
-    rng = np.random.default_rng(SEED)
-    r = (rng.integers(-3, 4, size=(n2, n2)) * (rng.random((n2, n2)) < 0.2)).astype(np.int32)
-    p1 = pdemo.xylo
-    psim = XyloSimPushToHidden(dataclasses.replace(pdemo.xylo_config, w_rec=r), p1.injection_weight, p1.dash_syn_in,
-                               p1.dash_mem_in, p1.threshold_in, device=dev)
-    runs.append(("decay_first/subtract, dense w_rec [[0, W], [0, R]]", psim.block_config(), "decay_first",
-                 "subtract"))
+    psim, block = scan_kernels.push_to_hidden_block(pdemo)  # stage 2 with a sparse random R from the seed
+    runs.append(("decay_first/subtract, dense w_rec [[0, W], [0, R]]", block, "decay_first", "subtract"))
+    out["sim_launches"] = {}
     for label, cfg, ordering, reset in runs:
-        card, card_s = sim_run(torch, XyloSim, cfg, spk, ordering, reset)
-        host, host_s = sim_run(torch, XyloSim, cfg, spk_host, ordering, reset)
-        equal_on_host(torch, card, host, f"XyloSim {label}")
-        n_spk = int(host["Spikes"].sum())
+        card, card_s, launches = sim_run(torch, XyloSim, cfg, spk, ordering, reset, _build)
+        if launches.get("xylo_sim", 0) != 2:  # the hidden layer and the readout
+            fail(f"XyloSim {label}: launched {launches}; want xylo_sim twice (hidden layer, readout)")
+        host, host_s, _ = sim_run(torch, XyloSim, cfg, spk_host, ordering, reset)
+        equal_on_host(torch, {k: v[:SIM_HOST_ROWS] for k, v in card.items()}, host, f"XyloSim {label}")
+        n_spk = int(card["Spikes"].sum())
         if n_spk == 0:
             fail(f"XyloSim {label}: no hidden spike")
         out["sim"][label] = dict(card_s=card_s, cpu_s=host_s, spikes=n_spk)
-        print(f"[xylo] XyloSim {label}, record=True, (B, T, N) = {tuple(host['Spikes'].shape)}: spikes, Isyn, Vmem, "
-              f"readout, synops and states == the CPU path ({n_spk} spikes); {card_s:.3f} s on the card, "
-              f"{host_s:.3f} s on the CPU", flush=True)
+        out["sim_launches"][f"XyloSim {label}"] = launches
+        print(f"[xylo] XyloSim {label}, record=True, (B, T, N) = {tuple(card['Spikes'].shape)} on the card "
+              f"(launches {launches}): spikes, Isyn, Vmem, readout, synops and states of the first {SIM_HOST_ROWS} "
+              f"rows == the CPU path ({n_spk} spikes in all); {card_s:.3f} s on the card, {host_s:.3f} s on the CPU "
+              f"for {SIM_HOST_ROWS} rows", flush=True)
     # the block form equals the push-to-hidden simulator's two stages at the flagship's width
     staged, _, _ = psim.evolve_to_hidden(spk)
-    if not torch.equal(staged.cpu(), host["Spikes"]):
+    if not torch.equal(staged, card["Spikes"]):
         fail("the dense block run differs from XyloSimPushToHidden's two stages on the same raster")
     print("[xylo] the dense block run == XyloSimPushToHidden.evolve_to_hidden on the same raster", flush=True)
+    out.update(spikes=spk, block=block)  # phase 28 holds the kernel to the plain loop on these
     del card, host, staged
 
     # ---- (b) the stages: spike_encoding, xylo_process, the single-frame matched forward
@@ -3332,8 +3366,8 @@ JAX_MB_SPEECH = {
         "three/matched_auto_contrast": [29.1, 18.54, 8.51, 4.1, 2.82, 2.07],
         "cross/self_segment": [22.55, 4.18, 1.68], "cross/cross_segment": [22.55, 4.18, 1.68]},
 }
-#   xylo_ordering_sensitivity --speech, cut to 10 trials at 10 dB (the simulator is a host-bound loop, 230-249 us a
-#   step): MAE deg a step convention, printed beside JAX's (the same numpy draws) and held to the CPU twin of the
+#   xylo_ordering_sensitivity --speech, cut to 10 trials at 10 dB (when its simulator was a host-bound loop, 230-249 us
+#   a step; the gate's JAX numbers are at that size): MAE deg a step convention, printed beside JAX's (the same numpy draws) and held to the CPU twin of the
 #   card's design, trial by trial: at an MAE of 25-42 deg the peak estimator has near-equal peaks, and a moved
 #   spike or the design's rounding flips a trial between them.  Measured: decay_first/zero 25.52 in JAX, 28.41
 #   through the port on JAX's design on the CPU (its own encode), 30.50 on the port's own CPU design, 30.66 on the
@@ -3604,11 +3638,11 @@ def check_speech_harnesses(torch, _build, sk, lk, roofline, StreamingLocalizer, 
           f"cross-segment {out['launches']['multiband_speech --cross-segment']}", flush=True)
     del demos, host3, tables3, card_tables
 
-    # ---- xylo_ordering_sensitivity --speech (the simulator: a host-bound loop), then its frames on the CPU twin
+    # ---- xylo_ordering_sensitivity --speech (the simulator: the xylo_sim kernel), then its frames on the CPU twin
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
         ores, out["launches"]["ordering --speech"] = counted(
-            torch, _build, "xylo_ordering_sensitivity --speech", ("rzcc_k1", "rzcc_k2"),
+            torch, _build, "xylo_ordering_sensitivity --speech", ("rzcc_k1", "rzcc_k2", "xylo_sim"),
             lambda: xos.main(ORDERING_ARGV + ["--device", dev.type]), out["s"])
     got = {k: v["10.0"][0] for k, v in ores["mae_by_variant"].items()}
     if sorted(got) != sorted(JAX_ORDERING):
@@ -3714,6 +3748,9 @@ FRAME_MS = 250.0  # the demos' frame: a live demo handles a frame in less
 # reference's default of 100 raises ValueError in MUSIC.beamforming, in JAX's demo and in the port's alike
 MUSIC_DEMO_BINS = int((2000.0 - 1200.0) / (48_000 / 2048))
 XYLO_DEMO_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack_raster", "lif_k5")
+# each demo's hand kernels: the scanning demos' bandpass and filterbank scans, the Xylo demo's forward
+DEMO_PATHS = {"hilbert": ("iir_scan",), "snn": ("iir_scan",), "music": ("iir_scan",), "srp": (),
+              "xylo": XYLO_DEMO_PATH}
 TRACE_KERNELS = {"rzcc_k1_kernel": "K1", "rzcc_k2_kernel": "K2", "lif_pack_bipolar_kernel": "pack",
                  "lif_count_bipolar_kernel": "K3"}
 
@@ -3814,15 +3851,15 @@ def check_demos(torch, _build, dev, flagship_demo, frames, event_ms, attribution
         for name in ("hilbert", "snn", "music", "srp", "xylo"):
             n = DEMO_FRAMES[name]
             d, design_s = synced(torch, dev, lambda: build(name))
-            est, launches = counted(torch, _build, f"{name} demo", XYLO_DEMO_PATH if name == "xylo" else (),
-                                    lambda: d.run(n))
+            est, launches = counted(torch, _build, f"{name} demo", DEMO_PATHS[name], lambda: d.run(n))
             if name == "xylo":  # each kernel once a frame, K2 at least once (once a suppression round)
                 for k in XYLO_DEMO_PATH:
                     if launches.get(k, 0) < n or (k != "rzcc_k2" and launches[k] != n):
                         fail(f"xylo demo: {k} launched {launches.get(k, 0)} times for {n} frames")
-                out["launches"]["live demo xylo"] = launches
-            elif launches:
-                fail(f"{name} demo: launched {launches}; its path runs no hand kernel")
+            elif set(launches) != set(DEMO_PATHS[name]) or launches.get("iir_scan", n) < n:
+                fail(f"{name} demo: launched {launches} in {n} frames; its path runs "
+                     f"{DEMO_PATHS[name] or 'no hand kernel'}, the scan at least once a frame")
+            out["launches"][f"live demo {name}"] = launches
             est = np.asarray(est)
             err = folded_deg(np.deg2rad(est), DEMO_DOA)
             if name == "xylo":
@@ -4404,8 +4441,8 @@ def col_rel_err(got, ref) -> float:
 
 
 def check_iir_scan(torch, dev, band, T, L, seed=3):
-    """``iir_cumsum_blocked`` on the card (the kernel) against
-    ``cumsum(iir_filter(method="scan"))`` on the card, against a float64
+    """``iir_cumsum_blocked`` on the card (the kernel) against the cumsum of
+    the plain per-sample scan (``iir_scan_plain``) on the card, against a float64
     ``scipy.signal.lfilter`` cumsum and against its plain version, each
     within :func:`iir_bound`.  Returns the three errors."""
     from scipy.signal import lfilter
@@ -4416,7 +4453,7 @@ def check_iir_scan(torch, dev, band, T, L, seed=3):
     x = np.random.default_rng(seed).standard_normal((T, L)).astype(np.float32)
     xt = torch.as_tensor(x, device=dev)
     got = iir.iir_cumsum_blocked(b, a, xt).cpu().numpy()
-    errs = dict(scan=col_rel_err(got, torch.cumsum(iir.iir_filter(b, a, xt, method="scan"), 0).cpu().numpy()),
+    errs = dict(scan=col_rel_err(got, torch.cumsum(iir.iir_scan_plain(b, a, xt)[0], 0).cpu().numpy()),
                 float64=col_rel_err(got, np.cumsum(lfilter(b, a, x.astype(np.float64), axis=0), axis=0)),
                 plain=col_rel_err(got, iir.iir_cumsum_blocked_plain(b, a, xt).cpu().numpy()))
     for k, e in errs.items():
@@ -4650,7 +4687,7 @@ def check_parity(torch, roofline, dev, demo, frames, card, three_band):
     out = dict(scan={}, seam={})
     for band, T, L in IIR_SCAN_CASES:
         e = out["scan"][f"{band}, T = {T}"] = check_iir_scan(torch, dev, band, T, L)
-        print(f"{tag} lifted IIR {band} Hz, T = {T}, {L} columns: from cumsum(scan) {e['scan']:.3e}, from float64 "
+        print(f"{tag} lifted IIR {band} Hz, T = {T}, {L} columns: from cumsum(plain scan) {e['scan']:.3e}, from float64 "
               f"lfilter {e['float64']:.3e}, from the plain version {e['plain']:.3e} of a column's largest value "
               f"(bound {iir_bound(T):.3e})", flush=True)
     for sb, fs, T, seed in IIR_SEAMS:
@@ -4674,6 +4711,145 @@ def check_parity(torch, roofline, dev, demo, frames, card, three_band):
               f"bytes), {k['bound_ms'] / k['ms']:.1%} of it; max abs err {k['max_abs_err']:.3e}; device time by "
               f"launch (CUPTI): {split}; device time {traced:.4f} ms a call, the bound {k['bound_ms'] / traced:.1%} of it",
               flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------------------ phase 28
+# JAX's scan on this host's CPU, its largest error from scipy's float64 lfilter over the largest |reference|, on
+# the inputs of experiments/scan_kernels.iir_inputs: python tests/test_torch_scan_kernels.py --jax-bounds
+JAX_SCAN_REL64 = {"hilbert 1 frame": 0.0014109785425314653, "hilbert 96 frames": 0.0017776017344748715,
+                  "music 96 frames": 7.085877752670784e-06, "snn 14 columns": 0.0013228159274527877,
+                  "stream 96 x 14, two chunks": 2.4973036680062307e-06}
+SCAN_REPS = 20  # CUDA-event calls a scan kernel's time
+CHAIN_TEXT = "12 000 steps x 4 dependent float32 operations x 4 cycles"
+SIM_REPS = 5
+# wider simulators than the flagship's, at 2, 4 and 8 neurons a thread: (N, ordering, reset, recurrence)
+WIDE_SIMS = ((700, "decay_first", "zero", "dense"), (1347, "integrate_first", "subtract", "dense"),
+             (1347, "decay_first", "subtract", -1), (4096, "integrate_first", "zero", -2))
+WIDE_T, WIDE_B = 2000, 3
+TRACK_FRAMES = 240  # a minute of 0.25 s frames
+
+
+def wide_sim_config(torch, XyloConfig, N: int, rec, seed: int):
+    """A random 28-input config of N neurons with a dense sparse random
+    ``w_rec`` or the uniform ``rec``, and a (T, B, 28) spike raster."""
+    cfg = make_config(XyloConfig, seed, N=N, rows=28, w_scale=30)
+    r = np.random.default_rng(seed)
+    w_rec = (r.integers(-4, 5, size=(N, N)) * (r.random((N, N)) < 0.05)) if rec == "dense" else np.full((N, N), rec)
+    cfg = dataclasses.replace(cfg, w_rec=w_rec.astype(np.int32))
+    spikes = torch.as_tensor((r.random((WIDE_T, WIDE_B, 28)) < 0.3).astype(np.int32))
+    return cfg, spikes
+
+
+def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy):
+    """Phase 28: the two scan kernels (module docstring)."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import XyloConfig, XyloSim
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import ORDERINGS, RESETS
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import iir_kernel, sim_kernel
+    from haghighatshoarmuir2024_tpu_torch.ops.envelope import Envelope
+    from haghighatshoarmuir2024_tpu_torch.utils import tracking
+
+    t_phase = time.perf_counter()
+    tag = f"[scan] [{card}]"
+    out = {"iir": {}, "sim": {}, "launches": {}, "s": {}}
+    lib = _build.library()
+    if (lib.hm_iir_scan_max_state(), lib.hm_xylo_sim_max_neurons()) != (iir_kernel.SCAN_N_MAX, sim_kernel.SIM_N_MAX):
+        fail("the wrappers' limits differ from the kernels' (SCAN_N_MAX, SIM_N_MAX)")
+    B, T = frames.shape[:2]
+    spk = xy["spikes"]  # phase 21's rasters of bench.py's 96 frames, (B, T, 28)
+    spk_tbc = spk.transpose(0, 1).contiguous()
+
+    # ---- the slice's paths through their entry points, each with the counts set to 0 just before it
+    for label, kernel, want, fn in (
+            (f"Beamformer.apply_to_signal ({B} frames)", "iir_scan", 1,
+             lambda: fam["bf"].apply_to_signal(fam["bf_mat"], frames)),
+            (f"MUSIC.beamforming ({B} frames)", "iir_scan", 1, lambda: fam["music_model"].beamforming(frames, 2, 2048)),
+            (f"XyloSim ({B} frames, record=True)", "xylo_sim", 2,
+             lambda: XyloSim(demo.xylo_config, device=dev)(spk, record=True))):
+        _, launches = counted(torch, _build, label, (kernel,), fn, out["s"])
+        if launches.get(kernel) != want:
+            fail(f"{label}: {kernel} launched {launches.get(kernel)} times, want {want} ({launches})")
+        out["launches"][label] = launches
+    print(f"{tag} the scanning paths through their entry points: " + "; ".join(
+        f"{k} launches {v} in {out['s'][k]:.3f} s" for k, v in out["launches"].items()), flush=True)
+
+    # ---- kernel A against its plain loop at the slice's shapes, outputs and states by torch.equal
+    for name, (b, a, x, axis, zi) in skn.iir_inputs(B).items():
+        if zi is None:
+            r = skn.iir_against_plain(b, a, x.to(dev), axis, reps=SCAN_REPS)
+            ok = r["equal"] and r["launches"] == 1
+        else:
+            r = skn.stream_chunks(b, a, x.to(dev), zi)
+            ok = r["chunks_equal"] and r["one_pass_equal"]
+        bound = 2 * JAX_SCAN_REL64[name] + 1e-6
+        if not ok:
+            fail(f"iir_scan {name}: the kernel differs from the plain loop ({r})")
+        if not r["rel64"] <= bound:
+            fail(f"iir_scan {name}: {r['rel64']:.3e} of the peak from float64 lfilter, above twice JAX's "
+                 f"{JAX_SCAN_REL64[name]:.3e} + 1e-6")
+        out["iir"][name] = r
+        times = (f"; {r['ms']:.4f} ms (CUDA events, {SCAN_REPS} calls) against the plain loop's {r['plain_ms']:.1f} ms"
+                 if "ms" in r else "; chunks carried == one pass")
+        print(f"{tag} iir_scan {name} {r['shape']}: outputs and final state == the plain loop (torch.equal); "
+              f"{r['rel64']:.3e} of the peak from float64 lfilter (JAX {JAX_SCAN_REL64[name]:.3e}, bound "
+              f"{bound:.3e}){times}", flush=True)
+    h = out["iir"][f"hilbert {B} frames"]
+    clock = skn.sm_clock_mhz()
+    bound_ms, bound_by = roofline.bound(h["ops"], roofline.FP32_FLOP_PER_S, h["bytes"])
+    out["iir_kernel"] = dict(ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, ops=h["ops"],
+                             bytes=h["bytes"], chain_ms=skn.chain_floor_ms(T, clock), clock_mhz=clock,
+                             max_abs_err=max(r["max_abs_err"] for r in out["iir"].values()))
+
+    # ---- kernel B against its plain loop: phase 21's cases at 96 frames, a uniform recurrence, wider layers
+    cases = [(f"{o}/{r}, {label}", cfg, spk_tbc, o, r) for label, cfg in
+             (("the flagship's uniform w_rec", demo.xylo_config), ("the dense [[0, W], [0, R]]", xy["block"]))
+             for o in ORDERINGS for r in RESETS]
+    cases.append(("decay_first/subtract, uniform w_rec = -1", with_rec(demo.xylo_config, -1), spk_tbc, "decay_first",
+                  "subtract"))
+    for i, (N, o, r, rec) in enumerate(WIDE_SIMS):
+        cfg, wide = wide_sim_config(torch, XyloConfig, N, rec, SEED + i)
+        cases.append((f"{o}/{r}, N = {N}, {'dense' if rec == 'dense' else f'uniform {rec}'} w_rec, (T, B) = "
+                      f"({WIDE_T}, {WIDE_B})", cfg, wide.to(dev), o, r))
+    for k, (label, cfg, x, o, r) in enumerate(cases):
+        res = skn.sim_against_plain(cfg, x, o, r, split=k == 0)
+        if not res["equal"] or res["launches"] != 2 or not res.get("halves_equal", True):
+            fail(f"xylo_sim {label}: the kernel differs from the plain loop ({res})")
+        if res["spikes"] == 0:
+            fail(f"xylo_sim {label}: no hidden spike")
+        out["sim"][label] = res
+        print(f"{tag} xylo_sim {label} {res['shape']}: spikes, counts, Isyn, Vmem, the readout and both layers' states "
+              f"== the plain loop (torch.equal; {res['spikes']} spikes)"
+              + ("; two carried halves == one pass" if "halves_equal" in res else ""), flush=True)
+        del res
+    st = skn.sim_times(demo.xylo_config, spk_tbc, SIM_REPS)
+    bound_ms, bound_by = roofline.bound(st["ops"], roofline.guide_peaks()["int32_ops_per_s"], st["bytes"])
+    out["sim_kernel"] = dict(st, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+    print(f"{tag} xylo_sim {st['shape']} with its three records: {st['ms']:.3f} ms (CUDA events, {SIM_REPS} calls) "
+          f"against the plain loop's {st['plain_ms']:.1f} ms; bound {bound_ms:.3f} ms ({bound_by}: {st['ops']:.4g} "
+          f"int32 operations, {st['bytes']:.4g} bytes)", flush=True)
+
+    # ---- the host loops left: one timed call each of the other counterparts of JAX's lax.scans
+    x1 = frames[0]  # (T, 7)
+    env = Envelope(1e-3, 1e-2, 48_000.0)
+    rng = np.random.default_rng(SEED)
+    z = torch.as_tensor(rng.uniform(-np.pi, np.pi, (TRACK_FRAMES, B)).astype(np.float32), device=dev)
+    zk = torch.as_tensor(rng.uniform(-np.pi, np.pi, (TRACK_FRAMES, B, 2)).astype(np.float32), device=dev)
+    loops = {f"Envelope.evolve ({T}, 7)": lambda: env.evolve(x1),
+             f"track_angles ({TRACK_FRAMES}, {B})": lambda: tracking.track_angles(z, device=dev),
+             f"track_multi_angles ({TRACK_FRAMES}, {B}, 2), 4 tracks":
+                 lambda: tracking.track_multi_angles(zk, torch.ones_like(zk, dtype=torch.bool), 4, device=dev)}
+    out["loops_s"] = {}
+    for label, fn in loops.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out["loops_s"][label] = time.perf_counter() - t0
+    print(f"{tag} the host loops left (one call each, host clock, synchronized): " + ", ".join(
+        f"{k} {1e3 * v:.1f} ms" for k, v in out["loops_s"].items()), flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4882,6 +5058,9 @@ def main() -> int:
     # ---- phase 27: the device-parity checks no earlier phase makes, the new kernels against their plain versions
     px = check_parity(torch, roofline, dev, demo, frames, card, three[48_000]["model"])
     lap(start, "the device-parity checks and the new kernels")
+    # ---- phase 28: the two scan kernels against their plain loops, their paths, times and bounds
+    scx = check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy)
+    lap(start, "the scan kernels")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -5045,6 +5224,39 @@ def main() -> int:
                         "launch_device_ms": {k: float(np.mean(v)) for k, v in res["traced"].items()},
                         "harness_launches": {"streaming step": stream_launches.get(name, 0),
                                              **{lbl: n.get(name, 0) for lbl, n in shx["launches"].items()}}})
+    # the scan kernels (phase 28): the JAX package runs both recurrences as one lax.scan; launches from the
+    # paths' entry points (the Hilbert apply of 96 frames, XyloSim on 96 frames), and from phases 20-25
+    scan_paths = {"iir_scan": f"Beamformer.apply_to_signal ({B} frames)", "xylo_sim": f"XyloSim ({B} frames, record=True)"}
+    for name, src, repl, res in (
+        ("iir_scan", "haghighatshoarmuir2024_tpu_torch/csrc/iir_scan.cu", "haghighatshoarmuir2024_tpu/ops/iir.py:256",
+         scx["iir_kernel"]),
+        ("xylo_sim", "haghighatshoarmuir2024_tpu_torch/csrc/xylo_sim.cu",
+         "haghighatshoarmuir2024_tpu/models/xylo/sim.py:60", scx["sim_kernel"]),
+    ):
+        chain = (f"; the recurrence's chain floor {res['chain_ms']:.4f} ms ({CHAIN_TEXT} at {res['clock_mhz']:.0f} MHz), "
+                 f"{100 * res['chain_ms'] / res['ms']:.1f} % of the kernel's time: "
+                 + ("the chain bounds it, not the bytes" if res["chain_ms"] > res["bound_ms"] else "the bytes bound it")
+                 if "chain_ms" in res else "")
+        print(f"{tag} bound {name}: {res['ms']:.4f} ms against a bound of {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+              f"{res['ops']:.4g} {'float32' if name == 'iir_scan' else 'int32'} operations, {res['bytes']:.4g} bytes); the bound is "
+              f"{100 * res['bound_ms'] / res['ms']:.1f} % of the kernel's time; the plain loop {res['plain_ms']:.1f} ms"
+              + chain)
+        harness = {label: n.get(name, 0) for label, n in {**fam["launches"], **xy["sim_launches"], **scx["launches"],
+                                                           "moving_target": hx["moving_launches"],
+                                                           "mismatch_robustness": hx["mismatch_launches"],
+                                                           **bx["launches"],
+                                                           **spx["launches"], **dx["launches"]}.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl, "tpu_kernel": None,
+                        "launches": scx["launches"][scan_paths[name]][name], "max_abs_err": res["max_abs_err"],
+                        "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                        "bound_by": res["bound_by"], "library_ms": None,
+                        **({"chain_ms": res["chain_ms"]} if "chain_ms" in res else {}),
+                        "harness_launches": {k: v for k, v in harness.items() if v}})
+    for label, r in scx["iir"].items():
+        if "ms" in r:
+            print(f"{tag} iir_scan {label} {r['shape']}: {r['ms']:.4f} ms, the plain loop {r['plain_ms']:.1f} ms")
+    print(f"{tag} the host loops left: " + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in scx["loops_s"].items())
+          + f"; phase 28 {scx['phase_s']:.1f} s")
     for name in ("hilbert", "music", "srp"):
         f = fam[name]
         print(f"{tag} {name}: {f['frame_ms']:.3f} ms per frame in a batch of {B} ({f['batch_ms']:.1f} ms), one "
@@ -5059,7 +5271,7 @@ def main() -> int:
           + ", ".join(f"{m} {fam['cli'][m]:.3f} ms" for m in ("xylo", "hilbert", "music", "srp")))
     for label, r in xy["sim"].items():
         print(f"{tag} XyloSim {label}, record=True, B = {SIM_ROWS}, T = {T}: {r['card_s']:.3f} s a call on the card "
-              f"(the CPU path {r['cpu_s']:.3f} s)")
+              f"(the CPU path {r['cpu_s']:.3f} s for {SIM_HOST_ROWS} rows)")
     print(f"{tag} Xylo MC ({MC_TRIALS} trials x 11 SNRs x 2 estimators, grid 112): {xy['mc_s']:.3f} s with the "
           f"calibration; the convention envelope ({ENVELOPE_TRIALS} x 11 x 4) {xy['envelope_s']:.3f} s; the push-to-hidden check (8 trials) "
           f"{xy['p2h_check_s']:.3f} s; designs on the card {xy['mc_design_s']:.3f} s (1000-2000 Hz) and "

@@ -19,12 +19,15 @@ JAX's ``_sim_hidden`` (``sim.py:61-123``) keeps the four conventions behind
 static flags to bound the simulator's one open assumption
 (experiments/xylo_ordering_sensitivity.py).
 
-The scan is a Python loop of tensor ops, one step at a time, on the
-tensors' device: on the card it is host-bound.  Products with ``w_in``,
-``w_rec`` and ``w_out`` run in float64, exact for the integer operands
-(JAX's float32 products are exact below 2^24, ``sim.py:14-17``), so the
-integers equal JAX's.  This is also the plain version of kernels K3-K6
-(``ops/cuda/lif_kernel.py``), which implement the default convention with a
+The plain scan (:func:`scan_hidden_plain`) is a Python loop of tensor
+ops, one step at a time: the CPU's route.  On the card :func:`scan_hidden`
+runs the hand kernel ``csrc/xylo_sim.cu`` instead, all T steps in one
+launch, bit for bit the same integers (JAX runs the scan as one
+``lax.scan``).  Products with ``w_in``, ``w_rec`` and ``w_out`` run in
+float64, exact for the integer operands (JAX's float32 products are exact
+below 2^24, ``sim.py:14-17``), so the integers equal JAX's.  The plain loop
+is also the plain version of kernels K3-K6 (``ops/cuda/lif_kernel.py``,
+through :func:`sim_hidden`), which implement the default convention with a
 uniform ``w_rec`` only.
 """
 from __future__ import annotations
@@ -84,7 +87,24 @@ def _int32(a, dev) -> torch.Tensor:
 def scan_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, state0=None, *, rec_coef: int = 0,
                 w_rec=None, ordering: str = "decay_first", reset: str = "subtract", record: bool = True,
                 record_state: bool = False, count: bool = False):
-    """Scan the hidden-layer integer LIF over time.
+    """Scan the hidden-layer integer LIF over time: on a CPU tensor
+    :func:`scan_hidden_plain` (arguments and returns there), on any other
+    the hand kernel ``csrc/xylo_sim.cu`` (``ops/cuda/sim_kernel.py``: one
+    launch for all T steps, the same integers bit for bit), which raises
+    off the card."""
+    from ...ops.cuda import sim_kernel
+
+    return sim_kernel.scan_hidden(inp, dash_syn, dash_mem, threshold, state0, rec_coef=rec_coef, w_rec=w_rec,
+                                  ordering=ordering, reset=reset, record=record, record_state=record_state,
+                                  count=count)
+
+
+def scan_hidden_plain(inp: torch.Tensor, dash_syn, dash_mem, threshold, state0=None, *, rec_coef: int = 0,
+                      w_rec=None, ordering: str = "decay_first", reset: str = "subtract", record: bool = True,
+                      record_state: bool = False, count: bool = False):
+    """Scan the hidden-layer integer LIF over time, a step of tensor ops at
+    a time: the CPU's route, the plain version the kernel is held to on the
+    card, and (through :func:`sim_hidden`) the twin of K3-K6.
 
     Args:
         inp: (T, ..., N) int32 input current per step (time leading, any
@@ -165,8 +185,8 @@ def sim_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, rec_coef: int =
     """The default convention with a uniform recurrence, with counts: the
     plain version of K3-K6.  Returns ``(spikes or None, counts, (isyn,
     vmem, spk))`` (see :func:`scan_hidden`)."""
-    spikes, counts, state, _ = scan_hidden(inp, dash_syn, dash_mem, threshold, state0, rec_coef=rec_coef,
-                                           record=record, count=True)
+    spikes, counts, state, _ = scan_hidden_plain(inp, dash_syn, dash_mem, threshold, state0, rec_coef=rec_coef,
+                                                 record=record, count=True)
     return spikes, counts, state
 
 

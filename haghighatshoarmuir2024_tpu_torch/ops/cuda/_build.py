@@ -67,6 +67,10 @@ _SIGNATURES = {
     "hm_iir_lifted": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "hm_matched_max_k": ([], _I),
     "hm_matched": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "hm_iir_scan_max_state": ([], _I),
+    "hm_iir_scan": ([_P] * 5 + [_I, _L, _I, _I, _I] + [_L] * 6 + [_P], _I),
+    "hm_xylo_sim_max_neurons": ([], _I),
+    "hm_xylo_sim": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 

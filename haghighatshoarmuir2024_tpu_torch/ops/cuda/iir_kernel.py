@@ -1,17 +1,24 @@
-"""The lifted blocked IIR cumsum on the card: the wrapper of
-``csrc/iir_lifted.cu``, the route :func:`ops.iir.iir_cumsum_blocked` takes
-for a CUDA tensor.
+"""The IIR hand kernels on the card: the wrappers of ``csrc/iir_lifted.cu``,
+the route :func:`ops.iir.iir_cumsum_blocked` takes for a CUDA tensor, and of
+``csrc/iir_scan.cu``, the route of :func:`ops.iir.iir_scan` (and so of
+``iir_filter(method="scan")``).
 
-It computes what :func:`ops.iir.iir_cumsum_blocked_plain` computes, from the
-same float32 matrices, in two launches (three at level 1), and it replaces
-no TPU kernel: the JAX package leaves this to XLA.  What it adds is one
-fixed order of summation for every output element, whatever the number of
-columns, so a stream's encode on the card is the same alone, in a shard or
-in the whole batch (the plain version's GEMMs go to cuBLAS, whose kernel and
-rounding follow the call's width).
+``iir_lifted`` computes what :func:`ops.iir.iir_cumsum_blocked_plain`
+computes, from the same float32 matrices, in two launches (three at level
+1), and it replaces no TPU kernel: the JAX package leaves this to XLA.  What
+it adds is one fixed order of summation for every output element, whatever
+the number of columns, so a stream's encode on the card is the same alone,
+in a shard or in the whole batch (the plain version's GEMMs go to cuBLAS,
+whose kernel and rounding follow the call's width).
 
-On CPU tensors :func:`iir_lifted` runs the plain version; on any other
-device it launches the kernel or raises.
+``iir_scan`` runs the per-sample transposed-DF2 recurrence of
+:func:`ops.iir.iir_scan_plain` over all T steps in one launch, a thread a
+real lane, and equals it bit for bit; it replaces no TPU kernel either (JAX
+runs it as one ``lax.scan``), but the plain loop's four tensor ops a sample
+made it the classical paths' whole cost on the card.
+
+On CPU tensors each wrapper runs its plain version; on any other device it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from .. import iir
 from ._build import check, launch_counts, library, stream_handle
 
 SB_MAX, N_MAX, K2_MAX, RT = 64, 8, 512, 8  # csrc/iir_lifted.cu's constants
+SCAN_N_MAX = 8  # csrc/iir_scan.cu's N_MAX: state values a lane
 
 
 @functools.lru_cache(maxsize=16)
@@ -85,3 +93,88 @@ def iir_lifted(b, a, x: torch.Tensor, zi: torch.Tensor | None = None, return_sta
     launch_counts["iir_lifted"] += 1
     z = z.reshape((T,) + rest)
     return (z, state.reshape(rest + (N + 1,))) if return_state else z
+
+
+def _collapse(shape, *strides):
+    """The dims of ``shape`` merged where every stride set allows it, size-1
+    dims dropped: ``(sizes, [strides of each set])``."""
+    dims = [(n, [st[k] for st in strides]) for k, n in enumerate(shape) if n != 1]
+    out = []
+    for n, st in dims:
+        if out and all(p == q * n for p, q in zip(out[-1][1], st)):
+            out[-1] = (out[-1][0] * n, st)
+        else:
+            out.append((n, st))
+    return [n for n, _ in out], [[st[i] for _, st in out] for i in range(len(strides))]
+
+
+def _lanes(x: torch.Tensor, y: torch.Tensor):
+    """``(D2, (xs1, xs2), (ys1, ys2))``: the non-time dims of ``x`` and ``y``
+    as at most two lane dims of the kernel (strides in floats, a complex
+    tensor's parts the innermost), or None when they do not collapse to two."""
+    xr, yr = (torch.view_as_real(t) if t.is_complex() else t for t in (x, y))
+    inner = 2 if x.is_complex() else 1
+    rest = xr.shape[1:len(xr.shape) - (inner == 2)]
+    sizes, (xs, ys) = _collapse(rest, xr.stride()[1:1 + len(rest)], yr.stride()[1:1 + len(rest)])
+    if len(sizes) > 2:
+        return None
+    sizes, xs, ys = [1] * (2 - len(sizes)) + sizes, [0] * (2 - len(xs)) + xs, [0] * (2 - len(ys)) + ys
+    return sizes[1], xs, ys
+
+
+def scan_layout(x: torch.Tensor, zi: torch.Tensor | None, N: int):
+    """The kernel's arguments for ``x`` (T, ...): ``(x, y, state, lanes)``
+    with ``y`` the output (``x``'s strides, as the plain version's
+    ``empty_like``; ``x`` made contiguous first when its non-time dims do not
+    collapse to two lane dims), ``state`` the initial state ``rest + (N,)``
+    in ``x``'s dtype (zeros without ``zi``), and ``lanes`` the ints
+    ``L, comps, D2, xs0, xs1, xs2, ys0, ys1, ys2`` of ``hm_iir_scan``
+    (strides in floats).  Device-independent: the CPU tests model the
+    kernel's indexing with it."""
+    rest = tuple(x.shape[1:])
+    state = torch.zeros(rest + (N,), dtype=x.dtype, device=x.device)
+    if zi is not None:
+        state.copy_(torch.broadcast_to(zi.to(device=x.device, dtype=x.dtype), rest + (N,)))
+    y = torch.empty_like(x)
+    lanes = _lanes(x, y)
+    if lanes is None:  # more than two lane dims of differing strides: time-major contiguous
+        x = x.contiguous()
+        y = torch.empty_like(x)
+        lanes = _lanes(x, y)
+    D2, xs, ys = lanes
+    comps = 2 if x.is_complex() else 1
+    xr, yr = (torch.view_as_real(t) if t.is_complex() else t for t in (x, y))
+    L = comps * int(np.prod(rest))
+    return x, y, state, (L, comps, D2, xr.stride(0), *xs, yr.stride(0), *ys)
+
+
+def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
+    """``lfilter(b, a, x)`` along dim 0 of ``x`` (T, ...), with the
+    arguments and returns of :func:`ops.iir.iir_scan`, by the kernel: one
+    launch for all T steps.  ``x`` float32 or complex64, any strides (the
+    output takes ``x``'s, as the plain version's ``empty_like``).  Raises
+    ``TypeError`` for another dtype and ``ValueError`` for a state above 8
+    or a tensor off the card."""
+    if x.device.type == "cpu":
+        return iir.iir_scan_plain(b, a, x, zi)
+    if x.dtype not in (torch.float32, torch.complex64):
+        raise TypeError(f"iir_scan on the card takes float32 or complex64 (got {x.dtype})")
+    bp, a_tail = iir.scan_coefficients(b, a)
+    N = len(a_tail)
+    if N > SCAN_N_MAX:
+        raise ValueError(f"iir_scan takes states of at most {SCAN_N_MAX} (got N={N})")
+    if x.device.type != "cuda":
+        raise ValueError(f"iir_scan runs on CUDA tensors (got {x.device})")
+    lib = library()
+    x, y, state, lanes = scan_layout(x, zi, N)
+    if x.shape[0] == 0 or y.numel() == 0:
+        return y, state
+    zr, yr, xr = (torch.view_as_real(t) if t.is_complex() else t for t in (state, y, x))
+    zf = torch.empty_like(zr)
+    coef = np.concatenate([bp, a_tail]).astype(np.float32)  # b0, b_1..b_N, a_1..a_N
+    L, comps, D2, *strides = lanes
+    rc = lib.hm_iir_scan(xr.data_ptr(), zr.data_ptr() if zi is not None else None, yr.data_ptr(), zf.data_ptr(),
+                         coef.ctypes.data, N, x.shape[0], L, comps, D2, *strides, stream_handle(x.device))
+    check(rc, "iir_scan")
+    launch_counts["iir_scan"] += 1
+    return y, (torch.view_as_complex(zf) if x.is_complex() else zf)

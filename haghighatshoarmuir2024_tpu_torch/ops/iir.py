@@ -5,7 +5,8 @@ micloc/beamformer.py:137-138, micloc/music_beamformer.py:119-121).
 The float64 host builders are copied from the JAX package
 (``iir.py:34-205``).  :func:`iir_filter` is ``scipy.signal.lfilter`` with
 JAX's three evaluation methods, on real or complex input: the sequential
-transposed-DF2 scan (:func:`iir_scan`, one step of tensor ops per sample),
+transposed-DF2 scan (:func:`iir_scan`: on the CPU one step of tensor ops per
+sample, on the card the hand kernel ``csrc/iir_scan.cu``),
 the Hillis-Steele parallel prefix over host matrix powers, and the lifted
 block form.  :func:`iir_cumsum_blocked` is the torch form of
 ``_iir_cumsum_blocked_impl`` (``iir.py:375-517``), with the level-2 modal
@@ -203,6 +204,17 @@ def _device_matrices(b_key, a_key, SB: int, Q: int, device: torch.device):
     return {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in out.items()}
 
 
+def scan_coefficients(b, a):
+    """``(bp, a_tail)``, float64: ``b`` over ``a[0]`` padded to N + 1 taps,
+    and ``a[1:] / a[0]``, the coefficients of the transposed-DF2 scan."""
+    b64 = np.asarray(b, np.float64)
+    a64 = np.asarray(a, np.float64)
+    N = len(a64) - 1
+    bp = np.zeros(N + 1)
+    bp[: len(b64)] = b64 / a64[0]
+    return bp, a64[1:] / a64[0]
+
+
 def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
     """``lfilter(b, a, x)`` along dim 0 of ``x`` (T, ...) as the sequential
     transposed-DF2 recurrence (JAX ``iir_filter(method="scan")``,
@@ -210,20 +222,29 @@ def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
     in that order of operations, in ``x``'s dtype (real or complex).
 
     ``zi``: initial state, ``x.shape[1:] + (N,)`` (zeros when None).
-    Returns ``(y, final state)``.  Four tensor ops a sample: ``b0 x`` for all
-    samples and ``b_i x`` for a block of them are taken ahead of the
-    recurrence, and the state lives in two buffers of N + 1 columns whose
-    last stays 0, so the shift is a view.  The Hilbert and MUSIC apply
-    paths run it as JAX does; the streaming encode falls back to it for
-    chunk lengths no lifted block size divides.
+    Returns ``(y, final state)``.  On a CPU tensor this is
+    :func:`iir_scan_plain`; on any other it is the hand kernel
+    ``csrc/iir_scan.cu`` (``ops/cuda/iir_kernel.iir_scan``: one launch for
+    all T steps, float32 or complex64, N ≤ 8), which computes the same
+    outputs bit for bit and raises off the card.  The Hilbert and MUSIC
+    apply paths run it as JAX does; the streaming encode falls back to it
+    for chunk lengths no lifted block size divides.
     """
-    b64 = np.asarray(b, np.float64)
-    a64 = np.asarray(a, np.float64)
-    N = len(a64) - 1
-    bp = np.zeros(N + 1)
-    bp[: len(b64)] = b64 / a64[0]
+    from .cuda.iir_kernel import iir_scan as scan_kernel
+
+    return scan_kernel(b, a, x, zi)
+
+
+def iir_scan_plain(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
+    """:func:`iir_scan` in tensor ops: the CPU's route, and the plain
+    version the kernel is held to on the card.  Four tensor ops a sample:
+    ``b0 x`` for all samples and ``b_i x`` for a block of them are taken
+    ahead of the recurrence, and the state lives in two buffers of N + 1
+    columns whose last stays 0, so the shift is a view."""
+    bp, a_tail64 = scan_coefficients(b, a)
+    N = len(a_tail64)
     b_tail = torch.as_tensor(bp[1:], dtype=x.dtype, device=x.device)
-    a_tail = torch.as_tensor(a64[1:] / a64[0], dtype=x.dtype, device=x.device)
+    a_tail = torch.as_tensor(a_tail64, dtype=x.dtype, device=x.device)
     T = x.shape[0]
     buf = x.new_zeros((2,) + x.shape[1:] + (N + 1,))
     if zi is not None:

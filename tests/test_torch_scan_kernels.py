@@ -1,0 +1,347 @@
+"""The routes of the port's two scan kernels on the CPU, against the JAX
+package on the same numpy inputs:
+
+- ``ops.iir.iir_scan`` (and ``iir_filter(method="scan")``), whose CUDA route
+  is ``csrc/iir_scan.cu``: its CPU route against JAX's
+  ``iir_filter(method="scan")``, real and complex, orders 1 and 2, within
+  5e-6 of JAX's peak on a low-Q bandpass (3-9 kHz) and, on the flagship's
+  high-Q bandpass (1600-1900 Hz), no further from scipy's float64 ``lfilter``
+  than twice JAX is (plus 1e-6 of the peak); the state carried over two
+  chunks equal to one pass, bit for bit, and within 1e-5 of JAX's state;
+- a model of the kernel's indexing: the wrapper's launch arguments
+  (``iir_kernel.scan_layout``: lanes, strides, the state's layout) on CPU
+  tensors, the kernel's per-lane arithmetic in numpy float32 (each product,
+  difference and sum rounded on its own), equal to the plain loop bit for
+  bit on contiguous, strided, sliced and uncollapsible layouts;
+- ``models.xylo.sim.scan_hidden``, whose CUDA route is ``csrc/xylo_sim.cu``:
+  its CPU route against JAX's ``_sim_hidden``, bit for bit, in both orderings
+  and both resets, with a uniform and a dense ``w_rec``, recording on and
+  off, the state carried over two calls;
+- both wrappers raise on what their kernels do not take (dtype, state size,
+  neurons, conventions, a tensor off the card) and never run the plain
+  version instead: tensors on the ``meta`` device reach the CUDA route;
+- the plain twins of K3-K6 still run the plain loop, never the dispatch.
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_scan_kernels.py
+
+``python tests/test_torch_scan_kernels.py --jax-bounds`` prints JAX's
+float64 error on the inputs of ``experiments/scan_kernels.iir_inputs`` (the
+shapes ``chip_smoke.py`` phase 28 holds the kernel to), the numbers behind
+that phase's ``JAX_SCAN_REL64``.
+"""
+import itertools
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+from scipy.signal import butter, lfilter
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # run as a script: the repository's packages
+from haghighatshoarmuir2024_tpu.models.xylo.sim import _sim_hidden as jax_sim_hidden
+from haghighatshoarmuir2024_tpu.ops import iir as jax_iir
+
+from haghighatshoarmuir2024_tpu_torch.models.xylo import sim
+from haghighatshoarmuir2024_tpu_torch.ops import iir
+from haghighatshoarmuir2024_tpu_torch.ops.cuda import iir_kernel, lif_kernel, sim_kernel
+
+FS = 48_000
+BANDS = {"low-Q": (3000.0, 9000.0), "high-Q": (1600.0, 1900.0)}
+CONVENTIONS = list(itertools.product(("decay_first", "integrate_first"), ("subtract", "zero")))
+META = torch.device("meta")
+
+
+def bandpass(order: int, band):
+    b, a = butter(order, list(band), btype="bandpass", fs=FS)
+    return b, a
+
+
+def signal(kind: str, shape, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    if kind == "complex":
+        return (x + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    return x.astype(np.float32)
+
+
+def jax_scan(b, a, x, **kw):
+    with jax.enable_x64(False):
+        out = jax_iir.iir_filter(b, a, jnp.asarray(x), axis=0, method="scan", **kw)
+    return tuple(np.asarray(o) for o in out) if isinstance(out, tuple) else np.asarray(out)
+
+
+def float64_of(x: np.ndarray) -> np.ndarray:
+    return x.astype(np.complex128 if np.iscomplexobj(x) else np.float64)
+
+
+# ------------------------------------------------------------------ the IIR scan
+@pytest.mark.parametrize("q", list(BANDS))
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_torch_scan_route_matches_jax(kind, order, q):
+    """The dispatch's CPU route (``iir_scan`` and ``iir_filter(method=
+    "scan")``) against JAX's scan: within 5e-6 of JAX's peak on the low-Q
+    band; on the high-Q band no further from float64 than twice JAX."""
+    x = signal(kind, (3000, 3), seed=order)
+    b, a = bandpass(order, BANDS[q])
+    want = jax_scan(b, a, x)
+    got, _ = iir.iir_scan(b, a, torch.as_tensor(x))
+    via_filter = iir.iir_filter(b, a, torch.as_tensor(x), method="scan")
+    assert got.dtype == via_filter.dtype == torch.as_tensor(x).dtype
+    assert torch.equal(got, via_filter)
+    got = got.numpy()
+    if q == "low-Q":
+        assert np.abs(got - want).max() <= 5e-6 * np.abs(want).max()
+    else:
+        ref = lfilter(b, a, float64_of(x), axis=0)
+        jerr, perr = np.abs(want - ref).max(), np.abs(got - ref).max()
+        assert perr <= 2 * jerr + 1e-6 * np.abs(ref).max(), (perr, jerr)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_torch_scan_route_carries_state(kind, order):
+    """``zi`` and the returned state over two chunks equal one pass bit for
+    bit, and the first chunk's state is within 1e-5 of JAX's."""
+    x = signal(kind, (2000, 2, 3), seed=10 + order)
+    b, a = bandpass(order, BANDS["low-Q"])
+    N = len(a) - 1
+    zi = signal(kind, (2, 3, N), seed=20 + order)
+    xt, zt = torch.as_tensor(x), torch.as_tensor(zi)
+    whole, s_whole = iir.iir_scan(b, a, xt, zt)
+    y1, s1 = iir.iir_scan(b, a, xt[:1200], zt)
+    y2, s2 = iir.iir_scan(b, a, xt[1200:], s1)
+    assert torch.equal(torch.cat([y1, y2]), whole) and torch.equal(s2, s_whole)
+    jy, js = jax_scan(b, a, x[:1200], zi=zi, return_state=True)
+    assert s1.shape == js.shape == (2, 3, N)
+    assert np.abs(s1.numpy() - js).max() <= 1e-5 * np.abs(js).max()
+    assert np.abs(y1.numpy() - jy).max() <= 5e-6 * np.abs(jy).max()
+
+
+def emulate_scan(b, a, x: torch.Tensor, zi):
+    """``hm_iir_scan`` in numpy from the wrapper's launch arguments: each
+    lane's samples read through the strides, the recurrence in float32 one
+    rounding an operation, the outputs written through ``y``'s strides and
+    the final state in the (R, N, comps) layout."""
+    bp, a_tail = iir.scan_coefficients(b, a)
+    N = len(a_tail)
+    x, y, state, (L, comps, D2, xs0, xs1, xs2, ys0, ys1, ys2) = iir_kernel.scan_layout(x, zi, N)
+    xr, yr, zr = (torch.view_as_real(t) if t.is_complex() else t for t in (x, y, state))
+    T = x.shape[0]
+    j = np.arange(L)
+    c, r = j % comps, j // comps
+    i1, i2 = r // D2, r % D2
+    x_off, y_off = i1 * xs1 + i2 * xs2 + c, i1 * ys1 + i2 * ys2 + c
+
+    def flat(t):  # the storage a strided float tensor views, from its first element
+        span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+        return t.as_strided((span,), (1,))
+
+    xf, yf = flat(xr).numpy(), flat(yr).numpy()
+    f32 = np.float32
+    coef = np.concatenate([bp, a_tail]).astype(f32)
+    s = zr.reshape(-1, N, comps).numpy()[r, :, c].astype(f32) if zi is not None else np.zeros((L, N), f32)
+    s = np.concatenate([s, np.zeros((L, 1), f32)], axis=1)
+    for t in range(T):
+        xv = xf[x_off + t * xs0]
+        yv = (coef[0] * xv) + s[:, 0]
+        for i in range(N):
+            s[:, i] = ((coef[1 + i] * xv) - (coef[1 + N + i] * yv)) + s[:, i + 1]
+        yf[y_off + t * ys0] = yv
+    zf = np.zeros((L // comps, N, comps), f32)
+    zf[r, :, c] = s[:, :N]
+    zf = torch.as_tensor(zf)
+    return y, (torch.view_as_complex(zf) if x.is_complex() else zf).reshape(state.shape)
+
+
+LAYOUTS = {
+    "real (T, 3)": lambda: torch.as_tensor(signal("real", (300, 3), 1)),
+    "complex (T, 2, 3)": lambda: torch.as_tensor(signal("complex", (300, 2, 3), 2)),
+    "real (B, T, M) along dim 1": lambda: torch.as_tensor(signal("real", (4, 300, 3), 3)).movedim(1, 0),
+    "complex sliced": lambda: torch.as_tensor(signal("complex", (300, 6, 3), 4))[:, ::2],
+    "real (T,)": lambda: torch.as_tensor(signal("real", (300,), 5)),
+    "real uncollapsible": lambda: torch.as_tensor(signal("real", (300, 2, 3, 4), 6)).permute(0, 2, 1, 3),
+}
+
+
+@pytest.mark.parametrize("with_zi", [False, True])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_torch_scan_kernel_indexing_model(layout, with_zi):
+    """The kernel's indexing and order of operations, modelled in numpy from
+    the wrapper's launch arguments, equal the plain loop bit for bit."""
+    x = LAYOUTS[layout]()
+    b, a = bandpass(2, BANDS["high-Q"])
+    zi = torch.as_tensor(signal("complex" if x.is_complex() else "real", tuple(x.shape[1:]) + (4,), 9)) \
+        if with_zi else None
+    y, s = emulate_scan(b, a, x, zi)
+    py, ps = iir.iir_scan_plain(b, a, x, zi)
+    assert y.shape == py.shape and s.shape == ps.shape
+    assert torch.equal(y, py) and torch.equal(s, ps)
+
+
+# ------------------------------------------------------------------ the simulator
+def sim_inputs(rec: str, seed: int, T: int = 160, N: int = 13):
+    rng = np.random.default_rng(seed)
+    inp = rng.integers(-90, 91, size=(T, N)).astype(np.int32)
+    w_rec = (np.full((N, N), -3) if rec == "uniform" else rng.integers(-8, 9, size=(N, N))).astype(np.int32)
+    ds, dm = rng.integers(0, 6, size=N).astype(np.int32), rng.integers(1, 6, size=N).astype(np.int32)
+    th = rng.integers(20, 60, size=N).astype(np.int32)
+    state0 = (rng.integers(-300, 300, size=N).astype(np.int32), rng.integers(-300, 300, size=N).astype(np.int32),
+              (rng.random(N) < 0.5).astype(np.int32))
+    return inp, w_rec, ds, dm, th, state0
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("rec", ["uniform", "dense"])
+@pytest.mark.parametrize("ordering,reset", CONVENTIONS)
+def test_torch_sim_route_matches_jax(ordering, reset, rec, record):
+    """The dispatch's CPU route against ``_sim_hidden`` over two calls, the
+    state carried: spikes, counts, records and states bit for bit."""
+    inp, w_rec, ds, dm, th, state0 = sim_inputs(rec, seed=100 + 10 * CONVENTIONS.index((ordering, reset)) + len(rec))
+    uniform = rec == "uniform"
+    port_rec = dict(rec_coef=-3) if uniform else dict(w_rec=w_rec)
+    j_state, t_state = tuple(jnp.asarray(s) for s in state0), state0
+    for part in (inp[:70], inp[70:]):
+        j_spk, j_state, j_rec = jax_sim_hidden(
+            jnp.asarray(part), jnp.asarray(w_rec), jnp.asarray(-3 if uniform else 0, jnp.int32), jnp.asarray(ds),
+            jnp.asarray(dm), jnp.asarray(th), j_state, uniform_rec=uniform, record=record, ordering=ordering,
+            reset=reset)
+        spk, counts, t_state, t_rec = sim.scan_hidden(torch.as_tensor(part), ds, dm, th, t_state, **port_rec,
+                                                      ordering=ordering, reset=reset, record_state=record,
+                                                      count=True)
+        np.testing.assert_array_equal(spk.numpy(), np.asarray(j_spk))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(j_spk).sum(axis=0))
+        assert sorted(t_rec) == sorted(j_rec)
+        for k in j_rec:
+            np.testing.assert_array_equal(t_rec[k].numpy(), np.asarray(j_rec[k]))
+        for g, w in zip(t_state, j_state):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ------------------------------------------------------------------ the wrappers refuse
+def _no_plain(monkeypatch):
+    """Make the plain versions fail loudly, so that a wrapper that fell back
+    to one would not raise its own error."""
+    def boom(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+    monkeypatch.setattr(iir, "iir_scan_plain", boom)
+    monkeypatch.setattr(sim, "scan_hidden_plain", boom)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+SCAN_REFUSALS = {
+    "float64": (TypeError, lambda: iir.iir_scan(*bandpass(2, BANDS["high-Q"]), _meta((50, 3), torch.float64))),
+    "complex128": (TypeError, lambda: iir.iir_scan(*bandpass(2, BANDS["high-Q"]), _meta((50, 3), torch.complex128))),
+    "int32": (TypeError, lambda: iir.iir_scan(*bandpass(1, BANDS["high-Q"]), _meta((50, 3), torch.int32))),
+    "N = 10": (ValueError, lambda: iir.iir_scan(*bandpass(5, BANDS["high-Q"]), _meta((50, 3), torch.float32))),
+    "off the card": (ValueError, lambda: iir.iir_scan(*bandpass(2, BANDS["high-Q"]), _meta((50, 3), torch.float32))),
+    "iir_filter off the card": (ValueError, lambda: iir.iir_filter(*bandpass(1, BANDS["high-Q"]),
+                                                                   _meta((50, 3), torch.complex64), method="scan")),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_REFUSALS))
+def test_torch_scan_wrapper_raises(case, monkeypatch):
+    _no_plain(monkeypatch)
+    err, call = SCAN_REFUSALS[case]
+    with pytest.raises(err, match="CUDA" if case.endswith("card") else None):
+        call()
+
+
+def _sim_call(inp, N=5, **kw):
+    rng = np.random.default_rng(0)
+    return sim.scan_hidden(inp, rng.integers(1, 4, N), rng.integers(1, 4, N), np.full(N, 30), **kw)
+
+
+SIM_REFUSALS = {
+    "int64": (TypeError, lambda: _sim_call(_meta((20, 2, 5), torch.int64))),
+    "float32": (TypeError, lambda: _sim_call(_meta((20, 2, 5), torch.float32))),
+    "4097 neurons": (ValueError, lambda: _sim_call(_meta((20, 4097), torch.int32), N=4097)),
+    "ordering": (ValueError, lambda: _sim_call(_meta((20, 5), torch.int32), ordering="leak_first")),
+    "reset": (ValueError, lambda: _sim_call(_meta((20, 5), torch.int32), reset="none")),
+    "w_rec shape": (ValueError, lambda: _sim_call(_meta((20, 5), torch.int32), w_rec=np.ones((4, 4), np.int32))),
+    "rec_coef beyond int32": (ValueError, lambda: _sim_call(_meta((20, 5), torch.int32), rec_coef=2**31)),
+    "off the card": (ValueError, lambda: _sim_call(_meta((20, 2, 5), torch.int32), rec_coef=-1)),
+    "XyloSim off the card": (ValueError, lambda: sim_kernel.scan_hidden(_meta((20, 5), torch.int32), 1, 1, 30)),
+}
+
+
+@pytest.mark.parametrize("case", list(SIM_REFUSALS))
+def test_torch_sim_wrapper_raises(case, monkeypatch):
+    _no_plain(monkeypatch)
+    err, call = SIM_REFUSALS[case]
+    with pytest.raises(err, match="CUDA" if case.endswith("card") else None):
+        call()
+
+
+def test_torch_sim_kernel_refuses_fractional_w_rec():
+    with pytest.raises(ValueError, match="int32 integers"):
+        sim_kernel._int32_weights(np.full((3, 3), 0.5), "cpu")
+
+
+# ------------------------------------------------------------------ K3-K6's twins stay on the loop
+def test_torch_lif_twins_run_the_plain_loop(monkeypatch):
+    """``lif_count_plain``, ``lif_count_stateful_bipolar_plain`` and
+    ``lif_count_stateful_plain`` run ``scan_hidden_plain`` and never the
+    dispatch, so that K3-K6 are held against the loop on the card."""
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import XyloConfig
+
+    def no_dispatch(*args, **kwargs):
+        raise AssertionError("a plain twin of K3-K6 reached the kernel's dispatch")
+
+    calls = []
+    plain = sim.scan_hidden_plain
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(sim, "scan_hidden", no_dispatch)
+    monkeypatch.setattr(sim, "scan_hidden_plain", spy)
+    rng = np.random.default_rng(3)
+    C, N, T, B = 3, 7, 40, 2
+    cfg = XyloConfig(w_in=rng.integers(-20, 21, size=(2 * C, N)).astype(np.int32), w_rec=np.zeros((N, N), np.int32),
+                     w_out=np.zeros((N, 1), np.int32), dash_syn=np.full(N, 2, np.int32),
+                     dash_mem=np.full(N, 3, np.int32), dash_syn_out=np.ones(1, np.int32),
+                     dash_mem_out=np.ones(1, np.int32), threshold=np.full(N, 25, np.int32),
+                     threshold_out=np.ones(1, np.int32), dt=1e-3, weight_scale=1.0)
+    kp = torch.as_tensor(rng.random((T, B, C)) < 0.3)
+    kn = torch.as_tensor(rng.random((T, B, C)) < 0.3)
+    counts = lif_kernel.lif_count_plain(cfg, kp, kn)
+    zero = torch.zeros((B, N), dtype=torch.int32)
+    state_counts = lif_kernel.lif_count_stateful_bipolar_plain(cfg, kp, kn, zero, zero, zero)[0]
+    raster = torch.cat([kp & ~kn, kn], dim=-1).to(torch.int8)
+    raster_counts = lif_kernel.lif_count_stateful_plain(cfg, raster)[0]
+    assert len(calls) == 3 and all(s == (T, B, N) for s in calls)
+    assert torch.equal(counts, state_counts) and torch.equal(counts, raster_counts)
+
+
+# ------------------------------------------------------------------ the bounds of phase 28
+def jax_bounds() -> dict:
+    """JAX's float64 error (largest |y - lfilter| over the largest |ref|) on
+    each input of ``experiments/scan_kernels.iir_inputs``."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    out = {}
+    for name, (b, a, x, axis, zi) in scan_kernels.iir_inputs().items():
+        xm = x.movedim(axis, 0).numpy()
+        kw = {} if zi is None else dict(zi=zi.numpy(), return_state=True)
+        y = jax_scan(b, a, xm, **kw)
+        y = y[0] if isinstance(y, tuple) else y
+        ref = (lfilter(b, a, float64_of(xm), axis=0) if zi is None else
+               lfilter(b, a, float64_of(xm), axis=0, zi=np.moveaxis(zi.numpy().astype(np.float64), -1, 0))[0])
+        out[name] = float(np.abs(y - ref).max() / np.abs(ref).max())
+    return out
+
+
+if __name__ == "__main__":
+    if "--jax-bounds" in sys.argv:
+        print(jax_bounds())

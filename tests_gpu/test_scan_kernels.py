@@ -1,0 +1,137 @@
+"""The two scan kernels on the card, ``iir_scan`` (``csrc/iir_scan.cu``) and
+``xylo_sim`` (``csrc/xylo_sim.cu``), against their plain loops with
+``torch.equal`` at the shapes of the paths that run them:
+
+  * the IIR scan at the Hilbert apply's (T, B, 7) complex64 analytic signal
+    of 1 and 96 frames, MUSIC's order-1 band over a (96, T, 7) batch along
+    dim 1, the SNN beamformer's 14 real columns, and a streaming-fallback
+    chunk with its state carried over two chunks; each within twice JAX's
+    error from scipy's float64 ``lfilter``;
+  * the simulator on the flagship's rasters of bench.py's 96 frames, in the
+    four step conventions with the flagship's uniform ``w_rec`` and the
+    dense push-to-hidden block, a uniform ``w_rec`` of -1, two carried
+    halves, and wider layers (N = 700, 1347, 4096);
+  * the routes: ``iir_filter(method="scan")`` and ``XyloSim`` launch their
+    kernels, the plain twins of K3-K6 launch none, and an unsupported dtype
+    raises on the card.
+
+The cases are ``experiments/scan_kernels.py``'s and ``chip_smoke.py`` phase
+28's, so every run of that script makes them too.
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+
+pytestmark = pytest.mark.cuda
+B = 96
+IIR_CASES = ("hilbert 1 frame", f"hilbert {B} frames", f"music {B} frames", "snn 14 columns")
+STREAM_CASE = f"stream {B} x 14, two chunks"
+CONVENTIONS = [(o, r) for o in ("decay_first", "integrate_first") for r in ("subtract", "zero")]
+
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("tests_gpu needs a CUDA device (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def iir_inputs():
+    _card()
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    return scan_kernels.iir_inputs(B)
+
+
+@pytest.fixture(scope="module")
+def flagship_rasters():
+    """The flagship demo, its (T, 96, 28) rasters of bench.py's frames and
+    the dense push-to-hidden block config."""
+    dev = _card()
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import Demo, DemoPushToHidden
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.flagship import flagship_config, flagship_frames
+
+    demo = Demo(**flagship_config(dev))
+    frames, _ = flagship_frames(demo, B, seed=cs.SEED)
+    spk = demo.spike_encoding(frames).transpose(0, 1).contiguous()
+    _, block = scan_kernels.push_to_hidden_block(DemoPushToHidden(**flagship_config(dev)))
+    return demo, spk, block
+
+
+@pytest.mark.parametrize("case", IIR_CASES)
+def test_iir_scan_against_plain(iir_inputs, case):
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    b, a, x, axis, _ = iir_inputs[case]
+    r = scan_kernels.iir_against_plain(b, a, x.to(_card()), axis)
+    assert r["equal"] and r["launches"] == 1, r
+    assert r["rel64"] <= 2 * cs.JAX_SCAN_REL64[case] + 1e-6, r
+
+
+def test_iir_scan_stream_chunks_carried(iir_inputs):
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    b, a, x, _, zi = iir_inputs[STREAM_CASE]
+    r = scan_kernels.stream_chunks(b, a, x.to(_card()), zi)
+    assert r["chunks_equal"] and r["one_pass_equal"], r
+    assert r["rel64"] <= 2 * cs.JAX_SCAN_REL64[STREAM_CASE] + 1e-6, r
+
+
+@pytest.mark.parametrize("rec", ["uniform", "dense"])
+@pytest.mark.parametrize("ordering,reset", CONVENTIONS)
+def test_xylo_sim_against_plain(flagship_rasters, ordering, reset, rec):
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    demo, spk, block = flagship_rasters
+    cfg = demo.xylo_config if rec == "uniform" else block
+    split = (ordering, reset, rec) == ("decay_first", "subtract", "uniform")
+    r = scan_kernels.sim_against_plain(cfg, spk, ordering, reset, split=split)
+    assert r["equal"] and r["launches"] == 2 and r.get("halves_equal", True) and r["spikes"] > 0, r
+
+
+def test_xylo_sim_uniform_recurrence(flagship_rasters):
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    demo, spk, _ = flagship_rasters
+    r = scan_kernels.sim_against_plain(cs.with_rec(demo.xylo_config, -1), spk, "decay_first", "subtract")
+    assert r["equal"] and r["spikes"] > 0, r
+
+
+@pytest.mark.parametrize("i", range(len(cs.WIDE_SIMS)))
+def test_xylo_sim_wide_layers(i):
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import XyloConfig
+
+    N, ordering, reset, rec = cs.WIDE_SIMS[i]
+    cfg, spikes = cs.wide_sim_config(torch, XyloConfig, N, rec, cs.SEED + i)
+    r = scan_kernels.sim_against_plain(cfg, spikes.to(_card()), ordering, reset)
+    assert r["equal"] and r["spikes"] > 0, r
+
+
+def test_routes_launch_their_kernels(flagship_rasters):
+    """``iir_filter(method="scan")`` and ``XyloSim`` launch their kernels
+    (once, and twice: hidden layer and readout); the K3-K6 twin launches
+    none; float64 and int64 raise on the card."""
+    from haghighatshoarmuir2024_tpu_torch.models.xylo import XyloSim, sim
+    from haghighatshoarmuir2024_tpu_torch.ops import iir
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build, lif_kernel
+
+    demo, spk, _ = flagship_rasters
+    dev = spk.device
+    b, a = iir.butter_bandpass(2, (1600.0, 1900.0), 48_000)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((4000, 7)).astype(np.float32), device=dev)
+    _build.launch_counts.clear()
+    iir.iir_filter(b, a, x, method="scan")
+    XyloSim(demo.xylo_config, device=dev)(spk[:, :4].transpose(0, 1), record=True)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"iir_scan": 1, "xylo_sim": 2}
+    _build.launch_counts.clear()
+    lif_kernel.lif_count_stateful_plain(demo.xylo_config, spk[:2000, :4].to(torch.int8))
+    assert not _build.launch_counts
+    with pytest.raises(TypeError):
+        iir.iir_filter(b, a, x.double(), method="scan")
+    with pytest.raises(TypeError):
+        sim.scan_hidden(torch.zeros((10, 5), dtype=torch.int64, device=dev), 1, 1, 30)
