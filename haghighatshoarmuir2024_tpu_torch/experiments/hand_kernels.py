@@ -88,26 +88,40 @@ def short_name(name: str) -> str:
     return found[0] if found else name
 
 
+TRACE_ATTEMPTS = 3  # traces taken before a trace without kernel records counts as CUPTI being unavailable
+
+
 def traced_ms(fn, reps: int) -> dict:
     """``{kernel: [device ms of each launch]}`` over ``reps`` calls of
     ``fn`` under ``utils.profiling.device_trace`` (CUPTI's kernel records),
-    after one untraced call."""
+    after one untraced call.  A trace that holds no kernel record is taken
+    again, up to ``TRACE_ATTEMPTS`` traces, and each such trace is printed
+    (a ``[trace]`` line) so that the caller's output shows it: on the H100
+    machine a trace once came back without the GPU's records where the same
+    trace in other runs held them, for a reason not found."""
     from ..utils.profiling import device_trace
 
     fn()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with device_trace(tmp):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        files = sorted(Path(tmp).glob("*.json"))
-        if not files:
-            raise RuntimeError("device_trace wrote no trace file")
-        events = json.loads(files[0].read_text())["traceEvents"]
-    kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
-    if not kern:
-        raise RuntimeError("device_trace recorded no CUDA kernel (CUPTI activity tracing unavailable)")
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            with device_trace(tmp):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            files = sorted(Path(tmp).glob("*.json"))
+            if not files:
+                raise RuntimeError("device_trace wrote no trace file")
+            events = json.loads(files[0].read_text())["traceEvents"]
+        kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+        if kern:
+            break
+        print(f"[trace] trace {attempt} of {TRACE_ATTEMPTS} held no kernel record ({len(events)} events, "
+              f"{sum(1 for e in events if str(e.get('cat', '')).lower() == 'cuda_runtime')} CUDA runtime calls)"
+              + ("; taken again" if attempt < TRACE_ATTEMPTS else ""), flush=True)
+    else:
+        raise RuntimeError(f"device_trace recorded no CUDA kernel in {TRACE_ATTEMPTS} traces "
+                           "(CUPTI activity tracing unavailable)")
     out: dict = {}
     for e in sorted(kern, key=lambda e: e["ts"]):
         out.setdefault(short_name(e.get("name", "")), []).append(e["dur"] / 1e3)

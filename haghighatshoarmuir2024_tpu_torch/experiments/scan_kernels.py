@@ -4,6 +4,8 @@ hidden-layer scan), against their plain loops on the card, timed, with
 their bounds:
 
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels [--reps 20]
+    python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels split [--reps 20] [--only LABEL ...]
+    python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels sass --against OTHER/xylo_sim.cu
 
 The IIR cases are the shapes of the paths that scan (:func:`iir_inputs`):
 the Hilbert apply's complex64 (T, B, 7) analytic signal at 1 and 96 of
@@ -15,22 +17,44 @@ from seeds, so the same inputs reach JAX's scan in the CPU tests
 (``tests/test_torch_scan_kernels.py --jax-bounds``).  The simulator cases
 (:func:`sim_against_plain`) take a config and a spike raster.  Every check
 holds the kernel's outputs and final state to the plain loop's with
-``torch.equal``.  Prints one JSON line; raises without a GPU.
+``torch.equal``.
+
+``split`` times each kernel alone from CUPTI's kernel records
+(``hand_kernels.traced_ms``) at every IIR case and at the simulator's
+(12 000, 96, 449) flagship with three records, one record (the readout's
+and a spikes-only layer's form) and none, the uniform ``w_rec = -1``, the
+dense push-to-hidden block and one batch row (``--only``: those simulator
+cases alone, by label, nothing else; ``--pad-mib``: a pad allocated first,
+which moves every later tensor in device memory):
+each launch's device ms, for the scan its cycles a step at the SM clock
+(``sm_clock_mhz``) against the chain's 16, for the simulator its bytes a
+second against 3.35 TB/s, beside the card's name and power limit; and the
+scan's cycles a step by its order (:func:`iir_by_order`) and PyTorch's
+write and read streams on the simulator's bytes (:func:`memory_yardsticks`).
+``sass`` compiles this tree's ``csrc/xylo_sim.cu`` and another's
+(``--against``) with the library's nvcc flags and compares the recurrent
+row kernel's instantiations (``xylo_sim_kernel<NPT, REC>``) instruction by
+instruction in ``cuobjdump -sass`` (the addresses left out).
+Each mode prints one JSON line; ``check`` and ``split`` raise without a GPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .hand_kernels import events_ms
+from .hand_kernels import card_line, events_ms, launches_a_call, traced_ms
 
 SEED = 0
 STREAM_TC = 2999  # a chunk no lifted block size divides: the streaming encode's scan fallback
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate
 FP32_LATENCY_CYCLES = 4  # a dependent FP32 add or multiply on sm_90 (issue to issue)
 CHAIN_OPS = 4  # the scan's dependent chain a step: b0 x + s_1, a_1 y, the difference, + s_2
 
@@ -252,26 +276,218 @@ def push_to_hidden_block(pdemo, seed: int = SEED):
     return psim, psim.block_config()
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args(argv)
+def kernel_split(fn, reps: int, prefix: str) -> dict:
+    """The launches of kernels named ``prefix...`` in ``reps`` traced calls
+    of ``fn``: launches a call and the mean, min and max device ms of a
+    launch (CUPTI's records), and their device ms a call."""
+    tr = {k: v for k, v in traced_ms(fn, reps).items() if k.startswith(prefix)}
+    if not tr:
+        raise RuntimeError(f"no {prefix} launch in the trace")
+    rec = [ms for v in tr.values() for ms in v]
+    calls = launches_a_call(rec, reps)
+    return dict(kernels=sorted(tr), launches_a_call=calls, mean_ms=float(np.mean(rec)), min_ms=float(np.min(rec)),
+                max_ms=float(np.max(rec)), device_ms=float(np.mean(rec) * calls))
+
+
+def iir_split(b, a, x: torch.Tensor, axis: int, zi, reps: int, clock_mhz: float) -> dict:
+    """One ``iir_scan`` call on the case, traced: :func:`kernel_split` and
+    the launch's cycles a step at ``clock_mhz`` beside the chain floor's
+    ``CHAIN_OPS * FP32_LATENCY_CYCLES``."""
+    from ..ops import iir
+
+    xm = x.movedim(axis, 0)
+    T = xm.shape[0] // (2 if zi is not None else 1)  # the carried stream: one chunk
+    xm = xm[:T]
+    zi_d = None if zi is None else zi.to(x.device)
+    out = kernel_split(lambda: iir.iir_scan(b, a, xm, zi_d), reps, "iir_scan")
+    out.update(shape=tuple(xm.shape), N=len(a) - 1, lanes=xm[0].numel() * (2 if x.is_complex() else 1),
+               cycles_a_step=out["mean_ms"] * 1e3 * clock_mhz / T, chain_cycles=CHAIN_OPS * FP32_LATENCY_CYCLES,
+               chain_floor_ms=chain_floor_ms(T, clock_mhz))
+    out["chain_share"] = out["chain_floor_ms"] / out["mean_ms"]
+    return out
+
+
+def sim_split(cfg, spikes_tbc: torch.Tensor, reps: int, records: int = 3) -> dict:
+    """One hidden-layer ``xylo_sim`` call traced, with ``records`` of the
+    three records on (3: spikes, Isyn, Vmem; 1: spikes; 0: the counts
+    alone): :func:`kernel_split`, its bytes (:func:`sim_work`), bytes a
+    second and the share of the bytes bound."""
+    from ..models.xylo import sim
+
+    inp = sim.project_input(cfg, spikes_tbc)
+    rec_coef, w_rec = sim.recurrence(cfg.w_rec)
+    kw = dict(rec_coef=rec_coef, w_rec=w_rec, record=records > 0, record_state=records == 3, count=records == 0)
+    args = (inp, cfg.dash_syn, cfg.dash_mem, cfg.threshold)
+    T, B, N = inp.shape
+    ops, nbytes = sim_work(T, B, N, records)
+    out = kernel_split(lambda: sim.scan_hidden(*args, **kw), reps, "xylo_sim")
+    out.update(shape=(T, B, N), records=records, recurrence="dense" if w_rec is not None else f"uniform {rec_coef}",
+               bytes=nbytes, bytes_per_s=nbytes / (out["device_ms"] * 1e-3),
+               bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    out["bound_share"] = out["bytes_bound_ms"] / out["device_ms"]
+    return out
+
+
+def iir_by_order(dev: torch.device, reps: int, clock_mhz: float, T: int = 12_000, L: int = 32) -> dict:
+    """The scan's cycles a step by its order N = 0-8 on one block of L real
+    lanes (``butter(N, 0.3)``; N = 0 a gain): the chain is the same four
+    operations at every N >= 1 while the lane's operations grow as 2 + 4N,
+    so a time flat in N is the chain's and one that grows is the issue's."""
+    from scipy.signal import butter
+
+    from ..ops import iir
+
+    x = torch.as_tensor(np.random.default_rng(SEED).standard_normal((T, L)).astype(np.float32), device=dev)
+    out = {}
+    for N in range(9):
+        b, a = ([0.7], [1.0]) if N == 0 else butter(N, 0.3)
+        r = kernel_split(lambda: iir.iir_scan(b, a, x), reps, "iir_scan")
+        out[f"N = {N}"] = dict(mean_ms=r["mean_ms"], cycles_a_step=r["mean_ms"] * 1e3 * clock_mhz / T,
+                               lane_ops=2 + 4 * N)
+    return out
+
+
+def memory_yardsticks(inp: torch.Tensor, reps: int, records: int = 3) -> dict:
+    """What PyTorch's own kernels reach on the simulator's bytes: writing
+    ``records`` tensors of ``inp``'s size (``fill_``), reading ``inp`` once
+    (``amax``) and writing its negation (``neg``: as many bytes read as
+    written; a ``copy_`` would be a memcpy, not a kernel), each launch's
+    device ms (CUPTI) and bytes a second; the first two
+    summed are the time the card's memory takes for the kernel's bytes moved
+    by plain streams, one direction at a time."""
+    outs = [torch.empty_like(inp) for _ in range(records)]
+    nbytes = inp.numel() * inp.element_size()
+
+    def fill():
+        for o in outs:
+            o.fill_(1)
+
+    res = {}
+    for label, fn, moved in ((f"write {records} records (fill_)", fill, records * nbytes),
+                             ("read the current (amax)", lambda: torch.amax(inp), nbytes),
+                             ("negate the current (neg)", lambda: torch.neg(inp, out=outs[0]), 2 * nbytes)):
+        tr = traced_ms(fn, reps)
+        ms = sum(float(np.mean(v)) * launches_a_call(v, reps) for v in tr.values())
+        res[label] = dict(device_ms=ms, bytes=float(moved), bytes_per_s=moved / (ms * 1e-3), kernels=sorted(tr))
+    return res
+
+
+def flagship_rasters(dev: torch.device, batch: int = 96):
+    """The flagship demo, its (T, B, 28) int32 spike rasters of bench.py's
+    frames, and the dense push-to-hidden block config."""
     from ..models.xylo import Demo, DemoPushToHidden
     from ..models.xylo.flagship import flagship_config, flagship_frames
+
+    demo = Demo(**flagship_config(dev))
+    frames, _ = flagship_frames(demo, batch, seed=SEED)
+    spk = demo.spike_encoding(frames).transpose(0, 1).contiguous()
+    _, block = push_to_hidden_block(DemoPushToHidden(**flagship_config(dev)))
+    return demo, spk, block
+
+
+SIM_CASES = ("flagship, 3 records", "flagship, spikes only", "flagship, counts only", "uniform w_rec = -1, 3 records",
+             "dense push-to-hidden block, 3 records", "one row, 3 records")
+
+
+def split(reps: int = 20, only=None, pad_mib: int = 0) -> dict:
+    """Both kernels' device times by CUPTI at every case (module docstring);
+    with ``only`` (labels of ``SIM_CASES``) those simulator cases alone.
+    ``pad_mib``: a device tensor of that many MiB allocated first, so that
+    every later tensor lands elsewhere in device memory (how much of a time
+    its inputs' and outputs' placement decides)."""
+    import dataclasses
+
+    dev = _require_cuda()
+    pad = torch.empty(pad_mib << 20, dtype=torch.uint8, device=dev) if pad_mib else None  # noqa: F841
+    clock = sm_clock_mhz()
+    out = {"card": card_line(), "clock_mhz": clock, "pad_mib": pad_mib, "iir_scan": {}, "xylo_sim": {}}
+    if only is None:
+        for name, (b, a, x, axis, zi) in iir_inputs().items():
+            out["iir_scan"][name] = iir_split(b, a, x.to(dev), axis, zi, reps, clock)
+    elif set(only) - set(SIM_CASES):
+        raise ValueError(f"unknown cases {sorted(set(only) - set(SIM_CASES))}: the cases are {SIM_CASES}")
+    demo, spk, block = flagship_rasters(dev)
+    uniform = dataclasses.replace(demo.xylo_config, w_rec=np.full_like(np.asarray(demo.xylo_config.w_rec), -1))
+    sim_reps = max(2, reps // 4)
+    cases = dict(zip(SIM_CASES, ((demo.xylo_config, spk, 3), (demo.xylo_config, spk, 1), (demo.xylo_config, spk, 0),
+                                 (uniform, spk, 3), (block, spk, 3), (demo.xylo_config, spk[:, :1].contiguous(), 3))))
+    for label, (cfg, x, records) in cases.items():
+        if only is None or label in only:
+            out["xylo_sim"][label] = sim_split(cfg, x, sim_reps, records)
+    if only is None:
+        out["iir_scan by order"] = iir_by_order(dev, reps, clock)
+        from ..models.xylo import sim
+
+        out["memory yardsticks"] = memory_yardsticks(sim.project_input(demo.xylo_config, spk), sim_reps)
+    return out
+
+
+def kernel_sass(cu: Path, name: str) -> dict:
+    """``{instantiation: [instruction, ...]}`` of the kernels whose mangled
+    name holds ``name`` in ``cu`` compiled to a cubin with the library's
+    flags (``_build.NVCC_FLAGS``), from ``cuobjdump -sass``, each line's
+    address comment and the instantiation's namespace prefix left out
+    (an anonymous namespace's name holds the file's path)."""
+    from ..ops.cuda import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / "k.cubin"
+        flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+        subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(cubin), str(cu)], check=True,
+                       capture_output=True, text=True)
+        text = subprocess.run(["cuobjdump", "-sass", str(cubin)], check=True, capture_output=True, text=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inst = re.search(re.escape(name) + r"(\w*)", m.group(1))
+            cur = out.setdefault(name + inst.group(1), []) if inst else None
+        elif cur is not None:
+            ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if ins:
+                cur.append(ins.group(1))
+    return out
+
+
+def sass_against(other: Path, name: str = "xylo_sim_kernel") -> dict:
+    """This tree's ``csrc/xylo_sim.cu`` against ``other`` by
+    :func:`kernel_sass`: for each instantiation in both, its instruction
+    counts and how many positions differ."""
+    mine = kernel_sass(Path(__file__).resolve().parent.parent / "csrc" / "xylo_sim.cu", name)
+    theirs = kernel_sass(Path(other), name)
+    out = {"card": card_line() if torch.cuda.is_available() else None, "kernels": {}}
+    for k in sorted(set(mine) | set(theirs)):
+        a, b = mine.get(k), theirs.get(k)
+        out["kernels"][k] = dict(
+            here=None if a is None else len(a), other=None if b is None else len(b),
+            identical=a == b, differing=None if a is None or b is None else
+            sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)))
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", nargs="?", default="check", choices=("check", "split", "sass"))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", nargs="+", choices=SIM_CASES, help="split: these simulator cases alone")
+    ap.add_argument("--pad-mib", type=int, default=0, help="split: MiB allocated on the card first")
+    ap.add_argument("--against", help="sass: the other tree's csrc/xylo_sim.cu")
+    args = ap.parse_args(argv)
+    if args.mode in ("split", "sass"):
+        out = split(args.reps, args.only, args.pad_mib) if args.mode == "split" else sass_against(args.against)
+        print(json.dumps(out, default=str))
+        return out
     from ..models.xylo.sim import ORDERINGS, RESETS
 
     dev = _require_cuda()
-    out = {"iir_scan": {}, "xylo_sim": {}, "clock_mhz": sm_clock_mhz()}
+    out = {"card": card_line(), "iir_scan": {}, "xylo_sim": {}, "clock_mhz": sm_clock_mhz()}
     for name, (b, a, x, axis, zi) in iir_inputs().items():
         if zi is None:
             out["iir_scan"][name] = iir_against_plain(b, a, x.to(dev), axis, reps=args.reps)
         else:
             out["iir_scan"][name] = stream_chunks(b, a, x.to(dev), zi)
     out["chain_floor_ms"] = chain_floor_ms(12_000, out["clock_mhz"])
-    demo = Demo(**flagship_config(dev))
-    frames, _ = flagship_frames(demo, 96, seed=SEED)
-    spk = demo.spike_encoding(frames).transpose(0, 1).contiguous()  # (T, B, 28)
-    _, block = push_to_hidden_block(DemoPushToHidden(**flagship_config(dev)))
+    demo, spk, block = flagship_rasters(dev)
     for label, cfg in (("uniform", demo.xylo_config), ("dense", block)):
         for o in ORDERINGS:
             for r in RESETS:

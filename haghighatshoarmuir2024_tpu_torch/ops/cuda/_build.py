@@ -67,10 +67,10 @@ _SIGNATURES = {
     "hm_iir_lifted": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "hm_matched_max_k": ([], _I),
     "hm_matched": ([_P] * 3 + [_I] * 4 + [_P], _I),
-    "hm_iir_scan_max_state": ([], _I),
-    "hm_iir_scan": ([_P] * 5 + [_I, _L, _I, _I, _I] + [_L] * 6 + [_P], _I),
-    "hm_xylo_sim_max_neurons": ([], _I),
-    "hm_xylo_sim": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "hm_iir_scan_constants": ([_P], None),
+    "hm_iir_scan": ([_P] * 5 + [_I, _L, _I, _I, _I] + [_L] * 6 + [_I, _I, _P], _I),
+    "hm_xylo_sim_constants": ([_P], None),
+    "hm_xylo_sim": ([_P] * 15 + [_I] * 10 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -142,6 +142,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def library_constants(name: str, n: int) -> tuple[int, ...]:
+    """The ``n`` ints the library's ``name`` writes: the constants of a
+    source that its wrapper mirrors, for the wrapper to hold its own to."""
+    out = (ctypes.c_int * n)()
+    getattr(library(), name)(ctypes.addressof(out))
+    return tuple(out)
 
 
 def check(rc: int, name: str) -> None:

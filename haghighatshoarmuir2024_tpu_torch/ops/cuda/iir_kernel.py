@@ -13,9 +13,10 @@ whose kernel and rounding follow the call's width).
 
 ``iir_scan`` runs the per-sample transposed-DF2 recurrence of
 :func:`ops.iir.iir_scan_plain` over all T steps in one launch, a thread a
-real lane, and equals it bit for bit; it replaces no TPU kernel either (JAX
-runs it as one ``lax.scan``), but the plain loop's four tensor ops a sample
-made it the classical paths' whole cost on the card.
+real lane fed by a producer warp that does the block's global copies, and
+equals it bit for bit; it replaces no TPU kernel either (JAX runs it as one
+``lax.scan``), but the plain loop's four tensor ops a sample made it the
+classical paths' whole cost on the card.
 
 On CPU tensors each wrapper runs its plain version; on any other device it
 launches its kernel or raises.
@@ -28,10 +29,25 @@ import numpy as np
 import torch
 
 from .. import iir
-from ._build import check, launch_counts, library, stream_handle
+from ._build import check, launch_counts, library, library_constants, stream_handle
 
 SB_MAX, N_MAX, K2_MAX, RT = 64, 8, 512, 8  # csrc/iir_lifted.cu's constants
-SCAN_N_MAX = 8  # csrc/iir_scan.cu's N_MAX: state values a lane
+# csrc/iir_scan.cu's N_MAX (state values a lane), LANES (lanes a block), TS (steps a tile) and VEC (floats a
+# 16-byte copy), as hm_iir_scan_constants gives them
+SCAN_N_MAX, SCAN_LANES, SCAN_TS, SCAN_VEC = 8, 32, 64, 4
+
+
+@functools.lru_cache(maxsize=1)
+def checked_scan_library():
+    """The kernel library, once ``csrc/iir_scan.cu``'s constants are held
+    equal to this module's (``SCAN_N_MAX``, ``SCAN_LANES``, ``SCAN_TS``,
+    ``SCAN_VEC``): :func:`vector_rows` and the CPU tests' model of the
+    kernel's copies read them."""
+    want = (SCAN_N_MAX, SCAN_LANES, SCAN_TS, SCAN_VEC)
+    got = library_constants("hm_iir_scan_constants", 4)
+    if got != want:
+        raise RuntimeError(f"csrc/iir_scan.cu's constants {got} differ from iir_kernel's {want}")
+    return library()
 
 
 @functools.lru_cache(maxsize=16)
@@ -148,6 +164,17 @@ def scan_layout(x: torch.Tensor, zi: torch.Tensor | None, N: int):
     return x, y, state, (L, comps, D2, xr.stride(0), *xs, yr.stride(0), *ys)
 
 
+def vector_rows(L: int, comps: int, D2: int, s0: int, s1: int, s2: int, ptr: int) -> bool:
+    """Whether ``csrc/iir_scan.cu`` moves a tensor's lanes by 16-byte
+    copies, from ``scan_layout``'s lane arguments for it (strides in floats)
+    and its address: lane j lies at float j of its step's row (so a block's
+    32 lanes are one run of 128 bytes), and L, the step stride and the base
+    are whole 16-byte vectors.  Otherwise a lane's float moves alone."""
+    D1 = L // comps // D2
+    flat = (D1 == 1 or s1 == D2 * comps) and (D2 == 1 or s2 == comps)
+    return flat and L % SCAN_VEC == 0 and s0 % SCAN_VEC == 0 and ptr % (4 * SCAN_VEC) == 0
+
+
 def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
     """``lfilter(b, a, x)`` along dim 0 of ``x`` (T, ...), with the
     arguments and returns of :func:`ops.iir.iir_scan`, by the kernel: one
@@ -165,16 +192,19 @@ def iir_scan(b, a, x: torch.Tensor, zi: torch.Tensor | None = None):
         raise ValueError(f"iir_scan takes states of at most {SCAN_N_MAX} (got N={N})")
     if x.device.type != "cuda":
         raise ValueError(f"iir_scan runs on CUDA tensors (got {x.device})")
-    lib = library()
+    lib = checked_scan_library()
     x, y, state, lanes = scan_layout(x, zi, N)
     if x.shape[0] == 0 or y.numel() == 0:
         return y, state
     zr, yr, xr = (torch.view_as_real(t) if t.is_complex() else t for t in (state, y, x))
     zf = torch.empty_like(zr)
     coef = np.concatenate([bp, a_tail]).astype(np.float32)  # b0, b_1..b_N, a_1..a_N
-    L, comps, D2, *strides = lanes
+    L, comps, D2, xs0, xs1, xs2, ys0, ys1, ys2 = lanes
+    vec = (vector_rows(L, comps, D2, xs0, xs1, xs2, xr.data_ptr()),
+           vector_rows(L, comps, D2, ys0, ys1, ys2, yr.data_ptr()))
     rc = lib.hm_iir_scan(xr.data_ptr(), zr.data_ptr() if zi is not None else None, yr.data_ptr(), zf.data_ptr(),
-                         coef.ctypes.data, N, x.shape[0], L, comps, D2, *strides, stream_handle(x.device))
+                         coef.ctypes.data, N, x.shape[0], L, comps, D2, xs0, xs1, xs2, ys0, ys1, ys2, *map(int, vec),
+                         stream_handle(x.device))
     check(rc, "iir_scan")
     launch_counts["iir_scan"] += 1
     return y, (torch.view_as_complex(zf) if x.is_complex() else zf)

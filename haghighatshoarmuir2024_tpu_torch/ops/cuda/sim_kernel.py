@@ -4,9 +4,11 @@ for a CUDA tensor (``XyloSim`` and its readout, ``evolve_to_hidden``,
 ``XyloSimPushToHidden``'s two stages, ``sim_hidden_batch``).
 
 It runs all T steps of :func:`models.xylo.sim.scan_hidden_plain` in one
-launch, a block a batch row, in any of the four step conventions, with a
-uniform or dense ``w_rec``, its records written as the steps go, and equals
-the plain loop bit for bit (every value is an integer).  It replaces no TPU
+launch, in any of the four step conventions, with a uniform or dense
+``w_rec``, its records written as the steps go, and equals the plain loop
+bit for bit (every value is an integer).  Without a recurrence the B x N
+neurons are taken flat, a thread each; with one, a block a batch row
+(:func:`sim_launch`).  It replaces no TPU
 kernel: the JAX package runs the simulator as one ``lax.scan``
 (``models/xylo/sim.py:60-124``).  K3-K6 (``ops/cuda/lif_kernel.py``) keep
 the plain loop as their twin (``sim.sim_hidden``), never this kernel.
@@ -16,14 +18,43 @@ device it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ...models.xylo import sim
-from ._build import check, launch_counts, library, stream_handle
+from ._build import check, launch_counts, library, library_constants, stream_handle
 
 INT32 = np.iinfo(np.int32)
-SIM_N_MAX = 4096  # csrc/xylo_sim.cu's N_MAX: neurons a batch row
+# csrc/xylo_sim.cu's N_MAX (neurons a batch row), FREE_THREADS and THREADS_MAX, as hm_xylo_sim_constants gives them
+SIM_N_MAX, SIM_FREE_THREADS, SIM_THREADS_MAX = 4096, 128, 512
+
+
+@functools.lru_cache(maxsize=1)
+def checked_library():
+    """The kernel library, once its constants are held equal to this
+    module's (``SIM_N_MAX``, ``SIM_FREE_THREADS``, ``SIM_THREADS_MAX``):
+    :func:`sim_launch` plans launches from them."""
+    got = library_constants("hm_xylo_sim_constants", 3)
+    if got != (SIM_N_MAX, SIM_FREE_THREADS, SIM_THREADS_MAX):
+        raise RuntimeError(f"csrc/xylo_sim.cu's constants {got} differ from sim_kernel's "
+                           f"{(SIM_N_MAX, SIM_FREE_THREADS, SIM_THREADS_MAX)}")
+    return library()
+
+
+def sim_launch(B: int, N: int, recurrent: bool) -> tuple[int, int, int]:
+    """``(blocks, threads, neurons a thread)`` of ``hm_xylo_sim`` for B
+    rows of N neurons.  Without a recurrence no neuron waits on another: the
+    B x N neurons flat, a thread each, ``SIM_FREE_THREADS`` to a block (a
+    warp's 32 neurons one 128-byte line of each step's record where B x N is
+    a multiple of 32).  With one, a block a row (it must see the row's
+    spikes of the step before): the fewest neurons a thread (1, 2, 4 or 8)
+    that keep the row within ``SIM_THREADS_MAX`` threads, in whole warps."""
+    if not recurrent:
+        return -(-B * N // SIM_FREE_THREADS), SIM_FREE_THREADS, 1
+    npt = next(k for k in (1, 2, 4, 8) if k * SIM_THREADS_MAX >= N)
+    return B, -(-N // (32 * npt)) * 32, npt
 
 
 def _int32_weights(w, dev) -> torch.Tensor:
@@ -67,7 +98,7 @@ def scan_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, state0=None, *
         raise ValueError(f"w_rec must be ({N}, {N}) (got {np.shape(w_rec)})")
     if inp.device.type != "cuda":
         raise ValueError(f"scan_hidden's kernel runs on CUDA tensors (got {inp.device})")
-    lib = library()
+    lib = checked_library()
     dev = inp.device
     wr = _int32_weights(w_rec, dev) if dense else None
     per_neuron = [torch.broadcast_to(sim._int32(v, dev), (N,)).contiguous() for v in (dash_syn, dash_mem, threshold)]
@@ -88,7 +119,7 @@ def scan_hidden(inp: torch.Tensor, dash_syn, dash_mem, threshold, state0=None, *
     rc = lib.hm_xylo_sim(x.data_ptr(), *(ptr(t) for t in per_neuron), *(ptr(s) for s in (state or (None,) * 3)),
                          ptr(wr), ptr(spikes), ptr(isyn_rec), ptr(vmem_rec), ptr(counts), *(ptr(f) for f in final),
                          T, B, N, coef, int(dense), int(ordering == "integrate_first"), int(reset == "zero"),
-                         stream_handle(dev))
+                         *sim_launch(B, N, dense or coef != 0), stream_handle(dev))
     check(rc, "xylo_sim")
     launch_counts["xylo_sim"] += 1
     return spikes, counts, tuple(final), rec

@@ -12,7 +12,14 @@ package on the same numpy inputs:
   (``iir_kernel.scan_layout``: lanes, strides, the state's layout) on CPU
   tensors, the kernel's per-lane arithmetic in numpy float32 (each product,
   difference and sum rounded on its own), equal to the plain loop bit for
-  bit on contiguous, strided, sliced and uncollapsible layouts;
+  bit on contiguous, strided, sliced and uncollapsible layouts; and the
+  producer warp's copies, tile by tile through the ring (16-byte rows where
+  ``iir_kernel.vector_rows`` allows them, a float a lane otherwise), equal
+  to it too, with ``vector_rows`` taking only flat, aligned lanes;
+- the simulator's launch plan (``sim_kernel.sim_launch``): without a
+  recurrence the flat grid, a warp's neurons one 128-byte line of a step
+  where B x N is a multiple of 32, and a numpy model of that kernel's
+  index map equal to the plain loop; with one, a block a row;
 - ``models.xylo.sim.scan_hidden``, whose CUDA route is ``csrc/xylo_sim.cu``:
   its CPU route against JAX's ``_sim_hidden``, bit for bit, in both orderings
   and both resets, with a uniform and a dense ``w_rec``, recording on and
@@ -184,7 +191,194 @@ def test_torch_scan_kernel_indexing_model(layout, with_zi):
     assert torch.equal(y, py) and torch.equal(s, ps)
 
 
+def emulate_scan_tiles(b, a, x: torch.Tensor, zi):
+    """``hm_iir_scan``'s copies in numpy: for each block of ``SCAN_LANES``
+    lanes and each tile of ``SCAN_TS`` steps, the producer fills the ring
+    (16-byte row pieces ``[lane0 + 4v, +4)`` of rows ``v // 8 + 4i`` where
+    ``vector_rows`` allows them, else a float a live lane a step), the
+    consumer runs its steps on the ring in place, and the producer drains y
+    the same way; the lanes' state in (R, N, comps)."""
+    bp, a_tail = iir.scan_coefficients(b, a)
+    N = len(a_tail)
+    x, y, state, (L, comps, D2, xs0, xs1, xs2, ys0, ys1, ys2) = iir_kernel.scan_layout(x, zi, N)
+    xr, yr, zr = (torch.view_as_real(t) if t.is_complex() else t for t in (x, y, state))
+    vec_x = iir_kernel.vector_rows(L, comps, D2, xs0, xs1, xs2, xr.data_ptr())
+    vec_y = iir_kernel.vector_rows(L, comps, D2, ys0, ys1, ys2, yr.data_ptr())
+    LANES, TS, VEC = iir_kernel.SCAN_LANES, iir_kernel.SCAN_TS, iir_kernel.SCAN_VEC
+
+    def flat(t):  # the storage a strided float tensor views, from its first element
+        span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+        return t.as_strided((span,), (1,))
+
+    xf, yf = flat(xr).numpy(), flat(yr).numpy()
+    f32 = np.float32
+    coef = np.concatenate([bp, a_tail]).astype(f32)
+    zin = zr.reshape(-1, N, comps).numpy() if zi is not None else None
+    zf = np.zeros((L // comps, N, comps), f32)
+    T = x.shape[0]
+    for lane0 in range(0, L, LANES):
+        j = lane0 + np.arange(LANES)
+        live = j < L
+        c, r = j % comps, j // comps
+        x_off = (r // D2) * xs1 + (r % D2) * xs2 + c
+        y_off = (r // D2) * ys1 + (r % D2) * ys2 + c
+        s = np.zeros((LANES, N + 1), f32)
+        if zin is not None:
+            s[live, :N] = zin[r[live], :, c[live]]
+        for t0 in range(0, T, TS):
+            n = min(TS, T - t0)
+            ring = np.full((TS, LANES), np.nan, f32)
+            for k in range(n):
+                if vec_x:
+                    for v in range(0, LANES, VEC):
+                        if lane0 + v < L:
+                            start = (t0 + k) * xs0 + lane0 + v
+                            ring[k, v:v + VEC] = xf[start:start + VEC]
+                else:
+                    ring[k, live] = xf[(t0 + k) * xs0 + x_off[live]]
+            for k in range(n):
+                xv = ring[k]
+                yv = (coef[0] * xv) + s[:, 0]
+                for i in range(N):
+                    s[:, i] = ((coef[1 + i] * xv) - (coef[1 + N + i] * yv)) + s[:, i + 1]
+                ring[k] = yv
+            for k in range(n):
+                if vec_y:
+                    for v in range(0, LANES, VEC):
+                        if lane0 + v < L:
+                            start = (t0 + k) * ys0 + lane0 + v
+                            yf[start:start + VEC] = ring[k, v:v + VEC]
+                else:
+                    yf[(t0 + k) * ys0 + y_off[live]] = ring[k, live]
+        zf[r[live], :, c[live]] = s[live, :N]
+    zf = torch.as_tensor(zf)
+    return y, (torch.view_as_complex(zf) if x.is_complex() else zf).reshape(state.shape), (vec_x, vec_y)
+
+
+TILE_LAYOUTS = {
+    "complex (T, 4, 7): 16-byte rows": (lambda: torch.as_tensor(signal("complex", (150, 4, 7), 11)), (True, True)),
+    "real (T, 40): 16-byte rows, a partial block": (lambda: torch.as_tensor(signal("real", (70, 40), 12)),
+                                                     (True, True)),
+    "real (T, 14): a float a lane": (lambda: torch.as_tensor(signal("real", (130, 14), 13)), (False, False)),
+    "real (B, T, M) along dim 1": (lambda: torch.as_tensor(signal("real", (8, 140, 4), 14)).movedim(1, 0),
+                                   (False, False)),
+    "real (T, 32) from column 1: x a float a lane, y by rows": (
+        lambda: torch.as_tensor(signal("real", (65, 37), 15))[:, 1:33], (False, True)),
+}
+
+
+@pytest.mark.parametrize("with_zi", [False, True])
+@pytest.mark.parametrize("layout", list(TILE_LAYOUTS))
+def test_torch_scan_kernel_tiles_model(layout, with_zi):
+    """The producer warp's copies through the ring, tile by tile, and the
+    consumer's in-place steps, modelled in numpy: equal to the plain loop
+    bit for bit, by the copy path ``vector_rows`` picks for the layout."""
+    make, want_vec = TILE_LAYOUTS[layout]
+    x = make()
+    b, a = bandpass(2, BANDS["high-Q"])
+    zi = torch.as_tensor(signal("complex" if x.is_complex() else "real", tuple(x.shape[1:]) + (4,), 16)) \
+        if with_zi else None
+    y, s, vec = emulate_scan_tiles(b, a, x, zi)
+    py, ps = iir.iir_scan_plain(b, a, x, zi)
+    assert vec == want_vec
+    assert torch.equal(y, py) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS) + list(TILE_LAYOUTS))
+def test_torch_scan_vector_rows_only_flat_lanes(layout):
+    """``vector_rows`` takes a tensor's lanes by 16-byte rows only where lane
+    j lies at float j of its step's row and the rows are whole aligned
+    vectors: checked against the lanes' offsets from ``scan_layout``."""
+    x = (LAYOUTS.get(layout) or TILE_LAYOUTS[layout][0])()
+    x, y, _, (L, comps, D2, xs0, xs1, xs2, ys0, ys1, ys2) = iir_kernel.scan_layout(x, None, 2)
+    for t, (s0, s1, s2) in ((x, (xs0, xs1, xs2)), (y, (ys0, ys1, ys2))):
+        ptr = (torch.view_as_real(t) if t.is_complex() else t).data_ptr()
+        j = np.arange(L)
+        r = j // comps
+        offsets = (r // D2) * s1 + (r % D2) * s2 + j % comps
+        flat = np.array_equal(offsets, j)
+        want = flat and L % 4 == 0 and s0 % 4 == 0 and ptr % 16 == 0
+        assert iir_kernel.vector_rows(L, comps, D2, s0, s1, s2, ptr) == want
+        assert not iir_kernel.vector_rows(L, comps, D2, s0, s1, s2, ptr + 4)  # never off a 16-byte boundary
+
+
 # ------------------------------------------------------------------ the simulator
+@pytest.mark.parametrize("B,N", [(1, 449), (96, 449), (3, 37), (2, 4096), (5, 1), (4, 700)])
+def test_torch_sim_launch_plan(B, N):
+    """Without a recurrence the flat grid covers the B x N neurons once, a
+    thread each, and where B x N is a multiple of 32 every warp's neurons of
+    every step are one 128-byte line; with one, a block a row of whole
+    warps, the fewest neurons a thread."""
+    blocks, threads, npt = sim_kernel.sim_launch(B, N, recurrent=False)
+    M = B * N
+    assert (threads, npt) == (sim_kernel.SIM_FREE_THREADS, 1)
+    assert blocks * threads >= M > (blocks - 1) * threads
+    if M % 32 == 0:
+        warp_starts = np.arange(0, M, 32)
+        for t in (0, 1, 7, 11_999):
+            assert np.all((4 * (t * M + warp_starts)) % 128 == 0)
+    blocks, threads, npt = sim_kernel.sim_launch(B, N, recurrent=True)
+    assert blocks == B and threads % 32 == 0 and threads <= sim_kernel.SIM_THREADS_MAX and threads * npt >= N
+    assert npt in (1, 2, 4, 8) and (npt == 1 or (npt // 2) * sim_kernel.SIM_THREADS_MAX < N)
+
+
+def emulate_free_sim(inp: torch.Tensor, ds, dm, th, state0, ordering, reset):
+    """``xylo_sim_free_kernel`` in numpy: thread m of ``sim_launch``'s flat
+    grid (m < B x N) takes neuron n = m % N, reads its current at t * M + m
+    and writes its records there; int32 throughout, PyTorch's shift rule."""
+    T, B, N = inp.shape
+    M = B * N
+    blocks, threads, _ = sim_kernel.sim_launch(B, N, recurrent=False)
+    m = np.arange(blocks * threads)
+    m = m[m < M]
+    n = m % N
+    i32 = np.int32
+    shift = lambda d: np.where((d < 0) | (d >= 31), 31, d).astype(i32)  # noqa: E731
+    sds, sdm, thr = shift(np.asarray(ds)[n]), shift(np.asarray(dm)[n]), np.asarray(th, i32)[n]
+    flat_in = inp.numpy().reshape(-1)
+    isyn, vmem = (np.asarray(s, i32).reshape(-1)[m].copy() for s in state0[:2])
+    spk = np.zeros_like(isyn)
+    rec = {k: np.zeros(T * M, i32) for k in ("spikes", "Isyn", "Vmem")}
+    sat = lambda v: np.clip(v, -32768, 32767).astype(i32)  # noqa: E731
+    for t in range(T):
+        cur = flat_in[t * M + m]
+        if ordering == "decay_first":
+            isyn = sat(isyn - (isyn >> sds) + cur)
+            vmem = sat(vmem - (vmem >> sdm) + isyn)
+        else:
+            xv = sat(isyn + cur)
+            isyn = sat(xv - (xv >> sds))
+            yv = sat(vmem + isyn)
+            vmem = sat(yv - (yv >> sdm))
+        spk = (vmem >= thr).astype(i32)
+        vmem = np.where(spk == 1, 0, vmem).astype(i32) if reset == "zero" else (vmem - spk * thr).astype(i32)
+        for k, v in (("spikes", spk), ("Isyn", isyn), ("Vmem", vmem)):
+            rec[k][t * M + m] = v
+    return {k: torch.as_tensor(v.reshape(T, B, N)) for k, v in rec.items()}, (isyn, vmem, spk)
+
+
+@pytest.mark.parametrize("T,B,N", [(37, 4, 45), (21, 1, 449)])
+@pytest.mark.parametrize("ordering,reset", CONVENTIONS)
+def test_torch_sim_free_kernel_model(ordering, reset, T, B, N):
+    """The flat kernel's index map and step, modelled in numpy on batches
+    whose B x N (4 x 45, 1 x 449) is no multiple of a block and T no
+    multiple of the 16-step read-ahead: records and final state equal to the
+    plain loop's."""
+    rng = np.random.default_rng(7)
+    inp = torch.as_tensor(rng.integers(-90, 91, size=(T, B, N)).astype(np.int32))
+    ds, dm = rng.integers(-1, 33, size=N), rng.integers(1, 6, size=N)
+    th = rng.integers(20, 60, size=N)
+    state0 = tuple(rng.integers(-300, 300, size=(B, N)).astype(np.int32) for _ in range(2)) + \
+        (np.zeros((B, N), np.int32),)
+    got, final = emulate_free_sim(inp, ds, dm, th, state0, ordering, reset)
+    spikes, _, want_final, want = sim.scan_hidden_plain(inp, ds, dm, th, state0, ordering=ordering, reset=reset,
+                                                         record_state=True)
+    assert torch.equal(got["spikes"], spikes) and torch.equal(got["Isyn"], want["Isyn"])
+    assert torch.equal(got["Vmem"], want["Vmem"])
+    for g, w in zip(final, want_final):
+        np.testing.assert_array_equal(g, w.numpy().reshape(-1))
+
+
 def sim_inputs(rec: str, seed: int, T: int = 160, N: int = 13):
     rng = np.random.default_rng(seed)
     inp = rng.integers(-90, 91, size=(T, N)).astype(np.int32)
@@ -280,6 +474,45 @@ def test_torch_sim_wrapper_raises(case, monkeypatch):
     err, call = SIM_REFUSALS[case]
     with pytest.raises(err, match="CUDA" if case.endswith("card") else None):
         call()
+
+
+MIRRORS = {
+    "iir_scan": (iir_kernel, "checked_scan_library", "hm_iir_scan_constants",
+                 (iir_kernel.SCAN_N_MAX, iir_kernel.SCAN_LANES, iir_kernel.SCAN_TS, iir_kernel.SCAN_VEC)),
+    "xylo_sim": (sim_kernel, "checked_library", "hm_xylo_sim_constants",
+                 (sim_kernel.SIM_N_MAX, sim_kernel.SIM_FREE_THREADS, sim_kernel.SIM_THREADS_MAX)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(MIRRORS))
+def test_torch_scan_wrappers_hold_their_constants_to_the_library(kernel, monkeypatch):
+    """Each wrapper loads the library only once the constants its source
+    exports (limits, block and tile sizes) equal the module's mirrors of
+    them, and raises on any that differs (the library stubbed: no nvcc
+    here)."""
+    module, loader, symbol, mirrors = MIRRORS[kernel]
+    lib = object()
+    asked = []
+
+    def constants(name, n):
+        asked.append((name, n))
+        return tuple(wrong)
+
+    monkeypatch.setattr(module, "library", lambda: lib)
+    monkeypatch.setattr(module, "library_constants", constants)
+    for i in range(len(mirrors)):
+        wrong = list(mirrors)
+        wrong[i] += 1
+        getattr(module, loader).cache_clear()
+        with pytest.raises(RuntimeError, match="differ"):
+            getattr(module, loader)()
+    wrong = list(mirrors)
+    getattr(module, loader).cache_clear()
+    try:
+        assert getattr(module, loader)() is lib
+    finally:
+        getattr(module, loader).cache_clear()
+    assert set(asked) == {(symbol, len(mirrors))}
 
 
 def test_torch_sim_kernel_refuses_fractional_w_rec():

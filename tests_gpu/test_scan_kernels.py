@@ -11,9 +11,17 @@
     four step conventions with the flagship's uniform ``w_rec`` and the
     dense push-to-hidden block, a uniform ``w_rec`` of -1, two carried
     halves, and wider layers (N = 700, 1347, 4096);
+  * the redesign's edges (``chip_smoke.IIR_EDGES``, ``SIM_EDGES``): the
+    scan at N = 0-8, T below and across its 64-step tiles, one lane, lanes
+    no multiple of 32, complex lanes, 16-byte rows, MUSIC's strided view
+    and a carried zi; the simulator's flat grid with a partial last block,
+    B = 1 (B·N·4 no whole line), N = 4096, records on and off, all four
+    conventions, uniform and dense ``w_rec``, two halves carried;
   * the routes: ``iir_filter(method="scan")`` and ``XyloSim`` launch their
     kernels, the plain twins of K3-K6 launch none, and an unsupported dtype
-    raises on the card.
+    raises on the card;
+  * the wrappers' mirrors of the kernels' constants equal the library's,
+    and ``hm_iir_scan`` refuses 16-byte copies off an aligned flat layout.
 
 The cases are ``experiments/scan_kernels.py``'s and ``chip_smoke.py`` phase
 28's, so every run of that script makes them too.
@@ -111,6 +119,18 @@ def test_xylo_sim_wide_layers(i):
     assert r["equal"] and r["spikes"] > 0, r
 
 
+@pytest.mark.parametrize("i", range(len(cs.IIR_EDGES)))
+def test_iir_scan_edges(i):
+    r = cs.iir_edge(torch, _card(), cs.IIR_EDGES[i], cs.SEED + i)
+    assert r["equal"] and r["launches"] == 1 and r.get("halves_equal", True), r
+
+
+@pytest.mark.parametrize("i", range(len(cs.SIM_EDGES)))
+def test_xylo_sim_edges(i):
+    r = cs.sim_edge(torch, _card(), cs.SIM_EDGES[i], cs.SEED + i)
+    assert r["equal"] and r["launches"] == 1 and r.get("halves_equal", True) and r["spikes"] > 0, r
+
+
 def test_routes_launch_their_kernels(flagship_rasters):
     """``iir_filter(method="scan")`` and ``XyloSim`` launch their kernels
     (once, and twice: hidden layer and readout); the K3-K6 twin launches
@@ -135,3 +155,41 @@ def test_routes_launch_their_kernels(flagship_rasters):
         iir.iir_filter(b, a, x.double(), method="scan")
     with pytest.raises(TypeError):
         sim.scan_hidden(torch.zeros((10, 5), dtype=torch.int64, device=dev), 1, 1, 30)
+
+
+def test_wrappers_constants_equal_the_library():
+    """The wrappers' mirrors of the kernels' constants (``SCAN_*``,
+    ``SIM_*``) equal what the built library exports."""
+    _card()
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build, iir_kernel, sim_kernel
+
+    assert iir_kernel.checked_scan_library() is _build.library()
+    assert sim_kernel.checked_library() is _build.library()
+
+
+def test_iir_scan_refuses_16_byte_copies_off_their_layout():
+    """``hm_iir_scan`` checks a 16-byte copy path's layout itself: an
+    aligned flat layout launches; a base 4 bytes off a 16-byte boundary
+    (cudaErrorMisalignedAddress, 716) or lanes that are not flat
+    (cudaErrorInvalidValue, 1) are refused before any launch."""
+    dev = _card()
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build, iir_kernel
+
+    lib = iir_kernel.checked_scan_library()
+    T, L, N = 100, 8, 2
+    buf = torch.zeros((T, 16), device=dev)
+    out = torch.zeros((T, 16), device=dev)
+    zf = torch.empty((L, N, 1), device=dev)
+    coef = np.array([0.5, 0.1, 0.2, -0.3, 0.1], np.float32)
+    stream = _build.stream_handle(dev)
+
+    def call(x, y, s1, vec):
+        return lib.hm_iir_scan(x.data_ptr(), None, y.data_ptr(), zf.data_ptr(), coef.ctypes.data, N, T, L, 1, 1,
+                               16, s1, 1, 16, s1, 1, vec, vec, stream)
+
+    assert call(buf[:, :8], out[:, :8], 1, 1) == 0
+    torch.cuda.synchronize()
+    assert call(buf[:, 1:9], out[:, 1:9], 1, 1) == 716
+    assert call(buf[:, :8], out[:, :8], 1, 0) == 0  # the float-a-lane path takes any base
+    assert call(buf[:, ::2], out[:, ::2], 2, 1) == 1  # lanes 8 bytes apart: not flat
+    torch.cuda.synchronize()
