@@ -196,10 +196,13 @@ Phases, each failing the run with a non-zero exit:
     (medians within a grid step of JAX's; K1, the raster pack and K5 launched
     once a frame, K2 at least once; the Xylo DoAs equal to the CPU path's
     ``Demo.forward`` frame by frame, and the counts through K1 -> K2 -> raster
-    pack -> K5 at B = 1 from the card's ``cs`` equal to the plain path's);
-    multi_target_tracking (identity held, tracked MAE within a grid step of
-    JAX's); mismatch_robustness at 20 trials (every row within one 112-grid
-    step of JAX's; K1, the pack and K3 once a batch, K2 at least once; each
+    pack -> K5 at B = 1 from the card's ``cs`` equal to the plain path's; the
+    tracker ``track_angles`` once a call, its angles equal to the plain loop's
+    on the harness's estimates); multi_target_tracking (identity held, tracked
+    MAE within a grid step of JAX's; ``track_multi`` launched once, thetas and
+    confirmed equal to the plain loop's on the harness's peaks);
+    mismatch_robustness at 20 trials (every row within one 112-grid step of
+    JAX's; K1, the pack and K3 once a batch, K2 at least once; each
     batch's matched DoAs equal to the CPU path's, and its counts through K1 ->
     K2 -> pack -> K3 from the card's ``cs`` equal to the plain path's); each
     harness's seconds and the per-sample scans' share of a batch, timed
@@ -381,8 +384,27 @@ Phases, each failing the run with a non-zero exit:
     and T below the read-ahead, N = 4096, records off, uniform and dense ``w_rec``, two
     halves carried), each by ``torch.equal``; both timed by CUDA events
     beside their plain loops and the first design's times, with their bounds, the
-    scan's cycles a step and chain floor; one timed call of each host loop
-    left (``Envelope.evolve``, ``track_angles``, ``track_multi_angles``).
+    scan's cycles a step and chain floor;
+29. the envelope follower and the two trackers, the last of the JAX
+    package's ``lax.scan``s, as one launch each (``csrc/envelope.cu``,
+    ``csrc/tracking.cu``; ``experiments/scan_kernels.py``):
+    ``Envelope(1e-3, 1e-2, 48 000).evolve`` of one frame (a tensor, and a
+    numpy frame with no device: it lands on the card), ``track_angles`` at
+    (240, 96) and ``track_multi_angles`` at (240, 96, 2) with 4 tracks through
+    their entry points, the counts set to 0 just before each (one launch
+    each); each kernel against its plain loop with ``torch.equal`` (NaN equal
+    to NaN for the follower), every output and final state: the follower on
+    one frame (12 000, 7) and 96 frames' microphones as lanes (12 000, 672) in
+    float32 and one frame in float64, the trackers at those shapes, from seeds
+    (targets across ±pi, outliers, runs of them that force re-acquisition,
+    all-invalid frames); the edges (``ENV_EDGES``, ``TRACK_EDGES``,
+    ``MULTI_EDGES``: T = 1 and 2, one lane, lanes no multiple of 32, lanes
+    that only fall or only rise, NaN, inf and zeros, carried states, two
+    halves carried against one pass, the gate's boundary at float32(25 deg)
+    and its neighbours, K > M, M > K, M = K = 16, tied costs, re-acquisition
+    after ``max_misses``), one launch each; each timed by CUDA events around
+    the wrapper and by CUPTI alone, beside its plain loop's one call, its
+    bound and its chain floor.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -390,6 +412,7 @@ last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2647,6 +2670,7 @@ def check_harnesses(torch, _build, dev):
     from haghighatshoarmuir2024_tpu_torch.models.snn_beamformer import SNNBeamformer
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import lif_kernel
     from haghighatshoarmuir2024_tpu_torch.parallel import make_trial_fn, snr_with_bandwidth_correction
+    from haghighatshoarmuir2024_tpu_torch.utils import tracking
 
     cpu = torch.device("cpu")
     out = {"s": {}, "scan_share": {}}
@@ -2813,12 +2837,22 @@ def check_harnesses(torch, _build, dev):
     n_frames = int(MOVING["duration"] / MOVING["frame"])
     demo_mt = mt.build_demo(G, MOVING["frame"], dev)  # designed on the card (warm-up of the harness's own)
     _build.launch_counts.clear()
-    mt_res, out["s"]["moving_target"] = synced(torch, dev, lambda: mt.run(MOVING["duration"], 10.0, MOVING["frame"],
-                                                                          G, dev, demo=demo_mt))
+    with recorded_calls(mt, "track_angles") as mt_tracks:
+        mt_res, out["s"]["moving_target"] = synced(torch, dev, lambda: mt.run(MOVING["duration"], 10.0,
+                                                                              MOVING["frame"], G, dev, demo=demo_mt))
     mt_launches = dict(_build.launch_counts)
     for name in ("rzcc_k1", "lif_pack_raster", "lif_k5"):
         if mt_launches.get(name, 0) != n_frames:
             fail(f"moving_target: {name} launched {mt_launches.get(name, 0)} times for {n_frames} frames")
+    # the tracker (Hilbert's and Xylo's estimates): one track_angles launch a call, its angles equal to the
+    # plain loop's on the same estimates, so the tracked errors are the plain loop's
+    if mt_launches.get("track_angles", 0) != len(mt_tracks) or len(mt_tracks) != 2:
+        fail(f"moving_target: track_angles launched {mt_launches.get('track_angles', 0)} times for "
+             f"{len(mt_tracks)} tracker calls (want 2)")
+    for args, kwargs, got in mt_tracks:
+        if not torch.equal(got, tracking.track_angles_plain(*args, **kwargs)):
+            fail("moving_target: the track_angles kernel's angles differ from the plain loop's on the harness's "
+                 "estimates")
     if mt_launches.get("rzcc_k2", 0) < n_frames:
         fail(f"moving_target: rzcc_k2 launched {mt_launches.get('rzcc_k2', 0)} times for {n_frames} frames")
     for name, want in JAX_MOVING.items():
@@ -2855,9 +2889,21 @@ def check_harnesses(torch, _build, dev):
           f"frame; counts (B, N) = {tuple(host_counts.shape)} from the card's cs through K1 -> K2 -> raster pack -> "
           f"K5 at B = 1 == the plain path's, count by count ({int(host_counts.sum())} spikes)", flush=True)
 
-    # ---- multi_target_tracking
-    mtt_res, out["s"]["multi_target_tracking"] = synced(torch, dev, lambda: mtt.run(TRACKING["duration"], 10.0,
-                                                                                     TRACKING["frame"], G, dev))
+    # ---- multi_target_tracking: the tracker one track_multi launch, its outputs equal to the plain loop's on
+    # the harness's peaks, so the tracked errors are the plain loop's
+    _build.launch_counts.clear()
+    with recorded_calls(mtt, "track_multi_angles") as mtt_tracks:
+        mtt_res, out["s"]["multi_target_tracking"] = synced(torch, dev, lambda: mtt.run(TRACKING["duration"], 10.0,
+                                                                                         TRACKING["frame"], G, dev))
+    out["mtt_launches"] = dict(_build.launch_counts)
+    if out["mtt_launches"].get("track_multi", 0) != 1 or len(mtt_tracks) != 1:
+        fail(f"multi_target_tracking: track_multi launched {out['mtt_launches'].get('track_multi', 0)} times for "
+             f"{len(mtt_tracks)} tracker calls (want 1)")
+    args, kwargs, (th, cf) = mtt_tracks[0]
+    pth, pcf = tracking.track_multi_angles_plain(*args, **kwargs)
+    if not (torch.equal(th, pth) and torch.equal(cf, pcf)):
+        fail("multi_target_tracking: the track_multi kernel's outputs differ from the plain loop's on the harness's "
+             "peaks")
     if not mtt_res["identity_held"] or not within_step(mtt_res["tracked_mae_deg"], JAX_TRACKED, GRID_STEP_224):
         fail(f"multi_target_tracking: {mtt_res} (JAX's harness: tracked MAE {JAX_TRACKED}; gate: one grid step)")
     print(f"[harness] multi_target_tracking ({mtt_res['n_frames']} frames): identity held, tracked MAE "
@@ -2865,7 +2911,8 @@ def check_harnesses(torch, _build, dev):
           f"{GRID_STEP_224:.2f}), max "
           f"{np.round(mtt_res['tracked_max_err_deg'], 3).tolist()}, sorted-peaks baseline "
           f"{np.round(mtt_res['sorted_peaks_baseline_mae_deg'], 3).tolist()}, {mtt_res['confirmed_final']} tracks "
-          "confirmed at the end", flush=True)
+          "confirmed at the end; the tracker one track_multi launch, thetas and confirmed == the plain loop's "
+          "(torch.equal)", flush=True)
 
     # ---- mismatch_robustness: one Hilbert batch and one rates_batch (K1, K2, pack, K3) a value
     model, build_s = synced(torch, dev, lambda: mm.build(RES_GRID, device=dev))
@@ -2946,6 +2993,24 @@ GRID_STEP_113, GRID_STEP_449 = 360.0 / 112, 360.0 / 448
 SERVE_WIRES = (("f32", 1), ("i16", 1), ("u8", 1), ("u4", 1), ("u8", 4), ("u4", 4))
 XYLO_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack", "lif_k3")
 STREAM_PATH = ("iir_lifted", "rzcc_k1", "rzcc_k2", "lif_pack", "lif_k4")
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str):
+    """``module.name`` replaced, for the block, by a wrapper that records
+    each call's ``(args, kwargs, result)`` in the list it yields."""
+    fn, calls = getattr(module, name), []
+
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 def counted(torch, _build, label, expect, fn, seconds=None):
@@ -4734,7 +4799,6 @@ SIM_REPS = 5
 WIDE_SIMS = ((700, "decay_first", "zero", "dense"), (1347, "integrate_first", "subtract", "dense"),
              (1347, "decay_first", "subtract", -1), (4096, "integrate_first", "zero", -2))
 WIDE_T, WIDE_B = 2000, 3
-TRACK_FRAMES = 240  # a minute of 0.25 s frames
 # the first design of both kernels (a thread a lane issuing its own copies; a block a batch row), this phase's CUDA
 # events on an NVIDIA H100 80GB HBM3 at 700 W, printed beside the redesign's
 FIRST_DESIGN_MS = {"iir_scan": "0.3175-0.3272 ms at 96 Hilbert frames (0.317-0.329 at 1 frame)",
@@ -4859,8 +4923,6 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
     from haghighatshoarmuir2024_tpu_torch.models.xylo import XyloConfig, XyloSim
     from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import ORDERINGS, RESETS
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import iir_kernel, sim_kernel
-    from haghighatshoarmuir2024_tpu_torch.ops.envelope import Envelope
-    from haghighatshoarmuir2024_tpu_torch.utils import tracking
 
     t_phase = time.perf_counter()
     tag = f"[scan] [{card}]"
@@ -4980,26 +5042,288 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
           f"bound {bound_ms:.3f} ms ({bound_by}: {st['ops']:.4g} int32 operations, {st['bytes']:.4g} bytes)",
           flush=True)
 
-    # ---- the host loops left: one timed call each of the other counterparts of JAX's lax.scans
-    x1 = frames[0]  # (T, 7)
-    env = Envelope(1e-3, 1e-2, 48_000.0)
-    rng = np.random.default_rng(SEED)
-    z = torch.as_tensor(rng.uniform(-np.pi, np.pi, (TRACK_FRAMES, B)).astype(np.float32), device=dev)
-    zk = torch.as_tensor(rng.uniform(-np.pi, np.pi, (TRACK_FRAMES, B, 2)).astype(np.float32), device=dev)
-    loops = {f"Envelope.evolve ({T}, 7)": lambda: env.evolve(x1),
-             f"track_angles ({TRACK_FRAMES}, {B})": lambda: tracking.track_angles(z, device=dev),
-             f"track_multi_angles ({TRACK_FRAMES}, {B}, 2), 4 tracks":
-                 lambda: tracking.track_multi_angles(zk, torch.ones_like(zk, dtype=torch.bool), 4, device=dev)}
-    out["loops_s"] = {}
-    for label, fn in loops.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out["loops_s"][label] = time.perf_counter() - t0
-    print(f"{tag} the host loops left (one call each, host clock, synchronized): " + ", ".join(
-        f"{k} {1e3 * v:.1f} ms" for k, v in out["loops_s"].items()), flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------------------ phase 29
+# the follower's and the trackers' edges, each against its plain loop by torch.equal (NaN equal to NaN for the
+# follower): (label, T, lane shape, dtype, kind)
+ENV_EDGES = (
+    ("T = 1: (1, 7) float32", 1, (7,), "float32", ""),
+    ("T = 2: (2, 7) float32", 2, (7,), "float32", ""),
+    ("T = 2, a carried state: (2, 5) float64", 2, (5,), "float64", "carried"),
+    ("one lane: (3000,) float32", 3000, (), "float32", ""),
+    ("45 lanes, T no multiple of the read-ahead: (1001, 45) float32", 1001, (45,), "float32", ""),
+    ("(777, 3, 5) float64, a carried state", 777, (3, 5), "float64", "carried"),
+    ("lanes that only fall, only rise, hold NaN, inf or zeros: (700, 6) float32", 700, (6,), "float32", "shapes"),
+    ("lanes that only fall, only rise, hold NaN, inf or zeros: (700, 6) float64", 700, (6,), "float64", "shapes"),
+    ("(4000, 33) float32, the state carried over two halves", 4000, (33,), "float32", "halves"),
+)
+# (label, kind, keyword arguments)
+TRACK_EDGES = (
+    ("T = 1: (1, 96)", "T1", {}),
+    ("T = 2: (2, 96)", "T2", {}),
+    ("one lane: (240,)", "one", {}),
+    ("45 lanes, max_misses = 0: (240, 45)", "lanes45", dict(max_misses=0)),
+    ("the gate's boundary: |delta| at float32(25 deg) and its neighbours, both signs: (3, 6)", "gate", {}),
+    ("crossing ±pi and re-acquiring after max_misses = 2, alpha 0.5, gate 15 deg: (240, 96)", "inputs",
+     dict(alpha=0.5, gate_deg=15.0, max_misses=2)),
+)
+# (label, kind, tracks, keyword arguments)
+MULTI_EDGES = (
+    ("T = 1: (1, 96, 2), 4 tracks", "T1", 4, {}),
+    ("T = 2: (2, 96, 2), 4 tracks", "T2", 4, {}),
+    ("K > M: (240, 45, 5), 2 tracks", "K5", 2, {}),
+    ("M > K: (240, 45, 1), 6 tracks", "K1", 6, {}),
+    ("the caps: (60, 33, 16), 16 tracks", "K16", 16, {}),
+    ("one lane: (240, 2), 4 tracks", "one", 4, {}),
+    ("tied costs (measurements on a grid of 8, duplicated peaks and slots): (240, 96, 3), 4 tracks", "ties", 4, {}),
+    ("all-invalid frames, re-acquisition after max_misses = 1, confirm_hits = 3: (240, 64, 2), 3 tracks", "dead", 3,
+     dict(max_misses=1, confirm_hits=3)),
+    ("the gate's boundary: a tracking slot at float32(25 deg) and its neighbours, both signs: (3, 6, 1), 2 tracks",
+     "gate", 2, {}),
+)
+RECURRENCE_REPS = 20  # CUDA-event calls a kernel's time
+
+
+def envelope_edge(torch, dev, case, seed: int) -> dict:
+    """One of ``ENV_EDGES`` from ``seed``: ``Envelope.evolve`` (the kernel on
+    the card) against ``evolve_plain``, outputs and final state, and its
+    launches; for ``halves`` two calls with the state carried against one
+    pass over the signal without the second half's first sample (a chunk
+    with a carried state starts from it in place of its first sample)."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
+    from haghighatshoarmuir2024_tpu_torch.ops.envelope import Envelope
+
+    label, T, lanes, dtype, kind = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T,) + lanes)
+    if kind == "shapes":
+        x[100, 1], x[300, 1] = np.nan, 0.0
+        x[50, 2], x[51, 2] = np.inf, -np.inf
+        x[:, 3] = 0.0
+        x[:, 4] = 0.0
+        x[0, 4] = 5.0  # only falls
+        x[:, 5] = np.arange(T) * 1e-3  # only rises
+    x = torch.as_tensor(x.astype(dtype), device=dev)
+    state = torch.as_tensor(np.abs(rng.standard_normal(lanes)).astype(dtype), device=dev) if kind == "carried" \
+        else None
+    out = dict(skn.envelope_against_plain(x, state), label=label)
+    if kind == "halves":
+        env, h = Envelope(*skn.ENVELOPE_ARGS), T // 2
+        a, s = env.evolve(x[:h], return_state=True)
+        b, s2 = env.evolve(x[h:], s, return_state=True)
+        pa, ps = env.evolve_plain(x[:h], return_state=True)
+        pb, ps2 = env.evolve_plain(x[h:], ps, return_state=True)
+        one, s1 = env.evolve(torch.cat([x[:h], x[h + 1:]]), return_state=True)
+        out["halves_equal"] = bool(torch.equal(a, pa) and torch.equal(b, pb) and torch.equal(s2, ps2)
+                                   and torch.equal(torch.cat([a, b[1:]]), one) and torch.equal(s2, s1))
+    return out
+
+
+GATE_TURNS = 64  # gate + 2 pi k, |k| <= GATE_TURNS: where gate_measurements looks for float32(gate)
+
+
+def gate_measurements(torch, dev, gate_deg: float = 25.0):
+    """``(z, deltas, reached)``: float32 measurements whose wrap on the card
+    (from a prediction of exactly 0) is the nearest value below float32(gate),
+    float32(gate) itself where the card's ``atan2(sin, cos)`` reaches it
+    (``reached``; it lies above the double gate, so it is the only float32
+    between the two) and the nearest above, both signs, chosen among the 513
+    floats nearest each gate + 2 pi k, |k| <= ``GATE_TURNS`` (each turn
+    rounds the wrap otherwise)."""
+    from haghighatshoarmuir2024_tpu_torch.utils import tracking
+
+    g = np.float32(np.deg2rad(gate_deg))
+    z, deltas, reached = [], [], True
+    for sign in (1, -1):
+        cand = np.concatenate([(np.float32(sign * (float(g) + 2 * np.pi * k)).view(np.int32)
+                                + np.arange(-256, 257, dtype=np.int32)).view(np.float32)
+                               for k in sorted(range(-GATE_TURNS, GATE_TURNS + 1), key=abs)])
+        w = tracking._wrap(torch.as_tensor(cand, device=dev)).cpu().numpy()
+        w = np.where(np.sign(w) == sign, np.abs(w), np.inf)
+        at = np.flatnonzero(w == g)
+        below, above = np.flatnonzero(w < g), np.flatnonzero((w > g) & np.isfinite(w))
+        reached &= bool(at.size)
+        for i in [below[np.argmax(w[below])]] + list(at[:1]) + [above[np.argmin(w[above])]]:
+            z.append(cand[i])
+            deltas.append(sign * w[i])
+    return np.array(z, np.float32), np.array(deltas, np.float32), reached
+
+
+def track_edge(torch, dev, case, seed: int) -> dict:
+    """One of ``TRACK_EDGES``: ``track_angles`` (the kernel on the card)
+    against ``track_angles_plain`` by ``torch.equal``, and its launches; the
+    gate's case also says which lanes the plain loop took as inliers."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
+
+    label, kind, kw = case
+    z_all = skn.track_inputs(seed)[0]
+    z = {"T1": z_all[:1], "T2": z_all[:2], "one": z_all[:, 0], "lanes45": z_all[:, :45], "inputs": z_all}.get(kind)
+    if kind == "gate":
+        edge, deltas, reached = gate_measurements(torch, dev)
+        z = torch.as_tensor(np.stack([np.zeros_like(edge), np.zeros_like(edge), edge]))
+    out = dict(skn.track_against_plain(z.to(dev), **kw), label=label)
+    if kind == "gate":
+        from haghighatshoarmuir2024_tpu_torch.utils import tracking
+
+        theta = tracking.track_angles_plain(z.to(dev), device=dev)[-1].cpu().numpy()
+        out["inliers"] = {f"{float(d):.9g}": bool(t != 0) for d, t in zip(deltas, theta)}
+        out["gate_reached"] = reached
+    return out
+
+
+def multi_edge(torch, dev, case, seed: int) -> dict:
+    """One of ``MULTI_EDGES``: ``track_multi_angles`` (the kernel on the
+    card) against ``track_multi_angles_plain``, thetas and confirmed by
+    ``torch.equal``, and its launches."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
+
+    label, kind, M, kw = case
+    rng = np.random.default_rng(seed)
+    if kind in ("T1", "T2", "one", "dead"):
+        _, z, v = skn.track_inputs(seed)
+        z, v = {"T1": (z[:1], v[:1]), "T2": (z[:2], v[:2]), "one": (z[:, 0, :], v[:, 0, :]),
+                "dead": (z[:, :64], v[:, :64].clone())}[kind]
+        if kind == "dead":
+            v[40:45] = False
+            v[100:102] = False
+            v[150:160, ::2] = False
+    elif kind in ("K5", "K1", "K16"):
+        K, L, T = {"K5": (5, 45, 240), "K1": (1, 45, 240), "K16": (16, 33, 60)}[kind]
+        _, z, v = skn.track_inputs(seed, T=T, B=L, K=K)
+    elif kind == "ties":
+        grid = np.linspace(-np.pi, np.pi, 8, endpoint=False).astype(np.float32)
+        z = grid[rng.integers(0, 8, (240, 96, 3))]
+        z[::3, :, 1] = z[::3, :, 0]  # duplicated peaks: equal costs to every slot, and equal slots spawned
+        z, v = torch.as_tensor(z), torch.as_tensor(rng.random((240, 96, 3)) < 0.85)
+    else:  # the gate's boundary: spawn at 0, bootstrap at 0, then a measurement at each distance
+        edge = gate_measurements(torch, dev)[0]
+        z = torch.as_tensor(np.stack([np.zeros_like(edge), np.zeros_like(edge), edge])[..., None])
+        v = torch.ones_like(z, dtype=torch.bool)
+    return dict(skn.multi_against_plain(z.to(dev), v.to(dev), M, **kw), label=label)
+
+
+def check_recurrences(torch, _build, roofline, dev, card, frames) -> dict:
+    """Phase 29: the envelope follower and the two trackers (module
+    docstring)."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import envelope_kernel, track_kernel
+    from haghighatshoarmuir2024_tpu_torch.ops.envelope import Envelope
+    from haghighatshoarmuir2024_tpu_torch.utils import tracking
+
+    t_phase = time.perf_counter()
+    tag = f"[recurrences] [{card}]"
+    out = {"envelope": {}, "track_angles": {}, "track_multi": {}, "launches": {}, "s": {}, "kernels": {}}
+    try:  # the wrappers' mirrors of the kernels' constants held to the library's
+        envelope_kernel.checked_library()
+        track_kernel.checked_library()
+    except RuntimeError as e:
+        fail(str(e))
+    print(f"{tag} the wrappers' constants equal the library's: envelope (THREADS, AHEAD) = "
+          f"{_build.library_constants('hm_envelope_constants', 2)}, tracking (THREADS, M_MAX, K_MAX) = "
+          f"{_build.library_constants('hm_track_constants', 3)}", flush=True)
+    B, T = frames.shape[:2]
+    env = Envelope(*skn.ENVELOPE_ARGS)
+    z, zk, valid = (t.to(dev) for t in skn.track_inputs())
+    frame_np = frames[0].cpu().numpy()
+
+    # ---- the slice's paths through their entry points, each with the counts set to 0 just before it
+    paths = (
+        (f"Envelope.evolve ({T}, 7)", "envelope", lambda: env.evolve(frames[0])),
+        (f"Envelope.evolve of a numpy ({T}, 7) frame, no device", "envelope", lambda: env.evolve(frame_np)),
+        (f"track_angles {tuple(z.shape)}", "track_angles", lambda: tracking.track_angles(z)),
+        (f"track_multi_angles {tuple(zk.shape)}, {skn.MULTI_M} tracks", "track_multi",
+         lambda: tracking.track_multi_angles(zk, valid, skn.MULTI_M)),
+    )
+    for label, kernel, fn in paths:
+        res, launches = counted(torch, _build, label, (kernel,), fn, out["s"])
+        first = res[0] if isinstance(res, tuple) else res
+        if launches != {kernel: 1} or first.device.type != "cuda":
+            fail(f"{label}: launches {launches} on {first.device} (want one {kernel} launch on the card)")
+        out["launches"][label] = launches
+    print(f"{tag} the paths through their entry points: " + "; ".join(
+        f"{k} launches {v} in {out['s'][k]:.4f} s" for k, v in out["launches"].items()), flush=True)
+
+    # ---- each kernel against its plain loop at the slice's shapes, timed (the plain loop once)
+    for name, x in skn.envelope_inputs(frames).items():
+        r = skn.envelope_against_plain(x, reps=RECURRENCE_REPS)
+        if not (r["equal"] and r["launches"] == 1):
+            fail(f"envelope {name}: the kernel differs from the plain loop ({r})")
+        out["envelope"][name] = r
+        print(f"{tag} envelope {name}: outputs and final state == the plain loop (torch.equal); "
+              f"{r['ms']:.4f} ms (CUDA events, {RECURRENCE_REPS} calls) against the plain loop's "
+              f"{r['plain_ms']:.1f} ms", flush=True)
+    r = skn.track_against_plain(z, reps=RECURRENCE_REPS)
+    if not (r["equal"] and r["launches"] == 1):
+        fail(f"track_angles {tuple(z.shape)}: the kernel differs from the plain loop ({r})")
+    out["track_angles"]["main"] = r
+    r = skn.multi_against_plain(zk, valid, skn.MULTI_M, reps=RECURRENCE_REPS)
+    if not (r["equal"] and r["launches"] == 1):
+        fail(f"track_multi_angles {tuple(zk.shape)}: the kernel differs from the plain loop ({r})")
+    out["track_multi"]["main"] = r
+    for name in ("track_angles", "track_multi"):
+        r = out[name]["main"]
+        print(f"{tag} {name} {r['shape']}: outputs == the plain loop (torch.equal"
+              + (f"; {r['confirmed']} confirmed slot-frames" if "confirmed" in r else "")
+              + f"); {r['ms']:.4f} ms (CUDA events, {RECURRENCE_REPS} calls) against the plain loop's "
+              f"{r['plain_ms']:.1f} ms", flush=True)
+
+    # ---- the edges
+    for i, case in enumerate(ENV_EDGES):
+        r = envelope_edge(torch, dev, case, SEED + i)
+        if not (r["equal"] and r["launches"] == 1 and r.get("halves_equal", True)):
+            fail(f"envelope {case[0]}: the kernel differs from the plain loop ({r})")
+        out["envelope"][case[0]] = r
+    for i, case in enumerate(TRACK_EDGES):
+        r = track_edge(torch, dev, case, SEED + i)
+        if not (r["equal"] and r["launches"] == 1):
+            fail(f"track_angles {case[0]}: the kernel differs from the plain loop ({r})")
+        out["track_angles"][case[0]] = r
+        if "inliers" in r:
+            g = float(np.deg2rad(25.0))
+            g32 = torch.tensor([np.float32(g)], device=dev)
+            g64 = torch.tensor(g, dtype=torch.float64, device=dev)
+            out["gate_compare"] = dict(float32=bool((g32 <= g).item()), float64=bool((g32.double() <= g64).item()))
+            print(f"{tag} track_angles at the gate: PyTorch on the card takes float32(25 deg) = "
+                  f"{float(g32.item()):.9g} <= the Python float 25 deg (a double, {g:.17g}) as "
+                  f"{out['gate_compare']['float32']} (in float64: {out['gate_compare']['float64']}), so the "
+                  f"kernel compares with float32(gate); the card's wrap reaches float32(gate) itself: "
+                  f"{r['gate_reached']} (gate + 2 pi k, |k| <= {GATE_TURNS}); the plain loop's inliers by |delta| "
+                  f"{r['inliers']}; the kernel's angles == the plain loop's", flush=True)
+    for i, case in enumerate(MULTI_EDGES):
+        r = multi_edge(torch, dev, case, SEED + i)
+        if not (r["equal"] and r["launches"] == 1):
+            fail(f"track_multi_angles {case[0]}: the kernel differs from the plain loop ({r})")
+        out["track_multi"][case[0]] = r
+    print(f"{tag} at the edges ({len(ENV_EDGES)} envelope, {len(TRACK_EDGES)} track_angles, {len(MULTI_EDGES)} "
+          f"track_multi_angles: T = 1 and 2, one lane, lanes no multiple of 32, float64, lanes that only fall or "
+          f"rise, NaN and inf, carried states and two halves = one pass, the gate's boundary, ±pi, re-acquisition, "
+          f"all-invalid frames, K > M, M > K, M = K = 16, tied costs): every output == the plain loop "
+          f"(torch.equal), one launch each", flush=True)
+
+    # ---- each launch alone from CUPTI's records, beside its chain floor and bytes bound
+    clock = skn.sm_clock_mhz()
+    split = skn.recurrence_split(frames, RECURRENCE_REPS, clock)
+    out["split"] = split
+    for label, r in split.items():
+        print(f"{tag} {label}: {r['mean_ms']:.4f} ms a launch (CUPTI, {RECURRENCE_REPS} calls), chain floor "
+              f"{r['chain_floor_ms']:.4f} ms ({r['chain_cycles']} cycles a step at {clock:.0f} MHz; "
+              f"{100 * r['chain_share']:.1f} % of the launch), bytes bound {r['bytes_bound_ms']:.5f} ms "
+              f"({r['bytes']:.4g} bytes)", flush=True)
+    env_main = out["envelope"][f"one frame ({T}, 7) float32"]
+    cases = {"envelope": (env_main, f"envelope one frame ({T}, 7) float32"),
+             "track_angles": (out["track_angles"]["main"], f"track_angles {tuple(z.shape)}"),
+             "track_multi": (out["track_multi"]["main"],
+                             f"track_multi ({z.shape[0]}, {z.shape[1]}, {skn.MULTI_K}), {skn.MULTI_M} tracks")}
+    for name, (r, split_label) in cases.items():
+        bound_ms, bound_by = roofline.bound(r["ops"], roofline.FP32_FLOP_PER_S, r["bytes"])
+        sp = split[split_label]
+        out["kernels"][name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                                    ops=r["ops"], bytes=r["bytes"], chain_ms=sp["chain_floor_ms"], clock_mhz=clock,
+                                    device_ms=sp["mean_ms"],
+                                    max_abs_err=max(v["max_abs_err"] for v in out[name].values()))
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -5211,6 +5535,9 @@ def main() -> int:
     # ---- phase 28: the two scan kernels against their plain loops, their paths, times and bounds
     scx = check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy)
     lap(start, "the scan kernels")
+    # ---- phase 29: the envelope follower and the two trackers against their plain loops, their paths and times
+    rcx = check_recurrences(torch, _build, roofline, dev, card, frames)
+    lap(start, "the envelope follower and the trackers")
     tag = f"[times] [{card}]"  # every time line names the card and its power limit
     for name, ms in stage_ms.items():
         print(f"{tag} stage {name}: {ms:.3f} ms")
@@ -5404,11 +5731,42 @@ def main() -> int:
                         "bound_by": res["bound_by"], "library_ms": None, "device_ms": res["device_ms"],
                         **({"chain_ms": res["chain_ms"]} if "chain_ms" in res else {}),
                         "harness_launches": {k: v for k, v in harness.items() if v}})
+    # the follower and the trackers (phase 29): the JAX package runs each as one lax.scan; launches from their
+    # entry points' runs, and from phase 22's harnesses (the trackers)
+    rec_paths = {name: next(k for k, v in rcx["launches"].items() if name in v)
+                 for name in ("envelope", "track_angles", "track_multi")}
+    for name, src, repl in (
+        ("envelope", "haghighatshoarmuir2024_tpu_torch/csrc/envelope.cu",
+         "haghighatshoarmuir2024_tpu/ops/envelope.py:45"),
+        ("track_angles", "haghighatshoarmuir2024_tpu_torch/csrc/tracking.cu",
+         "haghighatshoarmuir2024_tpu/utils/tracking.py:155"),
+        ("track_multi", "haghighatshoarmuir2024_tpu_torch/csrc/tracking.cu",
+         "haghighatshoarmuir2024_tpu/utils/tracking.py:400"),
+    ):
+        res = rcx["kernels"][name]
+        dev_ms = res["device_ms"]
+        print(f"{tag} bound {name}: {res['ms']:.4f} ms (CUDA events around the wrapper; a launch alone {dev_ms:.4f}, "
+              f"CUPTI) against a bound of {res['bound_ms']:.5f} ms ({res['bound_by']}: {res['ops']:.4g} operations, "
+              f"{res['bytes']:.4g} bytes); the bound is {100 * res['bound_ms'] / dev_ms:.2f} % of the launch's time; "
+              f"the chain floor {res['chain_ms']:.4f} ms ({100 * res['chain_ms'] / dev_ms:.1f} %); the plain loop "
+              f"{res['plain_ms']:.1f} ms")
+        harness = {label: n.get(name, 0) for label, n in {"moving_target": hx["moving_launches"],
+                                                           "multi_target_tracking": hx["mtt_launches"],
+                                                           **fam["launches"], **bx["launches"], **spx["launches"],
+                                                           **dx["launches"], **shx["launches"]}.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl, "tpu_kernel": None,
+                        "launches": rcx["launches"][rec_paths[name]][name], "max_abs_err": res["max_abs_err"],
+                        "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                        "bound_by": res["bound_by"], "library_ms": None, "device_ms": dev_ms,
+                        "chain_ms": res["chain_ms"], "harness_launches": {k: v for k, v in harness.items() if v}})
     for label, r in scx["iir"].items():
         if "ms" in r:
             print(f"{tag} iir_scan {label} {r['shape']}: {r['ms']:.4f} ms, the plain loop {r['plain_ms']:.1f} ms")
-    print(f"{tag} the host loops left: " + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in scx["loops_s"].items())
-          + f"; phase 28 {scx['phase_s']:.1f} s")
+    for name in ("envelope", "track_angles", "track_multi"):
+        for label, r in rcx[name].items():
+            if "ms" in r:
+                print(f"{tag} {name} {label} {r['shape']}: {r['ms']:.4f} ms, the plain loop {r['plain_ms']:.1f} ms")
+    print(f"{tag} phase 28 {scx['phase_s']:.1f} s; phase 29 {rcx['phase_s']:.1f} s")
     for name in ("hilbert", "music", "srp"):
         f = fam[name]
         print(f"{tag} {name}: {f['frame_ms']:.3f} ms per frame in a batch of {B} ({f['batch_ms']:.1f} ms), one "

@@ -1,6 +1,8 @@
-"""The two scan kernels, ``iir_scan`` (``csrc/iir_scan.cu``, the per-sample
-IIR scan) and ``xylo_sim`` (``csrc/xylo_sim.cu``, the integer simulator's
-hidden-layer scan), against their plain loops on the card, timed, with
+"""The scan kernels, ``iir_scan`` (``csrc/iir_scan.cu``, the per-sample
+IIR scan), ``xylo_sim`` (``csrc/xylo_sim.cu``, the integer simulator's
+hidden-layer scan), ``envelope`` (``csrc/envelope.cu``, the envelope
+follower) and ``track_angles`` / ``track_multi`` (``csrc/tracking.cu``, the
+two DoA trackers), against their plain loops on the card, timed, with
 their bounds:
 
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels [--reps 20]
@@ -31,6 +33,18 @@ each launch's device ms, for the scan its cycles a step at the SM clock
 second against 3.35 TB/s, beside the card's name and power limit; and the
 scan's cycles a step by its order (:func:`iir_by_order`) and PyTorch's
 write and read streams on the simulator's bytes (:func:`memory_yardsticks`).
+The follower and the trackers (:func:`envelope_inputs`,
+:func:`track_inputs`) run at ``Envelope(1e-3, 1e-2, 48 000)`` on one
+flagship frame (12 000, 7) and on 96 frames' microphones as lanes (12 000,
+672), float32, and one frame in float64; ``track_angles`` at (240, 96), a
+minute of 0.25 s frames for 96 streams, and ``track_multi_angles`` at (240,
+96, 2) with 4 tracks, from seeds; ``check`` holds each against its plain
+loop by ``torch.equal`` (:func:`envelope_against_plain`,
+:func:`track_against_plain`, :func:`multi_against_plain`), and ``split``
+(``--only envelope track_angles track_multi``: those alone) gives each
+launch's device ms from CUPTI beside its chain floor
+(:func:`envelope_chain_ms`, :func:`track_chain_ms`, :func:`multi_chain_ms`)
+and its bytes.
 ``sass`` compiles this tree's ``csrc/xylo_sim.cu`` and another's
 (``--against``) with the library's nvcc flags and compares the recurrent
 row kernel's instantiations (``xylo_sim_kernel<NPT, REC>``) instruction by
@@ -56,6 +70,7 @@ SEED = 0
 STREAM_TC = 2999  # a chunk no lifted block size divides: the streaming encode's scan fallback
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate
 FP32_LATENCY_CYCLES = 4  # a dependent FP32 add or multiply on sm_90 (issue to issue)
+FP64_LATENCY_CYCLES = 8  # a dependent FP64 add or multiply on sm_90, as this module counts it
 CHAIN_OPS = 4  # the scan's dependent chain a step: b0 x + s_1, a_1 y, the difference, + s_2
 
 
@@ -385,6 +400,239 @@ def flagship_rasters(dev: torch.device, batch: int = 96):
     return demo, spk, block
 
 
+# ------------------------------------------------------------------ the follower and the trackers
+ENVELOPE_ARGS = (1e-3, 1e-2, 48_000.0)  # Envelope(rise, fall, fs) of the follower's cases
+TRACK_T, TRACK_B, MULTI_K, MULTI_M = 240, 96, 2, 4  # a minute of 0.25 s frames for 96 streams; 2 peaks, 4 tracks
+ENV_CHAIN_OPS = 3  # the follower's chain a step: c·s, the sum, the select (the compare runs beside the product)
+ENV_OPS_PER_STEP = 6  # |x|, the compare, c·s, (1/w)·x, ·rise, the sum
+# one wrap, atan2f(sinf(x), cosf(x)), on its dependent path: sinf's reduction and polynomial (about 14
+# operations; cosf's beside it) and atan2f's quotient, polynomial and quadrant fix-ups (about 20), estimated
+# from CUDA's accurate paths for |x| below 10^5, not read from the SASS
+WRAP_OPS = 34
+TRACK_CHAIN_OPS = 3 * WRAP_OPS + 4  # a tracking step: θ+ω, wrap, z-pred, wrap, α·δ, the sum, wrap, the select
+RECURRENCE_CASES = ("envelope", "track_angles", "track_multi")
+
+
+def envelope_inputs(frames: torch.Tensor) -> dict:
+    """``{name: x (T, L)}`` of the follower's cases from (B, T, 7) frames on
+    their device: one frame, the B frames' microphones as lanes, and one
+    frame in float64."""
+    B, T, M = frames.shape
+    return {f"one frame ({T}, {M}) float32": frames[0].contiguous(),
+            f"{B} frames' microphones ({T}, {B * M}) float32": frames.movedim(0, 1).reshape(T, B * M).contiguous(),
+            f"one frame ({T}, {M}) float64": frames[0].double()}
+
+
+def track_inputs(seed: int = SEED, T: int = TRACK_T, B: int = TRACK_B, K: int = MULTI_K):
+    """``(z (T, B), zk (T, B, K), valid (T, B, K))`` on the CPU from ``seed``:
+    bearings of targets that move at random rates (some across ±pi) with
+    measurement noise, outliers and runs of outliers long enough to force
+    re-acquisition, and for the multi-target tracker K peaks a frame of two
+    such targets or clutter, a fifth of them invalid, and all-invalid
+    frames."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None]
+    z = rng.uniform(-np.pi, np.pi, B) + rng.uniform(-0.08, 0.08, B) * t + rng.normal(0, 0.02, (T, B))
+    out = rng.random((T, B)) < 0.1
+    z[out] = rng.uniform(-np.pi, np.pi, out.sum())
+    for b in range(0, B, 7):  # a run of outliers in every seventh lane
+        t0 = rng.integers(20, T - 10)
+        z[t0:t0 + 6, b] += rng.uniform(1.0, 2.0)
+    z2 = rng.uniform(-np.pi, np.pi, (1, B, 2)) + rng.uniform(-0.05, 0.05, (1, B, 2)) * t[..., None] \
+        + rng.normal(0, 0.02, (T, B, 2))
+    zk = np.concatenate([z2, rng.uniform(-np.pi, np.pi, (T, B, max(K - 2, 0)))], axis=-1)[..., :K]
+    clutter = rng.random((T, B, K)) < 0.1
+    zk[clutter] = rng.uniform(-np.pi, np.pi, clutter.sum())
+    valid = rng.random((T, B, K)) >= 0.2
+    valid[T // 3:T // 3 + 3] = False
+    perm = np.argsort(rng.random((T, B, K)), axis=-1)
+    wrap = lambda a: np.angle(np.exp(1j * a)).astype(np.float32)  # noqa: E731
+    return (torch.as_tensor(wrap(z)), torch.as_tensor(wrap(np.take_along_axis(zk, perm, axis=-1))),
+            torch.as_tensor(np.take_along_axis(valid, perm, axis=-1)))
+
+
+def envelope_work(T: int, L: int, itemsize: int) -> tuple[float, float]:
+    """(operations, bytes) of one follower call on (T, L) lanes: the
+    signal read and the envelope written once, the state in and out."""
+    return float(ENV_OPS_PER_STEP * T * L), float(itemsize * (2 * T * L + 2 * L))
+
+
+def track_work(T: int, L: int) -> tuple[float, float]:
+    """(float32 operations, bytes) of one ``track_angles`` call: three wraps
+    (``WRAP_OPS`` each) and six more a lane and frame; the angles read and
+    the filtered angles written once."""
+    return float(TRACK_CHAIN_OPS + 2) * T * L, 8.0 * T * L
+
+
+def multi_work(T: int, L: int, M: int, K: int) -> tuple[float, float]:
+    """(float32 operations, bytes) of one ``track_multi_angles`` call: a
+    wrap a slot (the prediction), a wrap a slot and measurement (the cost),
+    a wrap a slot (the update) and the assignment's min(M, K) scans of M·K
+    costs; z (float32) and valid (bool) read, thetas (float32) and
+    confirmed (bool) written once."""
+    ops = (2 * M + M * K) * WRAP_OPS + min(M, K) * 2 * M * K + 8 * M
+    return float(ops * T * L), float(T * L * (5 * K + 5 * M))
+
+
+def envelope_chain_ms(T: int, clock_mhz: float, latency: int = FP32_LATENCY_CYCLES) -> float:
+    """T - 1 steps of the follower's chain (``ENV_CHAIN_OPS`` operations of
+    ``latency`` cycles) at the SM clock."""
+    return (T - 1) * ENV_CHAIN_OPS * latency / (clock_mhz * 1e3)
+
+
+def track_chain_ms(T: int, clock_mhz: float) -> float:
+    """T frames of a tracking lane's chain (``TRACK_CHAIN_OPS``) at the SM
+    clock."""
+    return T * TRACK_CHAIN_OPS * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+
+
+def multi_chain_ops(M: int, K: int) -> int:
+    """A multi-target frame's dependent operations: the prediction (a sum and
+    a wrap), a cost (a difference, a wrap, |.|, the gate's compare and the
+    select), min(M, K) rounds of a scan of M·K compares and selects and the
+    closing of a row and a column, the update (α·δ, the sum, a wrap) and the
+    spawn's selects."""
+    return (1 + WRAP_OPS) + (WRAP_OPS + 4) + min(M, K) * (2 * M * K + 2) + (2 + WRAP_OPS) + 4
+
+
+def multi_chain_ms(T: int, M: int, K: int, clock_mhz: float) -> float:
+    return T * multi_chain_ops(M, K) * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal`` with NaN taken equal to NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def once_ms(fn, timed: bool):
+    """``(fn(), its ms)``: with ``timed`` CUDA events around the one call,
+    else ``None`` for the time (a plain loop is run once, for its outputs and
+    its time alike)."""
+    if not timed:
+        return fn(), None
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _counted(name: str, fn):
+    """``(fn(), launches of kernel name)`` with the counts set to 0 first."""
+    from ..ops.cuda import _build
+
+    _build.launch_counts.clear()
+    out = fn()
+    return out, _build.launch_counts.get(name, 0)
+
+
+def envelope_against_plain(x: torch.Tensor, state=None, reps: int = 0, env_args=ENVELOPE_ARGS) -> dict:
+    """``Envelope.evolve`` on a CUDA tensor (the kernel) against
+    ``evolve_plain`` on the same tensors: outputs and final state by
+    :func:`same_bits`, the kernel's launches, and with ``reps`` its
+    CUDA-event ms beside the plain loop's (one call)."""
+    from ..ops.envelope import Envelope
+
+    env = Envelope(*env_args)
+    (y, s), launches = _counted("envelope", lambda: env.evolve(x, state, return_state=True))
+    (py, ps), plain_ms = once_ms(lambda: env.evolve_plain(x, state, return_state=True), bool(reps))
+    _sync(x.device)
+    out = dict(shape=tuple(x.shape), dtype=str(x.dtype).replace("torch.", ""), launches=launches,
+               equal=same_bits(y, py) and same_bits(s, ps),
+               mismatches=int((~((y == py) | (y.isnan() & py.isnan()))).sum()),
+               max_abs_err=float((y - py).abs().nan_to_num(0.0).max()) if y.numel() else 0.0)
+    if reps:
+        ops, nbytes = envelope_work(x.shape[0], x[0].numel(), x.element_size())
+        out.update(ms=events_ms(lambda: env.evolve(x, state), reps), plain_ms=plain_ms, ops=ops, bytes=nbytes)
+    return out
+
+
+def track_against_plain(z: torch.Tensor, reps: int = 0, **kw) -> dict:
+    """``track_angles`` on a CUDA tensor (the kernel) against
+    ``track_angles_plain`` on the same tensor by ``torch.equal``, the
+    launches, and with ``reps`` the CUDA-event ms beside the plain loop's."""
+    from ..utils import tracking
+
+    got, launches = _counted("track_angles", lambda: tracking.track_angles(z, device=z.device, **kw))
+    want, plain_ms = once_ms(lambda: tracking.track_angles_plain(z, device=z.device, **kw), bool(reps))
+    _sync(z.device)
+    out = dict(shape=tuple(z.shape), launches=launches, equal=bool(torch.equal(got, want)),
+               mismatches=_mismatches(got, want),
+               max_abs_err=float((got - want).abs().max()) if got.numel() else 0.0)
+    if reps:
+        ops, nbytes = track_work(z.shape[0], z[0].numel())
+        out.update(ms=events_ms(lambda: tracking.track_angles(z, device=z.device, **kw), reps), plain_ms=plain_ms,
+                   ops=ops, bytes=nbytes)
+    return out
+
+
+def multi_against_plain(z: torch.Tensor, valid: torch.Tensor, num_tracks: int, reps: int = 0, **kw) -> dict:
+    """``track_multi_angles`` on CUDA tensors (the kernel) against
+    ``track_multi_angles_plain``: thetas and confirmed by ``torch.equal``,
+    the launches, the confirmed tracks of the last frame, and with ``reps``
+    the CUDA-event ms beside the plain loop's."""
+    from ..utils import tracking
+
+    def kernel():
+        return tracking.track_multi_angles(z, valid, num_tracks, device=z.device, **kw)
+
+    def plain():
+        return tracking.track_multi_angles_plain(z, valid, num_tracks, device=z.device, **kw)
+
+    (th, cf), launches = _counted("track_multi", kernel)
+    (pth, pcf), plain_ms = once_ms(plain, bool(reps))
+    _sync(z.device)
+    out = dict(shape=tuple(z.shape), M=num_tracks, launches=launches,
+               equal=bool(torch.equal(th, pth) and torch.equal(cf, pcf)), theta_mismatches=_mismatches(th, pth),
+               confirmed_mismatches=_mismatches(cf, pcf), confirmed=int(pcf.sum()),
+               max_abs_err=float((th - pth).abs().max()) if th.numel() else 0.0)
+    if reps:
+        ops, nbytes = multi_work(z.shape[0], z[0, ..., 0].numel(), num_tracks, z.shape[-1])
+        out.update(ms=events_ms(kernel, reps), plain_ms=plain_ms, ops=ops, bytes=nbytes)
+    return out
+
+
+def recurrence_split(frames: torch.Tensor, reps: int, clock_mhz: float, only=None) -> dict:
+    """The follower's and the trackers' launches at their cases, traced
+    (:func:`kernel_split`), each beside its chain floor, bytes and bytes
+    bound; ``only``: of ``RECURRENCE_CASES``."""
+    from ..ops.envelope import Envelope
+    from ..utils import tracking
+
+    dev = frames.device
+    out = {}
+    if only is None or "envelope" in only:
+        env = Envelope(*ENVELOPE_ARGS)
+        for name, x in envelope_inputs(frames).items():
+            r = kernel_split(lambda: env.evolve(x), reps, "envelope_kernel")
+            T, L = x.shape
+            latency = FP64_LATENCY_CYCLES if x.dtype == torch.float64 else FP32_LATENCY_CYCLES
+            r.update(shape=(T, L), chain_floor_ms=envelope_chain_ms(T, clock_mhz, latency),
+                     bytes=envelope_work(T, L, x.element_size())[1], cycles_a_step=r["mean_ms"] * 1e3 * clock_mhz / T,
+                     chain_cycles=ENV_CHAIN_OPS * latency)
+            out[f"envelope {name}"] = r
+    z, zk, valid = (t.to(dev) for t in track_inputs())
+    T, B = z.shape
+    if only is None or "track_angles" in only:
+        r = kernel_split(lambda: tracking.track_angles(z, device=dev), reps, "track_angles_kernel")
+        r.update(shape=(T, B), chain_floor_ms=track_chain_ms(T, clock_mhz), bytes=track_work(T, B)[1],
+                 cycles_a_frame=r["mean_ms"] * 1e3 * clock_mhz / T, chain_cycles=TRACK_CHAIN_OPS * FP32_LATENCY_CYCLES)
+        out[f"track_angles ({T}, {B})"] = r
+    if only is None or "track_multi" in only:
+        r = kernel_split(lambda: tracking.track_multi_angles(zk, valid, MULTI_M, device=dev), reps,
+                         "track_multi_kernel")
+        r.update(shape=(T, B, MULTI_K), M=MULTI_M, chain_floor_ms=multi_chain_ms(T, MULTI_M, MULTI_K, clock_mhz),
+                 bytes=multi_work(T, B, MULTI_M, MULTI_K)[1], cycles_a_frame=r["mean_ms"] * 1e3 * clock_mhz / T,
+                 chain_cycles=multi_chain_ops(MULTI_M, MULTI_K) * FP32_LATENCY_CYCLES)
+        out[f"track_multi ({T}, {B}, {MULTI_K}), {MULTI_M} tracks"] = r
+    for r in out.values():
+        r["bytes_bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        r["chain_share"] = r["chain_floor_ms"] / r["mean_ms"]
+    return out
+
+
 SIM_CASES = ("flagship, 3 records", "flagship, spikes only", "flagship, counts only", "uniform w_rec = -1, 3 records",
              "dense push-to-hidden block, 3 records", "one row, 3 records")
 
@@ -404,8 +652,17 @@ def split(reps: int = 20, only=None, pad_mib: int = 0) -> dict:
     if only is None:
         for name, (b, a, x, axis, zi) in iir_inputs().items():
             out["iir_scan"][name] = iir_split(b, a, x.to(dev), axis, zi, reps, clock)
-    elif set(only) - set(SIM_CASES):
-        raise ValueError(f"unknown cases {sorted(set(only) - set(SIM_CASES))}: the cases are {SIM_CASES}")
+    elif set(only) - set(SIM_CASES) - set(RECURRENCE_CASES):
+        raise ValueError(f"unknown cases {sorted(set(only) - set(SIM_CASES) - set(RECURRENCE_CASES))}: the cases "
+                         f"are {SIM_CASES + RECURRENCE_CASES}")
+    if only is None or set(only) & set(RECURRENCE_CASES):
+        from ..models.xylo import Demo
+        from ..models.xylo.flagship import flagship_config, flagship_frames
+
+        frames, _ = flagship_frames(Demo(**flagship_config(dev)), TRACK_B, seed=SEED)
+        out["recurrences"] = recurrence_split(frames, reps, clock, None if only is None else set(only))
+        if only is not None and not set(only) & set(SIM_CASES):
+            return out
     demo, spk, block = flagship_rasters(dev)
     uniform = dataclasses.replace(demo.xylo_config, w_rec=np.full_like(np.asarray(demo.xylo_config.w_rec), -1))
     sim_reps = max(2, reps // 4)
@@ -469,7 +726,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", nargs="?", default="check", choices=("check", "split", "sass"))
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", nargs="+", choices=SIM_CASES, help="split: these simulator cases alone")
+    ap.add_argument("--only", nargs="+", choices=SIM_CASES + RECURRENCE_CASES, help="split: these cases alone")
     ap.add_argument("--pad-mib", type=int, default=0, help="split: MiB allocated on the card first")
     ap.add_argument("--against", help="sass: the other tree's csrc/xylo_sim.cu")
     args = ap.parse_args(argv)
@@ -493,6 +750,13 @@ def main(argv=None) -> dict:
             for r in RESETS:
                 out["xylo_sim"][f"{o}/{r}, {label}"] = sim_against_plain(cfg, spk, o, r)
     out["xylo_sim times"] = sim_times(demo.xylo_config, spk, max(1, args.reps // 4))
+    from ..models.xylo.flagship import flagship_frames
+
+    frames, _ = flagship_frames(demo, TRACK_B, seed=SEED)
+    out["envelope"] = {name: envelope_against_plain(x, reps=args.reps) for name, x in envelope_inputs(frames).items()}
+    z, zk, valid = (t.to(dev) for t in track_inputs())
+    out["track_angles"] = track_against_plain(z, reps=args.reps)
+    out["track_multi"] = multi_against_plain(zk, valid, MULTI_M, reps=args.reps)
     print(json.dumps(out, default=str))
     return out
 

@@ -23,6 +23,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def as_device_tensor(x, device=None) -> torch.Tensor:
+    """``x`` as it is if it is a tensor (it stays on its device), else as a
+    tensor on :func:`resolve_device` of ``device``: the card unless the
+    caller asks for ``"cpu"``."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, device=resolve_device(device))
+
+
 class ArrayGeometry:
     """Maps element polar coordinates to per-DoA propagation delays
     (micloc/array_geometry.py:17-61)."""

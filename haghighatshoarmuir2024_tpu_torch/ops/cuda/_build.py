@@ -43,6 +43,8 @@ launch_counts: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "hm_rzcc_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "hm_rzcc_rows_per_block": ([], _I),
@@ -71,6 +73,11 @@ _SIGNATURES = {
     "hm_iir_scan": ([_P] * 5 + [_I, _L, _I, _I, _I] + [_L] * 6 + [_I, _I, _P], _I),
     "hm_xylo_sim_constants": ([_P], None),
     "hm_xylo_sim": ([_P] * 15 + [_I] * 10 + [_P], _I),
+    "hm_envelope_constants": ([_P], None),
+    "hm_envelope": ([_P] * 4 + [_D, _D, _L, _I, _I, _P], _I),
+    "hm_track_constants": ([_P], None),
+    "hm_track_angles": ([_P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
+    "hm_track_multi": ([_P] * 4 + [_I] * 6 + [_F] * 4 + [_P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -6,12 +6,14 @@ time (dim 0; :func:`rzcc_encode` and the RZCC encoder take any leading
 batch dims, time second to last), vectorized over channels.  The RZCC
 encoder is the one of the SNN beamformer's design and of every SNN
 pipeline; the integrate-and-fire and peak encoders are the reference's
-alternatives.
+alternatives, and put a signal that is not a tensor on ``device``, the card
+unless the caller passes ``device="cpu"`` (a tensor stays on its device).
 """
 from __future__ import annotations
 
 import torch
 
+from ..geometry import as_device_tensor
 from .peaks import find_peaks_mask
 
 
@@ -43,8 +45,8 @@ class IAFSpikeEncoder(SpikeEncoder):
         self.target_spike_rate = target_spike_rate
         self.fs = fs
 
-    def evolve(self, sig_in) -> torch.Tensor:
-        return _iaf(torch.as_tensor(sig_in), self.target_spike_rate, self.fs)
+    def evolve(self, sig_in, device=None) -> torch.Tensor:
+        return _iaf(as_device_tensor(sig_in, device), self.target_spike_rate, self.fs)
 
 
 class IAFZeroCrossingSpikeEncoder(SpikeEncoder):
@@ -54,8 +56,8 @@ class IAFZeroCrossingSpikeEncoder(SpikeEncoder):
         self.target_spike_rate = target_spike_rate
         self.fs = fs
 
-    def evolve(self, sig_in) -> torch.Tensor:
-        return _iaf(torch.cumsum(torch.as_tensor(sig_in), dim=0), self.target_spike_rate, self.fs)
+    def evolve(self, sig_in, device=None) -> torch.Tensor:
+        return _iaf(torch.cumsum(as_device_tensor(sig_in, device), dim=0), self.target_spike_rate, self.fs)
 
 
 def rzcc_encode(sig_in: torch.Tensor, robust_width: int, bipolar: bool = False) -> torch.Tensor:
@@ -96,6 +98,6 @@ class PeakSpikeEncoder(SpikeEncoder):
     def __init__(self, fs: float):
         self.fs = fs
 
-    def evolve(self, sig_in, robust_width: int = 1) -> torch.Tensor:
-        x = torch.as_tensor(sig_in)
+    def evolve(self, sig_in, robust_width: int = 1, device=None) -> torch.Tensor:
+        x = as_device_tensor(sig_in, device)
         return find_peaks_mask(x.transpose(-1, -2), robust_width).transpose(-1, -2).to(x.dtype)

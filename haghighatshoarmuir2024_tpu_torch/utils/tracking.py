@@ -11,7 +11,10 @@ the circle, and the port keeps them in two forms:
   association into M track slots), pure selects over any leading batch
   dims, float32 and int32 state; the scans and the initial states run on
   ``device``, the card unless the caller passes ``device="cpu"``, and a
-  step runs on its state's device;
+  step runs on its state's device.  On the CPU a scan is a loop of steps
+  (:func:`track_angles_plain`, :func:`track_multi_angles_plain`); on the
+  card it is one launch of a hand kernel (``csrc/tracking.cu``) that
+  equals that loop bit for bit;
 * :class:`DoaTracker` and :class:`MultiDoaTracker`, the host-side numpy
   trackers of the CLI and the server, copies of the JAX package's (its
   module imports JAX).
@@ -98,7 +101,21 @@ def track_step(state: TrackState, z, alpha: float = 0.35, beta: Optional[float] 
 def track_angles(angles, alpha: float = 0.35, beta: Optional[float] = None, gate_deg: float = 25.0,
                  max_misses: int = 3, device=None) -> torch.Tensor:
     """Filtered angles of a (T,) or (T, B) sequence of per-frame DoAs, on
-    ``device`` (JAX ``tracking.py:150-181``)."""
+    ``device`` (JAX ``tracking.py:150-181``).  On the CPU this is
+    :func:`track_angles_plain`; on the card the hand kernel
+    ``csrc/tracking.cu`` (``ops/cuda/track_kernel.track_angles``: one launch
+    for all T frames, the same angles bit for bit)."""
+    from ..ops.cuda import track_kernel
+
+    angles = torch.as_tensor(angles, dtype=torch.float32, device=resolve_device(device))
+    return track_kernel.track_angles(angles, alpha=alpha, beta=beta, gate_deg=gate_deg, max_misses=max_misses)
+
+
+def track_angles_plain(angles, alpha: float = 0.35, beta: Optional[float] = None, gate_deg: float = 25.0,
+                       max_misses: int = 3, device=None) -> torch.Tensor:
+    """:func:`track_angles` as a loop of :func:`track_step` over the frames:
+    the CPU's route, and the plain version the kernel is held to on the
+    card."""
     angles = torch.as_tensor(angles, dtype=torch.float32, device=resolve_device(device))
     gate = float(np.deg2rad(gate_deg))
     state = track_init(angles.shape[1:], angles.device)
@@ -178,6 +195,30 @@ def multi_track_init(num_tracks: int, batch_shape=(), device=None) -> MultiTrack
     return MultiTrackState(theta=z, omega=z, misses=zi, initialized=zi, hits=zi)
 
 
+def greedy_assignment(cost: torch.Tensor):
+    """The greedy global-minimum assignment of a (..., M, K) cost, unrolled
+    min(M, K) rounds of masked selects: each round takes the first minimum in
+    row-major order (as ``jnp.argmin``) and, where it is finite, assigns its
+    column to its row and closes both.  Returns ``(assign (..., M) int64, -1
+    where unassigned, taken (..., K) bool)``."""
+    M, K = cost.shape[-2:]
+    dev = cost.device
+    arange_m = torch.arange(M, device=dev)
+    arange_k = torch.arange(K, device=dev)
+    assign = torch.full(cost.shape[:-1], -1, dtype=torch.int64, device=dev)
+    taken = torch.zeros(cost.shape[:-2] + (K,), dtype=torch.bool, device=dev)
+    for _ in range(min(M, K)):
+        flat = torch.argmin(cost.flatten(-2), dim=-1)  # first minimum, row-major, as jnp.argmin
+        m, k = flat // K, flat % K
+        ok = torch.isfinite(torch.gather(cost.flatten(-2), -1, flat[..., None])[..., 0])
+        row = arange_m == m[..., None]
+        col = arange_k == k[..., None]
+        assign = torch.where(ok[..., None] & row, k[..., None], assign)
+        taken = taken | (ok[..., None] & col)
+        cost = torch.where(ok[..., None, None] & (row[..., :, None] | col[..., None, :]), float("inf"), cost)
+    return assign, taken
+
+
 def multi_track_step(state: MultiTrackState, z, valid, alpha: float = 0.35, beta: Optional[float] = None,
                      gate_rad: float = float(np.deg2rad(25.0)), max_misses: int = 3, confirm_hits: int = 2):
     """One gated-GNN predict/assign/update of M slots against K measurements
@@ -202,21 +243,9 @@ def multi_track_step(state: MultiTrackState, z, valid, alpha: float = 0.35, beta
     slot_gate = torch.where(tracking, gate_rad, float(np.pi))[..., None]
     feasible = (tracking | booting)[..., :, None] & valid[..., None, :] & (dist <= slot_gate)
     cost = torch.where(feasible, dist, torch.full_like(dist, float("inf")))
+    assign, taken = greedy_assignment(cost)
 
     arange_m = torch.arange(M, device=dev)
-    arange_k = torch.arange(K, device=dev)
-    assign = torch.full(state.theta.shape, -1, dtype=torch.int64, device=dev)
-    taken = torch.zeros(z.shape, dtype=torch.bool, device=dev)
-    for _ in range(min(M, K)):
-        flat = torch.argmin(cost.flatten(-2), dim=-1)  # first minimum, row-major, as jnp.argmin
-        m, k = flat // K, flat % K
-        ok = torch.isfinite(torch.gather(cost.flatten(-2), -1, flat[..., None])[..., 0])
-        row = arange_m == m[..., None]
-        col = arange_k == k[..., None]
-        assign = torch.where(ok[..., None] & row, k[..., None], assign)
-        taken = taken | (ok[..., None] & col)
-        cost = torch.where(ok[..., None, None] & (row[..., :, None] | col[..., None, :]), float("inf"), cost)
-
     has_meas = assign >= 0
     z_m = torch.gather(z, -1, assign.clamp(min=0))
     delta = _wrap(z_m - theta_pred)
@@ -263,7 +292,23 @@ def track_multi_angles(z_seq, valid_seq, num_tracks: int, alpha: float = 0.35, b
                        gate_deg: float = 25.0, max_misses: int = 3, confirm_hits: int = 2, device=None):
     """Track a (T, ..., K) sequence of per-frame peak measurements into
     ``num_tracks`` slots on ``device`` (JAX ``tracking.py:406-437``).
-    Returns ``(thetas (T, ..., M), confirmed (T, ..., M))``."""
+    Returns ``(thetas (T, ..., M), confirmed (T, ..., M))``.  On the CPU
+    this is :func:`track_multi_angles_plain`; on the card the hand kernel
+    ``csrc/tracking.cu`` (``ops/cuda/track_kernel.track_multi``: one launch
+    for all T frames, M and K at most 16, the same outputs bit for bit)."""
+    from ..ops.cuda import track_kernel
+
+    z_seq = torch.as_tensor(z_seq, dtype=torch.float32, device=resolve_device(device))
+    valid_seq = torch.as_tensor(valid_seq, dtype=torch.bool, device=z_seq.device)
+    return track_kernel.track_multi(z_seq, valid_seq, num_tracks, alpha=alpha, beta=beta, gate_deg=gate_deg,
+                                    max_misses=max_misses, confirm_hits=confirm_hits)
+
+
+def track_multi_angles_plain(z_seq, valid_seq, num_tracks: int, alpha: float = 0.35, beta: Optional[float] = None,
+                             gate_deg: float = 25.0, max_misses: int = 3, confirm_hits: int = 2, device=None):
+    """:func:`track_multi_angles` as a loop of :func:`multi_track_step` over
+    the frames: the CPU's route, and the plain version the kernel is held to
+    on the card."""
     z_seq = torch.as_tensor(z_seq, dtype=torch.float32, device=resolve_device(device))
     valid_seq = torch.as_tensor(valid_seq, dtype=torch.bool, device=z_seq.device)
     gate = float(np.deg2rad(gate_deg))

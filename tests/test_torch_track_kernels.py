@@ -1,0 +1,488 @@
+"""The routes of the port's last three recurrences on the CPU, against the
+JAX package on the same numpy inputs, and models of their hand kernels:
+
+- ``ops.envelope.Envelope.evolve`` (CUDA route ``csrc/envelope.cu``),
+  ``utils.tracking.track_angles`` and ``track_multi_angles`` (CUDA route
+  ``csrc/tracking.cu``): each CPU route against JAX's ``lax.scan`` from
+  seeds.  Tolerances: the envelope in float64 within 1e-12 of JAX's peak
+  (JAX under x64; ``tests/test_torch_signal_ops.py``'s), in float32 within
+  4e-6 of it (JAX under ``jax.enable_x64(False)``: XLA contracts the
+  update into a fused multiply-add, a last bit apart a step, and each
+  step's difference is damped by 1 - 1/w; 6.6e-7 was seen on these
+  inputs); the trackers' angles within 1e-6 rad and ``confirmed`` exact
+  (``tests/test_torch_tracking.py``'s);
+- a numpy float32 and float64 model of the envelope kernel's lane (the two
+  reciprocals and 1 - 1/w computed once and selected, both candidates of a
+  step computed and one selected, each operation rounded on its own) equal
+  to the plain loop bit for bit, with NaN, inf and zero samples, a lane that
+  only falls and one that only rises, and a carried state;
+- a model of the multi-target kernel's scalar greedy assignment (the first
+  minimum in row-major order, stopping at an infinite minimum) equal to the
+  plain masked form's ``assign`` and ``taken`` on costs with ties, infinite
+  rows and columns, K > M and M > K; and scalar models of both trackers'
+  per-lane branches (``csrc/tracking.cu``) equal to the plain loops, the
+  integers exact, the angles within 1e-6 rad;
+- the device repair: a signal that is not a tensor lands on the card unless
+  the caller passes ``device="cpu"`` (``Envelope.evolve`` and the
+  integrate-and-fire and peak encoders): with ``device="cpu"`` it stays on
+  the CPU, without it asks for the card, which raises here;
+- the wrappers raise on what the kernels do not take (a dtype, M or K
+  outside 1-16, no frame, a tensor off the card) and never run the plain
+  loop instead: tensors on the ``meta`` device reach the CUDA route; and
+  their constants are held to the library's (stubbed).
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_track_kernels.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from haghighatshoarmuir2024_tpu.ops import envelope as jax_envelope
+from haghighatshoarmuir2024_tpu.utils import tracking as jax_tracking
+
+from haghighatshoarmuir2024_tpu_torch.ops import envelope, spikes
+from haghighatshoarmuir2024_tpu_torch.ops.cuda import envelope_kernel, track_kernel
+from haghighatshoarmuir2024_tpu_torch.utils import tracking
+
+FS = 48_000
+ENV_TOL = {"float64": 1e-12, "float32": 4e-6}
+ANGLE_TOL = 1e-6
+META = torch.device("meta")
+INF = np.float32(np.inf)
+
+
+def signal(seed: int, T: int = 3001, C: int = 3) -> np.ndarray:
+    """Tones in noise under a rising gain: (T, C) float64."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None] / FS
+    x = np.sin(2 * np.pi * rng.uniform(300, 3000, C) * t + rng.uniform(0, np.pi, C)) \
+        + 0.3 * rng.standard_normal((T, C))
+    return x * np.linspace(0.2, 1.5, T)[:, None]
+
+
+def angle_lanes(seed: int, T: int = 80, B: int = 5) -> np.ndarray:
+    """(T, B) float32 bearings of targets crossing ±pi, with outliers and runs
+    of them long enough to force re-acquisition."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None]
+    z = 2.9 + rng.uniform(0.02, 0.09, B) * t + rng.normal(0, 0.02, (T, B))
+    out = rng.random((T, B)) < 0.12
+    z[out] = rng.uniform(-np.pi, np.pi, out.sum())
+    z[30:36, 0] = z[30:36, 0] + 1.5  # a run of outliers: the lane re-acquires
+    return np.angle(np.exp(1j * z)).astype(np.float32)
+
+
+def multi_lanes(seed: int, T: int = 50, B: int = 3, K: int = 4):
+    """(T, B, K) float32 candidates of two crossing targets plus clutter, and
+    their validity (two all-invalid frames)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None, None]
+    tracks = np.concatenate([1.0 + 0.03 * t, -2.8 - 0.05 * t], axis=-1) + rng.normal(0, 0.02, (T, B, 2))
+    z = np.concatenate([tracks, rng.uniform(-np.pi, np.pi, (T, B, K - 2))], axis=-1)
+    valid = rng.random((T, B, K)) < np.array([0.9, 0.9] + [0.25] * (K - 2))
+    valid[20:22] = False
+    perm = np.argsort(rng.random((T, B, K)), axis=-1)
+    z = np.angle(np.exp(1j * np.take_along_axis(z, perm, axis=-1)))
+    return z.astype(np.float32), np.take_along_axis(valid, perm, axis=-1)
+
+
+# ------------------------------------------------------------------ the CPU routes against JAX
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rise,fall", [(1e-3, 1e-2), (5e-4, 5e-4)])
+def test_torch_envelope_route_matches_jax(dtype, rise, fall):
+    x = signal(3).astype(dtype)
+    env, jenv = envelope.Envelope(rise, fall, FS), jax_envelope.Envelope(rise, fall, FS)
+    with jax.enable_x64(dtype == "float64"):
+        want = np.asarray(jenv.evolve(jnp.asarray(x)))
+        ja, js = jenv.evolve(jnp.asarray(x[:1200]), return_state=True)
+        jb = np.asarray(jenv.evolve(jnp.asarray(x[1200:]), state=js))
+    got = env.evolve(x, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == getattr(torch, dtype) and got.shape == x.shape
+    tol = ENV_TOL[dtype] * np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= tol
+    a, s = env.evolve(torch.as_tensor(x[:1200]), return_state=True)
+    b, s2 = env.evolve(torch.as_tensor(x[1200:]), state=s, return_state=True)
+    assert np.abs(s.numpy() - np.asarray(js)).max() <= tol
+    assert np.abs(b.numpy() - jb).max() <= tol
+    # a chunk with a carried state starts from it in place of its first sample (JAX's and the reference's
+    # convention), so two calls are one pass over the signal without the second chunk's first sample
+    one, s1 = env.evolve(np.delete(x, 1200, axis=0), device="cpu", return_state=True)
+    assert torch.equal(torch.cat([a, b[1:]]), one) and torch.equal(s2, s1)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_torch_track_angles_route_matches_jax(seed):
+    z = angle_lanes(seed)
+    kw = dict(alpha=0.4, gate_deg=20.0, max_misses=2)
+    got = tracking.track_angles(z, device="cpu", **kw)
+    assert got.device.type == "cpu" and got.shape == z.shape
+    for b in range(z.shape[1]):
+        with jax.enable_x64(False):
+            want = np.asarray(jax_tracking.track_angles(jnp.asarray(z[:, b]), **kw))
+        np.testing.assert_allclose(got[:, b].numpy(), want, rtol=0, atol=ANGLE_TOL)
+    assert torch.equal(got, tracking.track_angles_plain(torch.as_tensor(z), device="cpu", **kw))
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("num_tracks,K", [(4, 2), (3, 4), (2, 5)])
+def test_torch_track_multi_route_matches_jax(seed, num_tracks, K):
+    z, valid = multi_lanes(seed, K=K)
+    kw = dict(max_misses=4, confirm_hits=2)
+    th, cf = tracking.track_multi_angles(z, valid, num_tracks, device="cpu", **kw)
+    assert th.device.type == "cpu" and th.shape == cf.shape == z.shape[:-1] + (num_tracks,)
+    for b in range(z.shape[1]):
+        with jax.enable_x64(False):
+            jth, jcf = jax_tracking.track_multi_angles(jnp.asarray(z[:, b]), jnp.asarray(valid[:, b]), num_tracks,
+                                                       **kw)
+        np.testing.assert_array_equal(cf[:, b].numpy(), np.asarray(jcf))
+        np.testing.assert_allclose(th[:, b].numpy(), np.asarray(jth), rtol=0, atol=ANGLE_TOL)
+    pth, pcf = tracking.track_multi_angles_plain(torch.as_tensor(z), torch.as_tensor(valid), num_tracks,
+                                                 device="cpu", **kw)
+    assert torch.equal(th, pth) and torch.equal(cf, pcf)
+
+
+# ------------------------------------------------------------------ a model of the envelope kernel's lane
+def envelope_lane_model(x: np.ndarray, win_lens, s0=None) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/envelope.cu`` in numpy, in ``x``'s dtype: the reciprocals
+    ``(1/w)·1`` and ``1 - 1/w`` of both windows once, then per step both
+    candidates, each operation rounded on its own, one selected by
+    ``x >= s``."""
+    dt = x.dtype.type
+    one, zero = dt(1), dt(0)
+    xa = np.abs(x)
+    r_fall, r_rise = ((one / dt(w)) * one for w in win_lens)
+    c_fall, c_rise = one - r_fall, one - r_rise
+    s = xa[0].copy() if s0 is None else np.asarray(s0, x.dtype).copy()
+    out = np.empty_like(xa)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for t in range(1, x.shape[0]):
+            out[t - 1] = s
+            up = c_rise * s + (r_rise * xa[t]) * one
+            down = c_fall * s + (r_fall * xa[t]) * zero
+            s = np.where(xa[t] >= s, up, down)
+    out[-1] = s
+    return out, s
+
+
+def envelope_edges(dtype) -> np.ndarray:
+    """(T, 6) lanes: noise, NaN and inf samples, zeros, a lane that only falls
+    (a spike, then silence) and one that only rises (a ramp)."""
+    rng = np.random.default_rng(5)
+    T = 700
+    x = rng.standard_normal((T, 6))
+    x[100, 1], x[300, 1] = np.nan, 0.0
+    x[50, 2], x[51, 2] = np.inf, -np.inf
+    x[:, 3] = 0.0
+    x[:, 4] = 0.0
+    x[0, 4] = 5.0
+    x[:, 5] = np.arange(T) * 1e-3
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("carried", [False, True])
+def test_torch_envelope_kernel_lane_model(dtype, carried):
+    """The kernel's arithmetic, lane by lane, equals the plain loop bit for
+    bit (NaN for NaN), from ``|x[0]|`` and from a carried state."""
+    x = np.concatenate([signal(7, T=700, C=3).astype(dtype), envelope_edges(dtype)], axis=1)
+    env = envelope.Envelope(1e-3, 1e-2, FS)
+    s0 = np.abs(np.random.default_rng(1).standard_normal(x.shape[1])).astype(dtype) if carried else None
+    want, want_s = env.evolve_plain(torch.as_tensor(x), None if s0 is None else torch.as_tensor(s0),
+                                    return_state=True)
+    got, got_s = envelope_lane_model(x, env.win_lens, s0)
+    assert np.array_equal(got, want.numpy(), equal_nan=True)
+    assert np.array_equal(got_s, want_s.numpy(), equal_nan=True)
+    if not carried:
+        assert np.isnan(got[100:, 4]).all() and np.isinf(got[52:, 5]).all() and not got[:, 6].any()
+        assert (np.diff(got[:, 7]) <= 0).all() and (np.diff(got[:, 8]) >= 0).all()
+
+
+# ------------------------------------------------------------------ models of the tracking kernels
+def greedy_model(cost: np.ndarray):
+    """``csrc/tracking.cu``'s assignment of one lane's (M, K) cost: rounds of
+    a scalar scan for the first minimum (strict <), stopping at inf."""
+    M, K = cost.shape
+    c = cost.astype(np.float32).ravel().copy()
+    assign, taken = np.full(M, -1), np.zeros(K, bool)
+    for _ in range(min(M, K)):
+        best, bc = 0, c[0]
+        for i in range(1, M * K):
+            if c[i] < bc:
+                best, bc = i, c[i]
+        if not bc < INF:
+            break
+        m, k = divmod(best, K)
+        assign[m], taken[k] = k, True
+        c[m * K:(m + 1) * K] = INF
+        c[k::K] = INF
+    return assign, taken
+
+
+@pytest.mark.parametrize("M,K", [(4, 2), (2, 4), (3, 3), (16, 16), (1, 5), (5, 1)])
+def test_torch_track_multi_assignment_model(M, K):
+    """Ties (costs from a set of four values), rows and columns all inf and
+    whole lanes inf: the scalar greedy rounds give the plain masked form's
+    ``assign`` and ``taken``."""
+    rng = np.random.default_rng(M * 31 + K)
+    B = 64
+    cost = rng.choice(np.array([0.1, 0.2, 0.3, np.inf], np.float32), size=(B, M, K), p=[0.3, 0.3, 0.2, 0.2])
+    cost[1::7] = np.inf
+    cost[2::5, 0] = np.inf
+    cost[3::6, :, -1] = np.inf
+    cost[4::9] = np.float32(0.1)  # every entry tied
+    assign, taken = tracking.greedy_assignment(torch.as_tensor(cost))
+    for b in range(B):
+        ma, mt = greedy_model(cost[b])
+        np.testing.assert_array_equal(assign[b].numpy(), ma)
+        np.testing.assert_array_equal(taken[b].numpy(), mt)
+
+
+def wrap(x: float) -> float:
+    """The plain loops' ``atan2(sin x, cos x)`` on one float32 value (PyTorch's
+    CPU kernels round a long tensor's transcendentals otherwise than a short
+    one's: this is the short tensors' form, which the models' lanes meet)."""
+    return float(tracking._wrap(torch.tensor(np.float32(x))))
+
+
+def f32(v) -> np.float32:
+    return np.float32(v)
+
+
+def track_angles_model(z: np.ndarray, alpha=0.35, beta=None, gate_deg=25.0, max_misses=3):
+    """``track_angles_kernel``'s branches for one lane, float32."""
+    alpha32, beta32 = f32(alpha), f32(tracking._beta(alpha, beta))
+    gate = f32(np.deg2rad(gate_deg))
+    theta = omega = f32(0)
+    misses = init = 0
+    out = np.empty(len(z), np.float32)
+    for t, zt in enumerate(z):
+        zt = f32(zt)
+        if init == 0:
+            theta, omega, misses, init = zt, f32(0), 0, 1
+        elif init == 1:
+            omega, theta, misses, init = f32(wrap(zt - theta)), zt, 0, 2
+        else:
+            pred = f32(wrap(theta + omega))
+            delta = f32(wrap(zt - pred))
+            inlier = abs(delta) <= gate
+            m = 0 if inlier else misses + 1
+            if m > max_misses:
+                theta, omega, misses, init = zt, f32(0), 0, 1
+            elif inlier:
+                theta, omega, misses = f32(wrap(pred + alpha32 * delta)), omega + beta32 * delta, 0
+            else:
+                theta, misses = pred, m
+        out[t] = theta
+    return out
+
+
+def track_multi_model(z: np.ndarray, valid: np.ndarray, M: int, alpha=0.35, beta=None, gate_deg=25.0,
+                      max_misses=3, confirm_hits=2):
+    """``track_multi_kernel``'s branches for one lane: (T, K) in, (T, M)
+    thetas and confirmed out, float32."""
+    alpha32, beta32 = f32(alpha), f32(tracking._beta(alpha, beta))
+    gate, pi = f32(np.deg2rad(gate_deg)), f32(np.pi)
+    T, K = z.shape
+    th, om = np.zeros(M, np.float32), np.zeros(M, np.float32)
+    mi, ini, hi = np.zeros(M, int), np.zeros(M, int), np.zeros(M, int)
+    thetas, confirmed = np.empty((T, M), np.float32), np.empty((T, M), bool)
+    for t in range(T):
+        pred = np.array([wrap(th[m] + om[m]) for m in range(M)], np.float32)
+        d = np.array([[wrap(z[t, k] - pred[m]) for k in range(K)] for m in range(M)], np.float32)
+        cost = np.full((M, K), INF)
+        for m in range(M):
+            g = gate if ini[m] == 2 else pi
+            for k in range(K):
+                if ini[m] in (1, 2) and valid[t, k] and abs(d[m, k]) <= g:
+                    cost[m, k] = abs(d[m, k])
+        assign, taken = greedy_model(cost)
+        for m in range(M):
+            tracking_, booting, has = ini[m] == 2, ini[m] == 1, assign[m] >= 0
+            k = assign[m] if has else 0
+            if tracking_ and has:
+                th[m] = wrap(pred[m] + alpha32 * d[m, k])
+                om[m] = om[m] + beta32 * d[m, k]
+                mi[m], hi[m] = 0, hi[m] + 1
+            elif tracking_:
+                th[m], mi[m] = pred[m], mi[m] + 1
+                if mi[m] > max_misses:
+                    ini[m] = hi[m] = mi[m] = 0
+            elif booting and has:
+                om[m] = wrap(z[t, k] - th[m])
+                th[m], hi[m], mi[m], ini[m] = z[t, k], hi[m] + 1, 0, 2
+            elif booting:
+                ini[m] = hi[m] = mi[m] = 0
+        for k in range(K):
+            if not valid[t, k] or taken[k]:
+                continue
+            free = np.flatnonzero(ini == 0)
+            if free.size == 0:
+                break
+            s = free[0]
+            th[s], om[s], mi[s], hi[s], ini[s] = z[t, k], 0.0, 0, 0, 1
+        thetas[t], confirmed[t] = th, (ini == 2) & (hi >= confirm_hits)
+    return thetas, confirmed
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_torch_track_angles_kernel_model(seed):
+    """The kernel's per-lane branches (bootstrap, gate, coast, re-acquire)
+    give the plain loop's angles, lane by lane."""
+    z = angle_lanes(seed + 4)
+    kw = dict(alpha=0.3, gate_deg=15.0, max_misses=2)
+    want = tracking.track_angles_plain(torch.as_tensor(z), device="cpu", **kw).numpy()
+    for b in range(z.shape[1]):
+        np.testing.assert_allclose(track_angles_model(z[:, b], **kw), want[:, b], rtol=0, atol=ANGLE_TOL)
+
+
+@pytest.mark.parametrize("M,K", [(4, 2), (2, 4), (3, 3)])
+def test_torch_track_multi_kernel_model(M, K):
+    """The kernel's per-lane scalar form (gated cost, greedy rounds, updates,
+    deaths, spawns in the first free slot) gives the plain loop's
+    ``confirmed`` exactly and its angles within 1e-6 rad."""
+    z, valid = multi_lanes(M + K, K=K)
+    kw = dict(max_misses=2, confirm_hits=3)
+    want_th, want_cf = tracking.track_multi_angles_plain(torch.as_tensor(z), torch.as_tensor(valid), M,
+                                                         device="cpu", **kw)
+    for b in range(z.shape[1]):
+        th, cf = track_multi_model(z[:, b], valid[:, b], M, **kw)
+        np.testing.assert_array_equal(cf, want_cf[:, b].numpy())
+        np.testing.assert_allclose(th, want_th[:, b].numpy(), rtol=0, atol=ANGLE_TOL)
+
+
+# ------------------------------------------------------------------ the device repair
+def _numpy_signal():
+    return signal(2, T=400, C=2)
+
+
+DEVICE_ROUTES = {
+    "Envelope.evolve": lambda x, **kw: envelope.Envelope(1e-3, 1e-2, FS).evolve(x, **kw),
+    "IAFSpikeEncoder.evolve": lambda x, **kw: spikes.IAFSpikeEncoder(2000.0, FS).evolve(x, **kw),
+    "IAFZeroCrossingSpikeEncoder.evolve": lambda x, **kw: spikes.IAFZeroCrossingSpikeEncoder(500.0, FS).evolve(x, **kw),
+    "PeakSpikeEncoder.evolve": lambda x, **kw: spikes.PeakSpikeEncoder(FS).evolve(x, **kw),
+}
+
+
+@pytest.mark.parametrize("route", list(DEVICE_ROUTES))
+def test_torch_numpy_signal_lands_on_the_card(route, monkeypatch):
+    """A numpy signal stays on the CPU with ``device="cpu"``, equal to the
+    same signal as a CPU tensor; without ``device`` it asks for the card,
+    which raises ``RuntimeError`` on a host without one (never runs on the
+    CPU); a tensor stays where it is."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = _numpy_signal()
+    call = DEVICE_ROUTES[route]
+    got = call(x, device="cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(got, call(torch.as_tensor(x)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(x.tolist())
+
+
+# ------------------------------------------------------------------ the wrappers refuse
+def _no_plain(monkeypatch):
+    """Make the plain versions fail loudly, so that a wrapper that fell back
+    to one would not raise its own error."""
+    def boom(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+    monkeypatch.setattr(envelope.Envelope, "evolve_plain", boom)
+    monkeypatch.setattr(tracking, "track_angles_plain", boom)
+    monkeypatch.setattr(tracking, "track_multi_angles_plain", boom)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _env(x, **kw):
+    return envelope.Envelope(1e-3, 1e-2, FS).evolve(x, **kw)
+
+
+def _multi(shape, M, **kw):
+    return tracking.track_multi_angles(_meta(shape), _meta(shape, torch.bool), M, device=META, **kw)
+
+
+REFUSALS = {
+    "envelope float16": (TypeError, lambda: _env(_meta((50, 3), torch.float16))),
+    "envelope complex64": (TypeError, lambda: _env(_meta((50, 3), torch.complex64))),
+    "envelope no sample": (ValueError, lambda: _env(_meta((0, 3)))),
+    "envelope off the card": (ValueError, lambda: _env(_meta((50, 3)))),
+    "envelope float64 off the card": (ValueError, lambda: _env(_meta((50,), torch.float64), return_state=True)),
+    "track_angles float64": (TypeError, lambda: track_kernel.track_angles(_meta((20, 4), torch.float64))),
+    "track_angles max_misses beyond int32": (ValueError, lambda: tracking.track_angles(_meta((20, 4)), device=META,
+                                                                                      max_misses=2**31)),
+    "track_angles off the card": (ValueError, lambda: tracking.track_angles(_meta((20, 4)), device=META)),
+    "track_multi M = 17": (ValueError, lambda: _multi((20, 3, 2), 17)),
+    "track_multi M = 0": (ValueError, lambda: _multi((20, 3, 2), 0)),
+    "track_multi K = 17": (ValueError, lambda: _multi((20, 3, 17), 4)),
+    "track_multi no frame": (ValueError, lambda: _multi((0, 3, 2), 4)),
+    "track_multi float64": (TypeError, lambda: track_kernel.track_multi(_meta((20, 2), torch.float64),
+                                                                        _meta((20, 2), torch.bool), 4)),
+    "track_multi off the card": (ValueError, lambda: _multi((20, 3, 2), 4)),
+    "track_multi at the caps off the card": (ValueError, lambda: _multi((20, 16), 16)),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_torch_track_wrappers_raise(case, monkeypatch):
+    _no_plain(monkeypatch)
+    err, call = REFUSALS[case]
+    with pytest.raises(err, match="CUDA" if case.endswith("card") else None):
+        call()
+
+
+MIRRORS = {
+    "envelope": (envelope_kernel, "hm_envelope_constants", (envelope_kernel.ENV_THREADS, envelope_kernel.ENV_AHEAD)),
+    "tracking": (track_kernel, "hm_track_constants", (track_kernel.TRACK_THREADS, track_kernel.M_MAX,
+                                                      track_kernel.K_MAX)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(MIRRORS))
+def test_torch_track_wrappers_hold_their_constants_to_the_library(kernel, monkeypatch):
+    """Each wrapper loads the library only once the constants its source
+    exports (block size, read-ahead, caps) equal the module's mirrors of
+    them, and raises on any that differs (the library stubbed: no nvcc
+    here)."""
+    module, symbol, mirrors = MIRRORS[kernel]
+    lib = object()
+    asked = []
+
+    def constants(name, n):
+        asked.append((name, n))
+        return tuple(wrong)
+
+    monkeypatch.setattr(module, "library", lambda: lib)
+    monkeypatch.setattr(module, "library_constants", constants)
+    for i in range(len(mirrors)):
+        wrong = list(mirrors)
+        wrong[i] += 1
+        module.checked_library.cache_clear()
+        with pytest.raises(RuntimeError, match="differ"):
+            module.checked_library()
+    wrong = list(mirrors)
+    module.checked_library.cache_clear()
+    try:
+        assert module.checked_library() is lib
+    finally:
+        module.checked_library.cache_clear()
+    assert set(asked) == {(symbol, len(mirrors))}
+
+
+def test_torch_track_wrappers_round_scalars_as_pytorch():
+    """The Python scalars the plain loops hand PyTorch's float32 kernels are
+    rounded to float32 there: the gate of 25 degrees as float32 lies above
+    the double, and a float32 |delta| equal to it is an inlier in the plain
+    step, so the wrapper passes the float32 gate to the kernel."""
+    gate = float(np.deg2rad(25.0))
+    g32 = track_kernel.float32(gate)
+    assert g32 > gate and g32 == np.float32(gate)
+    delta = torch.tensor([g32, float(np.nextafter(np.float32(g32), np.float32(1)))], dtype=torch.float32)
+    assert (delta.abs() <= gate).tolist() == [True, False]
+    assert torch.where(torch.tensor([True, False]), gate, float(np.pi)).dtype == torch.float32
