@@ -402,9 +402,17 @@ Phases, each failing the run with a non-zero exit:
     that only fall or only rise, NaN, inf and zeros, carried states, two
     halves carried against one pass, the gate's boundary at float32(25 deg)
     and its neighbours, K > M, M > K, M = K = 16, tied costs, re-acquisition
-    after ``max_misses``), one launch each; each timed by CUDA events around
-    the wrapper and by CUPTI alone, beside its plain loop's one call, its
-    bound and its chain floor.
+    after ``max_misses``; for the redesigned trackers also M = 1,
+    4, 16 by K = 1, 2, 16 over 45 lanes, every slot empty then every slot
+    full, ties across rows and within a row, the lanes of a warp and the
+    slots of a lane in different states in one frame, T = 1 and 2 at the
+    caps, T no multiple of the stage over 129 lanes), one launch each; the
+    kernels' wrap and ``atan2f(sinf, cosf)`` against PyTorch's ``atan2(sin,
+    cos)`` at all 2^32 float32 patterns, the wrap's latency (a one-thread
+    ``clock64`` chain) and the tracking kernels' registers and stack frames
+    (``ptxas -v``); each kernel timed by CUDA events around the wrapper and
+    by CUPTI alone, beside its plain loop's one call, its bound, its chain
+    floor (from the measured wrap) and the scalar design's device time.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -5069,6 +5077,10 @@ TRACK_EDGES = (
     ("the gate's boundary: |delta| at float32(25 deg) and its neighbours, both signs: (3, 6)", "gate", {}),
     ("crossing ±pi and re-acquiring after max_misses = 2, alpha 0.5, gate 15 deg: (240, 96)", "inputs",
      dict(alpha=0.5, gate_deg=15.0, max_misses=2)),
+    # the redesign's: every lane three wraps a frame and its states as selects, z staged 16 frames at a time
+    ("the lanes of a warp in different states in one frame (booting, tracking, coasting, re-acquiring): staggered "
+     "outlier runs of 0-4 frames, max_misses = 2: (240, 64)", "states", dict(max_misses=2)),
+    ("T no multiple of the stage, lanes beyond a block: (37, 129)", "stage", {}),
 )
 # (label, kind, tracks, keyword arguments)
 MULTI_EDGES = (
@@ -5083,8 +5095,23 @@ MULTI_EDGES = (
      dict(max_misses=1, confirm_hits=3)),
     ("the gate's boundary: a tracking slot at float32(25 deg) and its neighbours, both signs: (3, 6, 1), 2 tracks",
      "gate", 2, {}),
+    # the redesign's: a warp a lane (four a block), the costs in registers to K's capacity (2, 4, 8, 16),
+    # the rounds as warp reductions, spawns by one ballot
+    *((f"M = {m}, K = {k}, lanes no multiple of a block's 4: (120, 45, {k}), {m} tracks", f"grid{k}", m, {})
+      for m, k in ((1, 1), (1, 2), (1, 16), (4, 1), (4, 16), (16, 1), (16, 2))),
+    ("every slot empty, then every slot full: all-invalid frames kill every slot (max_misses = 0), then 16 valid "
+     "measurements a frame: (90, 45, 16), 4 tracks", "emptyfull", 4, dict(max_misses=0)),
+    ("ties across rows and within a row: a frame's measurements all equal, slots spawned equal: (120, 45, 4), "
+     "4 tracks", "rowties", 4, {}),
+    ("the slots of a lane in different states in one frame (empty, booting, tracking, coasting, dying): staggered "
+     "invalid runs, max_misses = 2: (240, 45, 3), 8 tracks", "states", 8, dict(max_misses=2)),
+    ("T = 1 at the caps: (1, 33, 16), 16 tracks", "T1caps", 16, {}),
+    ("T = 2 at the caps: (2, 33, 16), 16 tracks", "T2caps", 16, {}),
 )
 RECURRENCE_REPS = 20  # CUDA-event calls a kernel's time
+# the trackers' device ms a launch in their scalar design, before the redesign (PERF.md §6), printed beside
+# this run's
+PARENT_DEVICE_MS = {"track_angles": "0.1974-0.1975", "track_multi": "1.8742-1.8769"}
 
 
 def envelope_edge(torch, dev, case, seed: int) -> dict:
@@ -5161,6 +5188,13 @@ def track_edge(torch, dev, case, seed: int) -> dict:
     label, kind, kw = case
     z_all = skn.track_inputs(seed)[0]
     z = {"T1": z_all[:1], "T2": z_all[:2], "one": z_all[:, 0], "lanes45": z_all[:, :45], "inputs": z_all}.get(kind)
+    if kind == "states":  # lane b: outlier runs of b % 5 frames from frame 30 + b % 11 and 120 + b % 13
+        z = z_all[:, :64].clone()
+        for b in range(64):
+            for t0 in (30 + b % 11, 120 + b % 13):
+                z[t0:t0 + b % 5, b] = torch.remainder(z[t0:t0 + b % 5, b] + 2.0 + np.pi, 2 * np.pi) - np.pi
+    elif kind == "stage":
+        z = skn.track_inputs(seed, T=37, B=129)[0]
     if kind == "gate":
         edge, deltas, reached = gate_measurements(torch, dev)
         z = torch.as_tensor(np.stack([np.zeros_like(edge), np.zeros_like(edge), edge]))
@@ -5193,6 +5227,27 @@ def multi_edge(torch, dev, case, seed: int) -> dict:
     elif kind in ("K5", "K1", "K16"):
         K, L, T = {"K5": (5, 45, 240), "K1": (1, 45, 240), "K16": (16, 33, 60)}[kind]
         _, z, v = skn.track_inputs(seed, T=T, B=L, K=K)
+    elif kind.startswith("grid"):
+        _, z, v = skn.track_inputs(seed, T=120, B=45, K=int(kind[4:]))
+    elif kind in ("T1caps", "T2caps"):
+        _, z, v = skn.track_inputs(seed, T=60, B=33, K=16)
+        z, v = z[:int(kind[1])], v[:int(kind[1])]
+    elif kind == "emptyfull":
+        _, z, v = skn.track_inputs(seed, T=90, B=45, K=16)
+        v = v.clone()
+        v[30:35] = False  # every slot dies
+        v[35:] = True  # then 16 measurements a frame: every slot full, twelve left over
+    elif kind == "rowties":
+        base = skn.track_inputs(seed, T=120, B=45)[0]
+        z = base[..., None].expand(-1, -1, 4).clone()
+        z[::5, :, 2:] = z[::5, :, :1] + 0.01  # now and then a pair apart
+        v = torch.as_tensor(rng.random((120, 45, 4)) < 0.9)
+    elif kind == "states":
+        _, z, v = skn.track_inputs(seed, T=240, B=45, K=3)
+        v = v.clone()
+        for b in range(45):  # lane b: invalid runs of b % 6 frames, staggered
+            for t0 in (25 + b % 7, 90 + b % 11, 170 + b % 5):
+                v[t0:t0 + b % 6, b] = False
     elif kind == "ties":
         grid = np.linspace(-np.pi, np.pi, 8, endpoint=False).astype(np.float32)
         z = grid[rng.integers(0, 8, (240, 96, 3))]
@@ -5303,14 +5358,36 @@ def check_recurrences(torch, _build, roofline, dev, card, frames) -> dict:
           f"all-invalid frames, K > M, M > K, M = K = 16, tied costs): every output == the plain loop "
           f"(torch.equal), one launch each", flush=True)
 
+    # ---- the trackers' wrap: its bits at every float32, its latency; the kernels' registers and frames
+    out["wrap_bits"] = [skn.wrap_bits(form) for form in ("wrap", "atan2f(sinf, cosf)")]
+    for r in out["wrap_bits"]:
+        if r["checked"] != 1 << 32 or r["differ"] or r["bits_differ"]:
+            fail(f"the wrap form {r['form']!r} differs from PyTorch's atan2(sin x, cos x) on the card ({r})")
+    out["wrap_cycles"] = skn.wrap_latency()
+    print(f"{tag} the kernels' wrap (atan2f of sincosf's pair) and atan2f(sinf, cosf) == PyTorch's "
+          f"atan2(sin x, cos x) at all 2^32 float32 bit patterns (NaN = NaN, zeros' signs too; "
+          + " and ".join(f"{r['s']:.2f} s" for r in out["wrap_bits"]) + "); a chain link (an add and the form, "
+          f"clock64, {skn.WRAP_CHAIN_STEPS} steps) in cycles at |x| <= 2 pi / past 105 615: " + "; ".join(
+              f"{form} {v['|x| <= 2 pi']:.1f} / {v['past 105 615']:.1f}" for form, v in out["wrap_cycles"].items()),
+          flush=True)
+    out["ptxas"] = skn.build_resources()
+    print(f"{tag} ptxas -v: " + "; ".join(
+        f"{k} {v.get('registers')} registers, {v.get('stack')} bytes stack frame, {v.get('spill_stores')} bytes "
+        f"spill stores" for k, v in sorted(out["ptxas"].items())) + " (the scalar design's track_multi_kernel: "
+        "2704 bytes)",
+          flush=True)
+
     # ---- each launch alone from CUPTI's records, beside its chain floor and bytes bound
     clock = skn.sm_clock_mhz()
     split = skn.recurrence_split(frames, RECURRENCE_REPS, clock)
     out["split"] = split
     for label, r in split.items():
-        print(f"{tag} {label}: {r['mean_ms']:.4f} ms a launch (CUPTI, {RECURRENCE_REPS} calls), chain floor "
-              f"{r['chain_floor_ms']:.4f} ms ({r['chain_cycles']} cycles a step at {clock:.0f} MHz; "
-              f"{100 * r['chain_share']:.1f} % of the launch), bytes bound {r['bytes_bound_ms']:.5f} ms "
+        parent = next((v for k, v in PARENT_DEVICE_MS.items() if label.startswith(k + " ")), None)
+        print(f"{tag} {label}: {r['mean_ms']:.4f} ms a launch (CUPTI, {RECURRENCE_REPS} calls"
+              + (f"; the scalar design's {parent} ms, PERF.md" if parent else "") + "), chain floor "
+              f"{r['chain_floor_ms']:.4f} ms ({r['chain_cycles']:.0f} cycles a step at {clock:.0f} MHz"
+              + (f", the wrap's link measured at {r['link_cycles']:.1f}" if "link_cycles" in r else "")
+              + f"; {100 * r['chain_share']:.1f} % of the launch), bytes bound {r['bytes_bound_ms']:.5f} ms "
               f"({r['bytes']:.4g} bytes)", flush=True)
     env_main = out["envelope"][f"one frame ({T}, 7) float32"]
     cases = {"envelope": (env_main, f"envelope one frame ({T}, 7) float32"),

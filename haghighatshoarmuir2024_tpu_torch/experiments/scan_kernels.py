@@ -8,6 +8,7 @@ their bounds:
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels [--reps 20]
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels split [--reps 20] [--only LABEL ...]
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels sass --against OTHER/xylo_sim.cu
+    python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels wrap
 
 The IIR cases are the shapes of the paths that scan (:func:`iir_inputs`):
 the Hilbert apply's complex64 (T, B, 7) analytic signal at 1 and 96 of
@@ -43,8 +44,16 @@ loop by ``torch.equal`` (:func:`envelope_against_plain`,
 :func:`track_against_plain`, :func:`multi_against_plain`), and ``split``
 (``--only envelope track_angles track_multi``: those alone) gives each
 launch's device ms from CUPTI beside its chain floor
-(:func:`envelope_chain_ms`, :func:`track_chain_ms`, :func:`multi_chain_ms`)
-and its bytes.
+(:func:`envelope_chain_ms`, :func:`track_chain_ms`, :func:`multi_chain_ms`;
+the trackers' from the wrap's latency measured in the same run,
+:func:`wrap_latency`) and its bytes.  The dense push-to-hidden block's
+bound counts its recurrence (:func:`sim_work`).
+``wrap`` measures the trackers' wrap, ``atan2f(sinf(x), cosf(x))`` as
+``atan2f`` of ``sincosf``'s pair: its latency in a one-thread chain
+(:func:`wrap_latency`) beside the chain of ``atan2f(sinf(x), cosf(x))`` and
+of each function alone, its bits against PyTorch's ``atan2(sin x, cos x)``
+at every float32 (both forms, :func:`wrap_bits`), and each tracking kernel's registers and stack frame
+(``ptxas -v``, :func:`build_resources`) and SASS (:func:`tracker_sass`).
 ``sass`` compiles this tree's ``csrc/xylo_sim.cu`` and another's
 (``--against``) with the library's nvcc flags and compares the recurrent
 row kernel's instantiations (``xylo_sim_kernel<NPT, REC>``) instruction by
@@ -204,15 +213,19 @@ def stream_chunks(b, a, x: torch.Tensor, zi: torch.Tensor) -> dict:
                 rel64=_rel64(b, a, x, torch.cat([y1, y2]), zi))
 
 
-def sim_work(T: int, B: int, N: int, records: int) -> tuple[float, float]:
+def sim_work(T: int, B: int, N: int, records: int, rec_rows: int = 0, dense: bool = False) -> tuple[float, float]:
     """(int32 operations, bytes) of one ``xylo_sim`` call: the LIF count
     kernels' 10 operations a neuron and step (``P1_OPS_PER_STEP``); the
     (T, B, N) int32 input current read once and ``records`` (T, B, N) int32
     records written once, the state (three (B, N)) in and out and the
-    counts."""
+    counts.  With a ``dense`` ``w_rec`` also the recurrence: each step's
+    spiking rows added into the N recurrent inputs of the next (``rec_rows``
+    nonzero spike entries that feed a step, × N int32 additions, as K3's
+    bound counts set bits × N) and ``w_rec``'s N × N int32 read once."""
     from ..ops.cuda.roofline_kernel import P1_OPS_PER_STEP
 
-    return float(P1_OPS_PER_STEP * T * B * N), 4.0 * T * B * N * (1 + records) + 4.0 * B * N * 7
+    ops = float(P1_OPS_PER_STEP * T * B * N) + (float(rec_rows) * N if dense else 0.0)
+    return ops, 4.0 * T * B * N * (1 + records) + 4.0 * B * N * 7 + (4.0 * N * N if dense else 0.0)
 
 
 def sim_against_plain(cfg, spikes_tbc: torch.Tensor, ordering: str, reset: str, split: bool = False) -> dict:
@@ -334,12 +347,22 @@ def sim_split(cfg, spikes_tbc: torch.Tensor, reps: int, records: int = 3) -> dic
     kw = dict(rec_coef=rec_coef, w_rec=w_rec, record=records > 0, record_state=records == 3, count=records == 0)
     args = (inp, cfg.dash_syn, cfg.dash_mem, cfg.threshold)
     T, B, N = inp.shape
-    ops, nbytes = sim_work(T, B, N, records)
+    rows = 0
+    if w_rec is not None:  # the spike entries that feed a step's recurrence: every step's but the last's
+        spikes = sim.scan_hidden(*args, rec_coef=rec_coef, w_rec=w_rec, record=True)[0]
+        rows = int((spikes[:-1] != 0).sum())
+        del spikes
+    ops, nbytes = sim_work(T, B, N, records, rows, dense=w_rec is not None)
     out = kernel_split(lambda: sim.scan_hidden(*args, **kw), reps, "xylo_sim")
     out.update(shape=(T, B, N), records=records, recurrence="dense" if w_rec is not None else f"uniform {rec_coef}",
                bytes=nbytes, bytes_per_s=nbytes / (out["device_ms"] * 1e-3),
-               bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+               bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops=ops, rec_rows=rows)
     out["bound_share"] = out["bytes_bound_ms"] / out["device_ms"]
+    if w_rec is not None:  # int32 operations over 64 a clock × the SMs × the highest SM clock
+        from . import roofline
+
+        out["bound_ms"], out["bound_by"] = roofline.bound(ops, roofline.guide_peaks()["int32_ops_per_s"], nbytes)
+        out["share"] = out["bound_ms"] / out["device_ms"]
     return out
 
 
@@ -405,11 +428,17 @@ ENVELOPE_ARGS = (1e-3, 1e-2, 48_000.0)  # Envelope(rise, fall, fs) of the follow
 TRACK_T, TRACK_B, MULTI_K, MULTI_M = 240, 96, 2, 4  # a minute of 0.25 s frames for 96 streams; 2 peaks, 4 tracks
 ENV_CHAIN_OPS = 3  # the follower's chain a step: c·s, the sum, the select (the compare runs beside the product)
 ENV_OPS_PER_STEP = 6  # |x|, the compare, c·s, (1/w)·x, ·rise, the sum
-# one wrap, atan2f(sinf(x), cosf(x)), on its dependent path: sinf's reduction and polynomial (about 14
-# operations; cosf's beside it) and atan2f's quotient, polynomial and quadrant fix-ups (about 20), estimated
-# from CUDA's accurate paths for |x| below 10^5, not read from the SASS
+# one wrap, atan2f(sinf(x), cosf(x)), as operations of the work (the operations bound): sinf's reduction
+# and polynomial (about 14 operations; cosf's beside it) and atan2f's quotient, polynomial and quadrant
+# fix-ups (about 20), estimated from CUDA's accurate paths for |x| below 10^5.  The chain floors do not use
+# it: they take the wrap's latency as the card gives it (wrap_latency)
 WRAP_OPS = 34
-TRACK_CHAIN_OPS = 3 * WRAP_OPS + 4  # a tracking step: θ+ω, wrap, z-pred, wrap, α·δ, the sum, wrap, the select
+TRACK_OPS = 3 * WRAP_OPS + 6  # a tracking step: three wraps; θ+ω, z-pred, α·δ, the sum, β·δ, ω's sum
+# a chain link is one (float32 add, wrap): x = wrap(x + c), as wrap_latency times it.  Beside its three
+# links a tracking frame's chain holds α·δ and the select of θ
+TRACK_CHAIN_EXTRA_OPS = 2
+WRAP_SMALL, WRAP_LARGE = (0.3, 0.7), (0.3, 2.0e5)  # (x0, c): |x + c| <= 2 pi; past 105 615 (sinf's slow path)
+WRAP_CHAIN_STEPS = 4096
 RECURRENCE_CASES = ("envelope", "track_angles", "track_multi")
 
 
@@ -461,7 +490,7 @@ def track_work(T: int, L: int) -> tuple[float, float]:
     """(float32 operations, bytes) of one ``track_angles`` call: three wraps
     (``WRAP_OPS`` each) and six more a lane and frame; the angles read and
     the filtered angles written once."""
-    return float(TRACK_CHAIN_OPS + 2) * T * L, 8.0 * T * L
+    return float(TRACK_OPS) * T * L, 8.0 * T * L
 
 
 def multi_work(T: int, L: int, M: int, K: int) -> tuple[float, float]:
@@ -480,23 +509,152 @@ def envelope_chain_ms(T: int, clock_mhz: float, latency: int = FP32_LATENCY_CYCL
     return (T - 1) * ENV_CHAIN_OPS * latency / (clock_mhz * 1e3)
 
 
-def track_chain_ms(T: int, clock_mhz: float) -> float:
-    """T frames of a tracking lane's chain (``TRACK_CHAIN_OPS``) at the SM
-    clock."""
-    return T * TRACK_CHAIN_OPS * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+def track_chain_cycles(link_cycles: float) -> float:
+    """A tracking frame's dependent chain in cycles: three links (an add and
+    a wrap, ``link_cycles`` as :func:`wrap_latency` measures them) and
+    ``TRACK_CHAIN_EXTRA_OPS`` float32 operations."""
+    return 3 * link_cycles + TRACK_CHAIN_EXTRA_OPS * FP32_LATENCY_CYCLES
+
+
+def track_chain_ms(T: int, clock_mhz: float, link_cycles: float) -> float:
+    """T frames of a tracking lane's chain (:func:`track_chain_cycles`) at
+    the SM clock."""
+    return T * track_chain_cycles(link_cycles) / (clock_mhz * 1e3)
 
 
 def multi_chain_ops(M: int, K: int) -> int:
-    """A multi-target frame's dependent operations: the prediction (a sum and
-    a wrap), a cost (a difference, a wrap, |.|, the gate's compare and the
-    select), min(M, K) rounds of a scan of M·K compares and selects and the
-    closing of a row and a column, the update (α·δ, the sum, a wrap) and the
-    spawn's selects."""
-    return (1 + WRAP_OPS) + (WRAP_OPS + 4) + min(M, K) * (2 * M * K + 2) + (2 + WRAP_OPS) + 4
+    """A multi-target frame's dependent float32 and integer operations
+    beside its three links (the prediction's, a cost's, the update's; the K
+    costs of a slot are independent): a cost's |.|, the gate's compare and
+    the select; min(M, K) rounds of a minimum over M·K costs (a tree of
+    ceil(log2(M·K)) compares and selects, the least depth any evaluation
+    has) and the closing of its row and column; α·δ and the update's select;
+    the spawn's two selects."""
+    depth = max(1, int(np.ceil(np.log2(M * K))))
+    return 3 + min(M, K) * (2 * depth + 1) + 2 + 2
 
 
-def multi_chain_ms(T: int, M: int, K: int, clock_mhz: float) -> float:
-    return T * multi_chain_ops(M, K) * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+def multi_chain_cycles(M: int, K: int, link_cycles: float) -> float:
+    return 3 * link_cycles + multi_chain_ops(M, K) * FP32_LATENCY_CYCLES
+
+
+def multi_chain_ms(T: int, M: int, K: int, clock_mhz: float, link_cycles: float) -> float:
+    return T * multi_chain_cycles(M, K, link_cycles) / (clock_mhz * 1e3)
+
+
+def wrap_latency(n: int = WRAP_CHAIN_STEPS) -> dict:
+    """The wrap's latency on the card: one thread's chain ``x = form(x +
+    c)``, ``n`` steps between two ``clock64`` reads (``track_kernel.
+    wrap_chain``), for every form of ``track_kernel.WRAP_FORMS`` at
+    arguments |x| <= 2 pi (``WRAP_SMALL``) and past 105 615, where the
+    accurate sine reduces by its slow path (``WRAP_LARGE``): cycles a step
+    (each step one float32 add more than the form), after a short chain
+    that warms the instruction cache."""
+    from ..ops.cuda import track_kernel
+
+    _require_cuda()
+    out = {}
+    for form in track_kernel.WRAP_FORMS:
+        out[form] = {}
+        for label, (x0, c) in (("|x| <= 2 pi", WRAP_SMALL), ("past 105 615", WRAP_LARGE)):
+            track_kernel.wrap_chain(x0, c, 64, form)
+            _, cycles = track_kernel.wrap_chain(x0, c, n, form)
+            out[form][label] = cycles / n
+    return out
+
+
+def wrap_bits(form: str = "wrap", stride: int = 1, chunk: int = 1 << 28) -> dict:
+    """The kernels' wrap form ``form`` (``track_kernel.wrap_apply``) against
+    PyTorch's ``atan2(sin x, cos x)`` on the card at every ``stride``-th
+    float32 bit pattern (1: all 2^32), ``chunk`` patterns at a time:
+    values that differ (NaN equal to NaN, as :func:`same_bits`), bit
+    patterns that differ outside NaN (the sign of a zero), the patterns
+    checked and the seconds."""
+    import time
+
+    from ..ops.cuda import track_kernel
+
+    dev = _require_cuda()
+    t0 = time.perf_counter()
+    differ = bits_differ = checked = 0
+    span = chunk * stride
+    for lo in range(-(1 << 31), 1 << 31, span):
+        x = torch.arange(lo, min(lo + span, 1 << 31), stride, dtype=torch.int64, device=dev).to(torch.int32)
+        x = x.view(torch.float32)
+        want = torch.atan2(torch.sin(x), torch.cos(x))
+        got = track_kernel.wrap_apply(x, form)
+        nan = got.isnan() & want.isnan()
+        differ += int((~((got == want) | nan)).sum())
+        bits_differ += int(((got.view(torch.int32) != want.view(torch.int32)) & ~nan).sum())
+        checked += x.numel()
+        del x, want, got, nan
+    torch.cuda.synchronize(dev)
+    return dict(form=form, stride=stride, checked=checked, differ=differ, bits_differ=bits_differ,
+                s=time.perf_counter() - t0)
+
+
+TRACK_KERNELS = ("track_angles_kernel", "track_multi_kernel")
+
+
+def kernel_resources(log: str, names=TRACK_KERNELS) -> dict:
+    """``{kernel[<template argument>]: {registers, stack, spill_stores,
+    spill_loads}}`` of the kernels named ``names`` from a build log's
+    ``ptxas -v`` report (``_build``'s ``<library>.log``)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            mangled = m.group(1)
+            name = next((n for n in names if n in mangled), None)
+            if name is None:
+                cur = None
+                continue
+            arg = re.search(re.escape(name) + r"ILi(\d+)E", mangled)
+            cur = out.setdefault(name + (f"<{arg.group(1)}>" if arg else ""), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def build_resources(names=TRACK_KERNELS) -> dict:
+    """:func:`kernel_resources` of the built library's log."""
+    from ..ops.cuda import _build
+
+    return kernel_resources(_build.library_path().with_suffix(".log").read_text(), names)
+
+
+def tracker_sass(listing=None) -> dict:
+    """Each tracking kernel's SASS (:func:`kernel_sass` of
+    ``csrc/tracking.cu``): its instructions, its local loads and stores
+    (``LDL``, ``STL``), calls, branches and reconvergence points; with
+    ``listing`` (a path) every instruction written there, kernel by
+    kernel."""
+    cu = Path(__file__).resolve().parent.parent / "csrc" / "tracking.cu"
+    out, text = {}, []
+    for name in TRACK_KERNELS:
+        for inst, ins in kernel_sass(cu, name).items():
+            ops = [_opcode(i) for i in ins]
+            out[inst] = dict(instructions=len(ins), **{op: ops.count(op) for op in SASS_COUNTED})
+            text += [f"== {inst}"] + [f"{i:5d} {x}" for i, x in enumerate(ins)]
+    if listing:
+        Path(listing).write_text("\n".join(text) + "\n")
+    return out
+
+
+SASS_COUNTED = ("LDL", "STL", "CALL", "BRA", "BSSY", "MUFU", "SHFL", "REDUX", "VOTE")
+
+
+def _opcode(ins: str) -> str:
+    """A SASS instruction's opcode without its modifiers or predicate."""
+    toks = ins.split()
+    return (toks[1] if toks[0].startswith("@") and len(toks) > 1 else toks[0]).split(".")[0]
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -615,17 +773,20 @@ def recurrence_split(frames: torch.Tensor, reps: int, clock_mhz: float, only=Non
             out[f"envelope {name}"] = r
     z, zk, valid = (t.to(dev) for t in track_inputs())
     T, B = z.shape
+    if only is None or {"track_angles", "track_multi"} & set(only):
+        link = wrap_latency()["wrap"]["|x| <= 2 pi"]  # the chain floors' link, measured on this card
     if only is None or "track_angles" in only:
         r = kernel_split(lambda: tracking.track_angles(z, device=dev), reps, "track_angles_kernel")
-        r.update(shape=(T, B), chain_floor_ms=track_chain_ms(T, clock_mhz), bytes=track_work(T, B)[1],
-                 cycles_a_frame=r["mean_ms"] * 1e3 * clock_mhz / T, chain_cycles=TRACK_CHAIN_OPS * FP32_LATENCY_CYCLES)
+        r.update(shape=(T, B), chain_floor_ms=track_chain_ms(T, clock_mhz, link), bytes=track_work(T, B)[1],
+                 cycles_a_frame=r["mean_ms"] * 1e3 * clock_mhz / T, chain_cycles=track_chain_cycles(link),
+                 link_cycles=link)
         out[f"track_angles ({T}, {B})"] = r
     if only is None or "track_multi" in only:
         r = kernel_split(lambda: tracking.track_multi_angles(zk, valid, MULTI_M, device=dev), reps,
                          "track_multi_kernel")
-        r.update(shape=(T, B, MULTI_K), M=MULTI_M, chain_floor_ms=multi_chain_ms(T, MULTI_M, MULTI_K, clock_mhz),
+        r.update(shape=(T, B, MULTI_K), M=MULTI_M, chain_floor_ms=multi_chain_ms(T, MULTI_M, MULTI_K, clock_mhz, link),
                  bytes=multi_work(T, B, MULTI_M, MULTI_K)[1], cycles_a_frame=r["mean_ms"] * 1e3 * clock_mhz / T,
-                 chain_cycles=multi_chain_ops(MULTI_M, MULTI_K) * FP32_LATENCY_CYCLES)
+                 chain_cycles=multi_chain_cycles(MULTI_M, MULTI_K, link), link_cycles=link)
         out[f"track_multi ({T}, {B}, {MULTI_K}), {MULTI_M} tracks"] = r
     for r in out.values():
         r["bytes_bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -724,12 +885,19 @@ def sass_against(other: Path, name: str = "xylo_sim_kernel") -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", nargs="?", default="check", choices=("check", "split", "sass"))
+    ap.add_argument("mode", nargs="?", default="check", choices=("check", "split", "sass", "wrap"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", nargs="+", choices=SIM_CASES + RECURRENCE_CASES, help="split: these cases alone")
     ap.add_argument("--pad-mib", type=int, default=0, help="split: MiB allocated on the card first")
     ap.add_argument("--against", help="sass: the other tree's csrc/xylo_sim.cu")
+    ap.add_argument("--sass-listing", help="wrap: write the tracking kernels' SASS to this file")
     args = ap.parse_args(argv)
+    if args.mode == "wrap":
+        out = {"card": card_line(), "clock_mhz": sm_clock_mhz(), "cycles a step": wrap_latency(),
+               "bits": [wrap_bits(form) for form in ("wrap", "atan2f(sinf, cosf)")], "ptxas": build_resources(),
+               "sass": tracker_sass(args.sass_listing)}
+        print(json.dumps(out, default=str))
+        return out
     if args.mode in ("split", "sass"):
         out = split(args.reps, args.only, args.pad_mib) if args.mode == "split" else sass_against(args.against)
         print(json.dumps(out, default=str))

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ...config import FS
-from ...geometry import ArrayGeometry, resolve_device
+from ...geometry import ArrayGeometry, as_device_tensor, resolve_device
 from ...ops.cuda import lif_kernel
 from ...ops.cuda.matched_kernel import band_scores, matched_scores, row_sums
 from ...ops.cuda.suppress_kernel import rzcc_encode_bipolar_tm
@@ -507,6 +507,7 @@ class Demo:
         The matched estimators need their table (``calibrate_profiles()``,
         or with ``band_stacked=True``) and raise ``ValueError`` without it or
         for rates of another width than the table's."""
+        rate = as_device_tensor(rate, self.device)
         if method == "peak":
             return rate
         if method not in ("matched",) + STACKED:
@@ -530,7 +531,8 @@ class Demo:
 
     def estimate_doa_from_rate(self, rate: torch.Tensor, method: str = "peak") -> torch.Tensor:
         """Rates (..., G), or (..., F·G) unfolded for the stacked
-        estimators, → DoAs (...) (JAX ``estimate_doa_from_rate``,
+        estimators (an array that is not a tensor lands on the model's
+        device), → DoAs (...) (JAX ``estimate_doa_from_rate``,
         ``pipeline.py:396-463``, row by row; micloc/xylo_snn_localization.py:400-444):
 
         - ``"peak"``, ``"matched"``, ``"matched_stacked"``, ``"matched_auto"``:
@@ -542,6 +544,7 @@ class Demo:
           as JAX's gather does."""
         if method not in METHODS:
             raise ValueError(f"only the following estimation methods are supported:\n{list(METHODS)}")
+        rate = as_device_tensor(rate, self.device)
         if method in ("peak", "matched") + STACKED:
             return self._doa_t[torch.argmax(self.doa_scores(rate, method), dim=-1)]
         G = len(self.doa_list)

@@ -78,6 +78,8 @@ _SIGNATURES = {
     "hm_track_constants": ([_P], None),
     "hm_track_angles": ([_P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
     "hm_track_multi": ([_P] * 4 + [_I] * 6 + [_F] * 4 + [_P], _I),
+    "hm_wrap_chain": ([_F, _F, _I, _I, _P, _P, _P], _I),
+    "hm_wrap_apply": ([_P, _P, _L, _I, _P], _I),
     "hm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -13,6 +13,11 @@ them rounded so (:func:`float32`).
 
 On CPU tensors both run the plain loop; on any other device they launch
 the kernel or raise.
+
+Two probes of the kernels' ``wrap`` (``atan2f(sinf(x), cosf(x))`` as
+``atan2f`` of ``sincosf``'s pair) measure it on the card: :func:`wrap_chain` (one thread's chain of wraps between two
+``clock64`` reads: its latency) and :func:`wrap_apply` (the wrap of every
+value of a tensor: its bits against PyTorch's ``atan2(sin x, cos x)``).
 """
 from __future__ import annotations
 
@@ -29,6 +34,9 @@ from ._build import check, launch_counts, library, library_constants, stream_han
 # hm_track_constants gives them
 TRACK_THREADS, M_MAX, K_MAX = 128, 16, 16
 INT32 = np.iinfo(np.int32)
+# the probes' forms (csrc/tracking.cu wrap_form): the plain loops' three functions, the kernels' wrap (atan2f of
+# sincosf's pair), and the chain of each function alone
+WRAP_FORMS = {"atan2f(sinf, cosf)": 0, "wrap": 1, "sinf": 2, "cosf": 3, "atan2f": 4}
 
 
 @functools.lru_cache(maxsize=1)
@@ -129,3 +137,35 @@ def track_multi(z_seq: torch.Tensor, valid_seq: torch.Tensor, num_tracks: int, a
         launch_counts["track_multi"] += 1
     shape = (T,) + tuple(lanes) + (M,)
     return thetas.reshape(shape), confirmed.reshape(shape)
+
+
+def wrap_chain(x0: float, c: float, n: int, form: str = "wrap", device=None) -> tuple[float, int]:
+    """``(x, cycles)``: one thread on the card runs ``x = form(x + c)`` ``n``
+    times from ``x0`` (``WRAP_FORMS``), ``cycles`` the ``clock64`` cycles of
+    the chain (each step one float32 add more than the form)."""
+    lib = checked_library()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = lib.hm_wrap_chain(float32(x0), float32(c), _int32(n, "n"), WRAP_FORMS[form], out.data_ptr(),
+                           cycles.data_ptr(), stream_handle(dev))
+    check(rc, "wrap_chain")
+    launch_counts["wrap_chain"] += 1
+    return float(out.item()), int(cycles.item())
+
+
+def wrap_apply(x: torch.Tensor, form: str = "wrap") -> torch.Tensor:
+    """The kernels' wrap (or ``"atan2f(sinf, cosf)"``) of every value of
+    the float32 CUDA tensor ``x``."""
+    if x.dtype != torch.float32 or x.device.type != "cuda":
+        raise ValueError(f"wrap_apply takes a float32 CUDA tensor (got {x.dtype} on {x.device})")
+    if WRAP_FORMS[form] > 1:
+        raise ValueError(f"wrap_apply applies a wrap form ('wrap' or 'atan2f(sinf, cosf)'), not {form!r}")
+    lib = checked_library()
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel():
+        check(lib.hm_wrap_apply(x.data_ptr(), y.data_ptr(), x.numel(), WRAP_FORMS[form], stream_handle(x.device)),
+              "wrap_apply")
+        launch_counts["wrap_apply"] += 1
+    return y

@@ -6,8 +6,9 @@ time (dim 0; :func:`rzcc_encode` and the RZCC encoder take any leading
 batch dims, time second to last), vectorized over channels.  The RZCC
 encoder is the one of the SNN beamformer's design and of every SNN
 pipeline; the integrate-and-fire and peak encoders are the reference's
-alternatives, and put a signal that is not a tensor on ``device``, the card
-unless the caller passes ``device="cpu"`` (a tensor stays on its device).
+alternatives.  Each encoder's ``evolve`` puts a signal that is not a tensor
+on ``device``, the card unless the caller passes ``device="cpu"`` (a tensor
+stays on its device).
 """
 from __future__ import annotations
 
@@ -87,8 +88,8 @@ class ZeroCrossingSpikeEncoder(SpikeEncoder):
         self.robust_width = robust_width
         self.bipolar = bipolar
 
-    def evolve(self, sig_in: torch.Tensor) -> torch.Tensor:
-        return rzcc_encode(sig_in, self.robust_width, self.bipolar)
+    def evolve(self, sig_in, device=None) -> torch.Tensor:
+        return rzcc_encode(as_device_tensor(sig_in, device), self.robust_width, self.bipolar)
 
 
 class PeakSpikeEncoder(SpikeEncoder):

@@ -29,6 +29,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..geometry import as_device_tensor
+
 
 def canonical_device(device) -> torch.device:
     """``device`` as a ``torch.device`` with its index: a bare ``"cuda"``
@@ -114,9 +116,12 @@ def gather(pieces: Sequence[torch.Tensor], axis: int = 0, device="cpu") -> torch
     return torch.cat([p.to(device) for p in pieces], dim=axis)
 
 
-def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int = 0):
+def pad_to_multiple(x, multiple: int, axis: int = 0, device=None):
     """Zero-pad ``axis`` up to a multiple (a split axis must divide
-    evenly).  Returns ``(padded, original_size)``."""
+    evenly).  Returns ``(padded, original_size)``.  An ``x`` that is not a
+    tensor lands on ``device``, the card unless the caller passes
+    ``"cpu"``."""
+    x = as_device_tensor(x, device)
     n = x.shape[axis]
     pad = (-n) % multiple
     if pad == 0:

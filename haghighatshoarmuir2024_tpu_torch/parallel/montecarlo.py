@@ -19,7 +19,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..geometry import resolve_device
+from ..geometry import as_device_tensor, resolve_device
 from ..ops.interp import interp_uniform
 from .mesh import device_scope
 
@@ -29,9 +29,13 @@ from .mesh import device_scope
 gathered_bytes: Counter = Counter()
 
 
-def folded_angle_error(est: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
+def folded_angle_error(est, true, device=None) -> torch.Tensor:
     """The reference's error metric ``arcsin|sin(est − true)|``
-    (paper_plots/target_xylo_localization.py:607-608)."""
+    (paper_plots/target_xylo_localization.py:607-608).  An ``est`` that is
+    not a tensor lands on ``device``, the card unless the caller passes
+    ``"cpu"``, and ``true`` on ``est``'s device."""
+    est = as_device_tensor(est, device)
+    true = torch.as_tensor(true, device=est.device)
     return torch.arcsin(torch.abs(torch.sin(est - true)))
 
 

@@ -5,14 +5,18 @@ from __future__ import annotations
 
 import torch
 
+from ..geometry import as_device_tensor
 from ..ops.fir import moving_average_full
 
 
-def find_peak_location(sig_in: torch.Tensor, win_size: int, periodic: bool = True) -> torch.Tensor:
+def find_peak_location(sig_in, win_size: int, periodic: bool = True, device=None) -> torch.Tensor:
     """Index of the peak of each row of ``sig_in`` (..., T) after
     length-``win_size`` averaging: full-mode moving average, argmax (the
     first of equal maxima), shifted back by ``win_size // 2``, wrapped
-    modulo T when ``periodic``.  Returns int64 indices of shape (...)."""
+    modulo T when ``periodic``.  Returns int64 indices of shape (...).  A
+    ``sig_in`` that is not a tensor lands on ``device``, the card unless the
+    caller passes ``"cpu"``; a tensor stays on its device."""
+    sig_in = as_device_tensor(sig_in, device)
     if sig_in.dim() < 1:
         raise ValueError("input signal should be at least 1-dim!")
     T = sig_in.shape[-1]

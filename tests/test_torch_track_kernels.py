@@ -20,7 +20,17 @@ JAX package on the same numpy inputs, and models of their hand kernels:
   minimum in row-major order, stopping at an infinite minimum) equal to the
   plain masked form's ``assign`` and ``taken`` on costs with ties, infinite
   rows and columns, K > M and M > K; and scalar models of both trackers'
-  per-lane branches (``csrc/tracking.cu``) equal to the plain loops, the
+  per-lane branches (the kernels' first, scalar design) equal to the plain
+  loops, the integers exact, the angles within 1e-6 rad;
+- models of the redesigned kernels (``csrc/tracking.cu``): the warp's
+  greedy rounds (each thread its row's first minimum, a reduction over the
+  minima's bits and then over the index m·KC + k, the stop at inf) equal to
+  ``greedy_assignment`` and the scalar model at M, K in {1, 2, 4, 16} with
+  ties, inf rows, columns and lanes; the spawns by one ballot and ranks
+  equal to the plain loop's first-empty-slot rule; the branch-free
+  ``track_angles`` frame (three wraps on selected arguments, the states as
+  selects) and the warp form of the multi-target lane equal to the plain
+  loops (re-acquisition, coasting, the gate's float32 boundary), the
   integers exact, the angles within 1e-6 rad;
 - the device repair: a signal that is not a tensor lands on the card unless
   the caller passes ``device="cpu"`` (``Envelope.evolve`` and the
@@ -203,8 +213,8 @@ def test_torch_envelope_kernel_lane_model(dtype, carried):
 
 # ------------------------------------------------------------------ models of the tracking kernels
 def greedy_model(cost: np.ndarray):
-    """``csrc/tracking.cu``'s assignment of one lane's (M, K) cost: rounds of
-    a scalar scan for the first minimum (strict <), stopping at inf."""
+    """The scalar design's assignment of one lane's (M, K) cost: rounds of a
+    scalar scan for the first minimum (strict <), stopping at inf."""
     M, K = cost.shape
     c = cost.astype(np.float32).ravel().copy()
     assign, taken = np.full(M, -1), np.zeros(K, bool)
@@ -253,7 +263,8 @@ def f32(v) -> np.float32:
 
 
 def track_angles_model(z: np.ndarray, alpha=0.35, beta=None, gate_deg=25.0, max_misses=3):
-    """``track_angles_kernel``'s branches for one lane, float32."""
+    """The scalar design's ``track_angles_kernel``: its branches for one
+    lane, float32."""
     alpha32, beta32 = f32(alpha), f32(tracking._beta(alpha, beta))
     gate = f32(np.deg2rad(gate_deg))
     theta = omega = f32(0)
@@ -282,8 +293,8 @@ def track_angles_model(z: np.ndarray, alpha=0.35, beta=None, gate_deg=25.0, max_
 
 def track_multi_model(z: np.ndarray, valid: np.ndarray, M: int, alpha=0.35, beta=None, gate_deg=25.0,
                       max_misses=3, confirm_hits=2):
-    """``track_multi_kernel``'s branches for one lane: (T, K) in, (T, M)
-    thetas and confirmed out, float32."""
+    """The scalar design's ``track_multi_kernel``: its branches for one lane,
+    (T, K) in, (T, M) thetas and confirmed out, float32."""
     alpha32, beta32 = f32(alpha), f32(tracking._beta(alpha, beta))
     gate, pi = f32(np.deg2rad(gate_deg)), f32(np.pi)
     T, K = z.shape
@@ -352,6 +363,282 @@ def test_torch_track_multi_kernel_model(M, K):
         th, cf = track_multi_model(z[:, b], valid[:, b], M, **kw)
         np.testing.assert_array_equal(cf, want_cf[:, b].numpy())
         np.testing.assert_allclose(th, want_th[:, b].numpy(), rtol=0, atol=ANGLE_TOL)
+
+
+# ------------------------------------------------------------------ models of the redesigned tracking kernels
+FULL32 = 0xFFFFFFFF
+INF_BITS = 0x7F800000
+
+
+def capacity(K: int) -> int:
+    """The measurement capacity KC the multi-target kernel is built for at
+    K measurements: 2, 4, 8 or 16."""
+    return max(2, 1 << (K - 1).bit_length())
+
+
+def warp_assignment_model(cost: np.ndarray):
+    """``track_multi_kernel``'s greedy rounds on one lane's (M, K) cost, as
+    the warp computes them: thread m holds row m (rows M..31 all inf), each
+    round every thread takes its row's first minimum (strict <), the warp
+    reduces the minima's bits (non-negative floats order as their bits),
+    then the index m·KC + k among the threads that hold the minimum, and
+    stops at inf; the winner's row and column close."""
+    M, K = cost.shape
+    KC = capacity(K)
+    c = np.full((32, KC), INF, np.float32)
+    c[:M, :K] = cost
+    assign, taken = np.full(32, -1), 0
+    for _ in range(min(M, K)):
+        rc, rk = np.full(32, INF, np.float32), np.zeros(32, int)
+        for m in range(32):
+            for k in range(KC):
+                if c[m, k] < rc[m]:
+                    rc[m], rk[m] = c[m, k], k
+        bits = rc.view(np.uint32)
+        best = int(bits.min())
+        if best == INF_BITS:
+            break
+        idx = min(m * KC + int(rk[m]) if bits[m] == best else FULL32 for m in range(32))
+        bm, bk = divmod(idx, KC)
+        taken |= 1 << bk
+        assign[bm] = bk
+        c[bm, :] = INF
+        c[:, bk] = INF
+    return assign[:M], np.array([(taken >> k) & 1 for k in range(K)], bool)
+
+
+def ballot_spawn_model(empty: np.ndarray, left: np.ndarray) -> dict:
+    """The kernel's spawns: one ballot of the empty slots, and the empty
+    slot of rank r among them takes the r-th leftover measurement (its r
+    lowest set bits dropped, then the first), if there is one.  Returns
+    ``{slot: measurement}``."""
+    free = sum(1 << int(m) for m in np.flatnonzero(empty))
+    lmask = sum(1 << int(k) for k in np.flatnonzero(left))
+    out = {}
+    for m in np.flatnonzero(empty):
+        s = lmask
+        for _ in range(bin(free & ((1 << int(m)) - 1)).count("1")):
+            s &= s - 1
+            if not s:
+                break
+        if s:
+            out[int(m)] = (s & -s).bit_length() - 1
+    return out
+
+
+def sequential_spawn(empty: np.ndarray, left: np.ndarray) -> dict:
+    """The plain loop's spawns: each leftover measurement, in order, in the
+    first empty slot, until none is empty."""
+    empty, out = empty.copy(), {}
+    for k in np.flatnonzero(left):
+        free = np.flatnonzero(empty)
+        if free.size == 0:
+            break
+        out[int(free[0])] = int(k)
+        empty[free[0]] = False
+    return out
+
+
+ASSIGN_SHAPES = [(1, 1), (1, 2), (1, 16), (2, 1), (4, 1), (16, 1), (2, 2), (4, 2), (2, 4), (4, 4), (4, 16), (16, 4),
+                 (16, 2), (16, 16)]
+
+
+@pytest.mark.parametrize("M,K", ASSIGN_SHAPES)
+def test_torch_track_multi_warp_assignment_model(M, K):
+    """The warp's rounds (row minima, the reduction over bits and then
+    index, the stop at inf) give ``greedy_assignment``'s and the scalar
+    model's ``assign`` and ``taken`` on tie-heavy costs, whole rows,
+    columns and lanes inf, and every entry tied."""
+    rng = np.random.default_rng(M * 37 + K)
+    B = 48
+    cost = rng.choice(np.array([0.0, 0.1, 0.2, 0.3, np.inf], np.float32), size=(B, M, K),
+                      p=[0.1, 0.25, 0.25, 0.2, 0.2])
+    cost[1::7] = np.inf
+    cost[2::5, 0] = np.inf
+    cost[3::6, :, -1] = np.inf
+    cost[4::9] = np.float32(0.1)
+    cost[5::11] = np.float32(0.0)
+    assign, taken = tracking.greedy_assignment(torch.as_tensor(cost))
+    for b in range(B):
+        wa, wt = warp_assignment_model(cost[b])
+        sa, st = greedy_model(cost[b])
+        np.testing.assert_array_equal(wa, assign[b].numpy())
+        np.testing.assert_array_equal(wt, taken[b].numpy())
+        np.testing.assert_array_equal(wa, sa)
+        np.testing.assert_array_equal(wt, st)
+
+
+@pytest.mark.parametrize("M,K", ASSIGN_SHAPES)
+def test_torch_track_multi_ballot_spawn_model(M, K):
+    """One ballot and ranks give the plain loop's spawns (each leftover
+    measurement in order into the first empty slot), with every slot empty,
+    none empty, and every measurement or none left over."""
+    rng = np.random.default_rng(M * 41 + K)
+    cases = [(np.ones(M, bool), np.ones(K, bool)), (np.zeros(M, bool), np.ones(K, bool)),
+             (np.ones(M, bool), np.zeros(K, bool))]
+    cases += [(rng.random(M) < p, rng.random(K) < q) for p in (0.2, 0.5, 0.8) for q in (0.3, 0.7) for _ in range(8)]
+    for empty, left in cases:
+        assert ballot_spawn_model(empty, left) == sequential_spawn(empty, left)
+
+
+def track_angles_select_model(z: np.ndarray, alpha=0.35, beta=None, gate_deg=25.0, max_misses=3):
+    """``track_angles_kernel``'s frame for one lane, float32: three wraps
+    on arguments selected first (z - theta when booting, z - pred
+    otherwise), then the state machine as selects."""
+    alpha32, beta32 = f32(alpha), f32(tracking._beta(alpha, beta))
+    gate = f32(np.deg2rad(gate_deg))
+    theta = omega = f32(0)
+    misses = init = 0
+    out = np.empty(len(z), np.float32)
+    for t, zt in enumerate(z):
+        zt = f32(zt)
+        pred = f32(wrap(theta + omega))
+        w2 = f32(wrap(zt - (theta if init == 1 else pred)))
+        inlier = abs(w2) <= gate
+        m = 0 if inlier else misses + 1
+        w3 = f32(wrap(pred + alpha32 * w2))
+        om_upd = f32(omega + beta32 * w2)
+        tracking_, reacquire = init == 2, m > max_misses
+        th_track = zt if reacquire else (w3 if inlier else pred)
+        om_track = f32(0) if reacquire else (om_upd if inlier else omega)
+        theta = th_track if tracking_ else zt
+        omega = om_track if tracking_ else (w2 if init == 1 else f32(0))
+        misses = m if tracking_ and not reacquire else 0
+        init = (1 if reacquire else 2) if tracking_ else init + 1
+        out[t] = theta
+    return out
+
+
+def gate_lanes(gate_deg: float = 25.0) -> np.ndarray:
+    """(3, 6) lanes: two frames at 0 (spawn, bootstrap), then a measurement
+    whose wrapped distance from the prediction 0 is the float32 just below
+    float32(gate), float32(gate) itself and the one just above, both signs."""
+    g = np.float32(np.deg2rad(gate_deg))
+    edge = np.array([np.nextafter(g, np.float32(0)), g, np.nextafter(g, np.float32(1))], np.float32)
+    edge = np.concatenate([edge, -edge])
+    return np.stack([np.zeros(6, np.float32), np.zeros(6, np.float32), edge])
+
+
+ANGLE_MODEL_CASES = {
+    "re-acquisition": (lambda: angle_lanes(6), dict(alpha=0.3, gate_deg=15.0, max_misses=2)),
+    "coasting, max_misses = 5": (lambda: angle_lanes(7), dict(gate_deg=10.0, max_misses=5)),
+    "max_misses = 0": (lambda: angle_lanes(8), dict(max_misses=0)),
+    "the gate's float32 boundary": (gate_lanes, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(ANGLE_MODEL_CASES))
+def test_torch_track_angles_select_model(case):
+    """The branch-free frame (three wraps on selected arguments, the states
+    as selects) gives the plain loop's angles lane by lane, the inlier
+    decisions exact: at the gate's boundary |delta| = float32(gate) is an
+    inlier and the next float32 is not."""
+    make, kw = ANGLE_MODEL_CASES[case]
+    z = make()
+    want = tracking.track_angles_plain(torch.as_tensor(z), device="cpu", **kw).numpy()
+    for b in range(z.shape[1]):
+        np.testing.assert_allclose(track_angles_select_model(z[:, b], **kw), want[:, b], rtol=0, atol=ANGLE_TOL)
+    if case == "the gate's float32 boundary":
+        assert (want[-1] != 0).tolist() == [True, True, False, True, True, False]
+
+
+def track_multi_warp_model(z: np.ndarray, valid: np.ndarray, M: int, alpha=0.35, beta=None, gate_deg=25.0,
+                           max_misses=3, confirm_hits=2):
+    """``track_multi_kernel`` for one lane, float32: the costs of each
+    slot's row, :func:`warp_assignment_model`, the update's one wrap on a
+    selected argument, the deaths, :func:`ballot_spawn_model`."""
+    alpha32, beta32 = f32(alpha), f32(tracking._beta(alpha, beta))
+    gate, pi = f32(np.deg2rad(gate_deg)), f32(np.pi)
+    T, K = z.shape
+    th, om = np.zeros(M, np.float32), np.zeros(M, np.float32)
+    mi, ini, hi = np.zeros(M, int), np.zeros(M, int), np.zeros(M, int)
+    thetas, confirmed = np.empty((T, M), np.float32), np.empty((T, M), bool)
+    for t in range(T):
+        pred = np.array([wrap(th[m] + om[m]) for m in range(M)], np.float32)
+        d = np.array([[wrap(z[t, k] - pred[m]) for k in range(K)] for m in range(M)], np.float32)
+        live = (ini == 1) | (ini == 2)
+        g = np.where(ini == 2, gate, pi)[:, None]
+        cost = np.where(live[:, None] & valid[t][None, :] & (np.abs(d) <= g), np.abs(d), INF).astype(np.float32)
+        assign, taken = warp_assignment_model(cost)
+        for m in range(M):
+            tracking_, booting, has = ini[m] == 2, ini[m] == 1, assign[m] >= 0
+            za, da = (z[t, assign[m]], d[m, assign[m]]) if has else (f32(0), f32(0))
+            wv = f32(wrap(za - th[m] if booting else pred[m] + alpha32 * da))
+            if tracking_ and has:
+                th[m], om[m], mi[m], hi[m] = wv, om[m] + beta32 * da, 0, hi[m] + 1
+            elif tracking_:
+                th[m], mi[m] = pred[m], mi[m] + 1
+                if mi[m] > max_misses:
+                    ini[m] = hi[m] = mi[m] = 0
+            elif booting and has:
+                om[m], th[m], hi[m], mi[m], ini[m] = wv, za, hi[m] + 1, 0, 2
+            elif booting:
+                ini[m] = hi[m] = mi[m] = 0
+        for m, k in ballot_spawn_model(ini == 0, valid[t] & ~taken).items():
+            th[m], om[m], mi[m], hi[m], ini[m] = z[t, k], 0.0, 0, 0, 1
+        thetas[t], confirmed[t] = th, (ini == 2) & (hi >= confirm_hits)
+    return thetas, confirmed
+
+
+@pytest.mark.parametrize("M,K", [(4, 2), (1, 1), (1, 4), (4, 1), (16, 2), (2, 16), (6, 6)])
+def test_torch_track_multi_warp_model(M, K):
+    """The redesigned kernel's lane (a thread a slot, the warp's rounds, one
+    update wrap on a selected argument, ballot spawns) gives the plain
+    loop's ``confirmed`` exactly and its angles within 1e-6 rad."""
+    if K >= 2:
+        z, valid = multi_lanes(M * 7 + K, K=K)
+    else:
+        z, valid = multi_lanes(M * 7 + K, K=2)
+        z, valid = z[..., :1].copy(), valid[..., :1].copy()
+    kw = dict(max_misses=2, confirm_hits=3)
+    want_th, want_cf = tracking.track_multi_angles_plain(torch.as_tensor(z), torch.as_tensor(valid), M,
+                                                         device="cpu", **kw)
+    for b in range(z.shape[1]):
+        th, cf = track_multi_warp_model(z[:, b], valid[:, b], M, **kw)
+        np.testing.assert_array_equal(cf, want_cf[:, b].numpy())
+        np.testing.assert_allclose(th, want_th[:, b].numpy(), rtol=0, atol=ANGLE_TOL)
+
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a539b8c9_11_tracking_cu_f5cfa07818track_multi_kernelILi8EEEvNS_9MultiArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__a539b8c9_11_tracking_cu_f5cfa07818track_multi_kernelILi8EEEvNS_9MultiArgsE
+    48 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 48 bytes cumulative stack size, 5120 bytes smem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a539b8c9_11_tracking_cu_f5cfa07817wrap_chain_kernelILi0EEEvffiPfPx' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__a539b8c9_11_tracking_cu_f5cfa07817wrap_chain_kernelILi0EEEvffiPfPx
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a539b8c9_11_tracking_cu_f5cfa07819track_angles_kernelENS_9TrackArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__a539b8c9_11_tracking_cu_f5cfa07819track_angles_kernelENS_9TrackArgsE
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 46 registers, used 0 barriers, 32 bytes cumulative stack size, 8192 bytes smem
+"""
+
+
+def test_torch_track_kernel_resources_parse_ptxas():
+    """The tracking kernels' registers, stack frames and spills read from a
+    build log's ``ptxas -v`` lines (these from an sm_90a build), each
+    template instantiation apart and other kernels left out; SASS opcodes
+    without their predicates and modifiers."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    got = scan_kernels.kernel_resources(PTXAS_LOG)
+    assert got == {"track_multi_kernel<8>": dict(stack=48, spill_stores=16, spill_loads=16, registers=80),
+                   "track_angles_kernel": dict(stack=32, spill_stores=0, spill_loads=0, registers=46)}
+    assert [scan_kernels._opcode(i) for i in ("@!P2 BRA 0x6270", "LDL.64 R2, [R1]", "REDUX.MIN UR4, R57",
+                                              "@P0 EXIT")] == ["BRA", "LDL", "REDUX", "EXIT"]
+
+
+@pytest.mark.parametrize("M,K,ops", [(4, 2, 21), (1, 1, 10), (16, 16, 7 + 16 * 17)])
+def test_torch_track_chain_floors_from_the_measured_link(M, K, ops):
+    """The chain floors take the wrap's measured link: three links a frame
+    and the float32 and integer operations between them (the rounds' tree
+    of ceil(log2(M·K)) levels), 4 cycles each."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    assert scan_kernels.multi_chain_ops(M, K) == ops
+    assert scan_kernels.multi_chain_cycles(M, K, 300.0) == 900.0 + 4 * ops
+    assert scan_kernels.track_chain_cycles(300.0) == 908.0
+    assert scan_kernels.track_chain_ms(240, 1980.0, 300.0) == pytest.approx(240 * 908.0 / 1.98e6)
 
 
 # ------------------------------------------------------------------ the device repair

@@ -17,7 +17,11 @@
     a dtype or a cap the kernels do not take raises on the card;
   * the moving-target and multi-target harnesses give the same results with
     the kernels and with the plain loops forced;
-  * the wrappers' mirrors of the kernels' constants equal the library's.
+  * the wrappers' mirrors of the kernels' constants equal the library's;
+  * the kernels' wrap (``atan2f`` of ``sincosf``'s pair) and
+    ``atan2f(sinf(x), cosf(x))`` against PyTorch's ``atan2(sin x, cos x)``
+    at all 2^32 float32 bit patterns, and the latency probe's chain
+    against the same chain of PyTorch's ops.
 
 The cases are ``experiments/scan_kernels.py``'s and ``chip_smoke.py`` phase
 29's, so every run of that script makes them too.
@@ -168,3 +172,32 @@ def test_wrappers_constants_equal_the_library():
 
     assert envelope_kernel.checked_library() is _build.library()
     assert track_kernel.checked_library() is _build.library()
+
+
+@pytest.mark.parametrize("form", ["wrap", "atan2f(sinf, cosf)"])
+def test_wrap_bits_every_float32(form):
+    """The kernels' wrap (``atan2f`` of ``sincosf``'s pair) and the plain
+    loops' three functions on the card equal PyTorch's ``atan2(sin x, cos
+    x)`` at all 2^32 float32 bit patterns, NaN equal to NaN and the sign of
+    every zero the same."""
+    _card()
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    r = scan_kernels.wrap_bits(form)
+    assert r["checked"] == 1 << 32 and r["differ"] == 0 and r["bits_differ"] == 0, r
+
+
+@pytest.mark.parametrize("x0,c", [(0.3, 0.7), (0.3, 2.0e5)])
+def test_wrap_chain_probe(x0, c):
+    """The latency probe's chain ``x = wrap(x + c)`` ends where PyTorch's
+    ops on the card end, bit for bit, and counts cycles."""
+    dev = _card()
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import track_kernel
+
+    n = 64
+    got, cycles = track_kernel.wrap_chain(x0, c, n)
+    x = torch.tensor([x0], dtype=torch.float32, device=dev)
+    for _ in range(n):
+        x = x + c
+        x = torch.atan2(torch.sin(x), torch.cos(x))
+    assert got == float(x.item()) and cycles > n
