@@ -216,7 +216,9 @@ Phases, each failing the run with a non-zero exit:
     ``flagship_attribution`` on the flagship model and bench.py's frames
     (nested prefixes of ``forward_batch`` by CUDA events, three rounds of 50
     calls; the stages measured alone sum to ``forward_batch(matched)``
-    within the readings' spread; DoAs = phase 5's, 1.00 @5deg);
+    within the readings' spread once each reading's device idle time,
+    events less CUPTI's kernel time, is taken out; DoAs = phase 5's, 1.00
+    @5deg);
     ``serving_throughput`` main (96 streams, 100 steps; 1.00 @5deg; two
     steps on its chunks = the plain step in spikes, counts, state and DoAs;
     ``--sources=2`` printed) and ``daemon_main`` over TCP on the f32, i16,
@@ -384,7 +386,21 @@ Phases, each failing the run with a non-zero exit:
     and T below the read-ahead, N = 4096, records off, uniform and dense ``w_rec``, two
     halves carried), each by ``torch.equal``; both timed by CUDA events
     beside their plain loops and the first design's times, with their bounds, the
-    scan's cycles a step and chain floor;
+    scan's cycles a step and chain floor.  The simulator's
+    recurrent rows take the on-chip kernel (``xylo_sim_onchip``: ``w_rec``
+    in shared memory at its narrowest width, a row on 1-8 CTAs) and PR
+    18's row kernel (``xylo_sim_row``) only a dense ``w_rec`` that cannot
+    live on chip: the phase drives ``XyloSim`` and ``sim_hidden_batch`` on
+    the dense push-to-hidden block, ``XyloSim`` with the uniform ``w_rec =
+    -1`` and on an N = 4096 dense layer through their entry points (each
+    kernel launched); holds the dense block in the four conventions, also
+    at 1, 2 and 4 CTAs a row, and the uniform case to the plain loop; runs
+    the recurrent edges (``SIM_EDGES``: each width at its boundaries, each
+    on the cluster sizes its N plans, N = 1000 in int8 on eight CTAs, N no
+    multiple of S·c with B = 1, ``spk0`` above 1 beside a spiking neuron
+    whose row is zero, two halves carried on one and two CTAs, the row
+    kernel at N = 700 in int32 and N = 4096); and times both row kernels
+    (CUDA events, CUPTI, their bounds and cycles a step);
 29. the envelope follower and the two trackers, the last of the JAX
     package's ``lax.scan``s, as one launch each (``csrc/envelope.cu``,
     ``csrc/tracking.cu``; ``experiments/scan_kernels.py``):
@@ -2361,8 +2377,10 @@ def check_xylo(torch, _build, Demo, flagship, demo, frames, dev):
     out["sim_launches"] = {}
     for label, cfg, ordering, reset in runs:
         card, card_s, launches = sim_run(torch, XyloSim, cfg, spk, ordering, reset, _build)
-        if launches.get("xylo_sim", 0) != 2:  # the hidden layer and the readout
-            fail(f"XyloSim {label}: launched {launches}; want xylo_sim twice (hidden layer, readout)")
+        if scan_kernels.sim_launches(launches) != 2:  # the hidden layer and the readout
+            fail(f"XyloSim {label}: launched {launches}; want the simulator twice (hidden layer, readout)")
+        if cfg is block and launches.get("xylo_sim_onchip", 0) != 1:
+            fail(f"XyloSim {label}: launched {launches}; want the hidden layer on the on-chip kernel")
         host, host_s, _ = sim_run(torch, XyloSim, cfg, spk_host, ordering, reset)
         equal_on_host(torch, {k: v[:SIM_HOST_ROWS] for k, v in card.items()}, host, f"XyloSim {label}")
         n_spk = int(card["Spikes"].sum())
@@ -3118,21 +3136,25 @@ def check_bench_harnesses(torch, _build, sk, lk, StreamingLocalizer, dev, demo, 
         fail("flagship_attribution: its forward_batch(matched) DoAs differ from phase 5's (= the plain path's)")
     if res["doa_ok_frac_matched_5deg"] < 1.0:
         fail(f"flagship_attribution: doa-ok-frac {res['doa_ok_frac_matched_5deg']:.2f} @5deg (matched)")
-    # the stages measured alone add up to the batch: the isolated RZCC and LIF against their in-program share,
-    # within the spread of the readings that enter the sum
+    # the stages measured alone add up to the batch once each reading's device idle time is taken out: the
+    # isolated RZCC and LIF against their in-program share, within the spread of the readings that enter the sum.
+    # The events' gap is the idle time that K2's flag reads (device syncs) leave while the host reaches its next
+    # launch, which depends on what the host runs next: host-bound, so it is printed and not gated
     spread = sum(res["spread_ms"][k] for k in ("encode", "[isolated] RZCC", "[isolated] LIF", "encode+RZCC+LIF",
                                                 "forward_batch (peak)", "forward_batch (matched)"))
     gap = res["stage_sum_isolated_ms"] - res["stages_ms"]["TOTAL (matched)"]
-    if abs(gap) > spread:
-        fail(f"flagship_attribution: the stages measured alone sum to {res['stage_sum_isolated_ms']:.3f} ms against "
-             f"forward_batch(matched)'s {res['stages_ms']['TOTAL (matched)']:.3f} ms, {gap:+.3f} ms, beyond the "
-             f"readings' spread {spread:.3f} ms")
+    idle_gap = fa.isolated_sum(res["idle_ms"]) - res["idle_ms"]["forward_batch (matched)"]
+    if abs(res["device_gap_ms"]) > spread:
+        fail(f"flagship_attribution: the kernels of the stages measured alone run {res['device_gap_ms']:+.3f} ms "
+             f"longer than forward_batch(matched)'s (CUPTI), beyond the readings' spread {spread:.3f} ms")
     out["attribution"] = res
     fa.print_stages(res)
     print(f"{tag} flagship_attribution (B = {B}, {res['reps']} calls x {res['rounds']} rounds, CUDA events): "
           f"{json.dumps({k: v for k, v in res.items() if k != 'doa'})}; the isolated stages sum to "
-          f"{res['stage_sum_isolated_ms']:.3f} ms ({gap:+.3f} ms, spread {spread:.3f}); DoAs == phase 5's (the plain "
-          f"path's), 1.00 @5deg; launches {out['launches']['flagship_attribution']}", flush=True)
+          f"{res['stage_sum_isolated_ms']:.3f} ms ({gap:+.3f} ms: device {res['device_gap_ms']:+.3f} ms, within the "
+          f"spread {spread:.3f}, idle {idle_gap:+.3f} ms); forward_batch(matched) idle "
+          f"{res['idle_ms']['forward_batch (matched)']:.3f} of {res['stages_ms']['TOTAL (matched)']:.3f} ms; DoAs == "
+          f"phase 5's (the plain path's), 1.00 @5deg; launches {out['launches']['flagship_attribution']}", flush=True)
 
     # ---- serving_throughput: the batched step (its first two steps = the plain step), then the daemon
     band = (1600, 1900)
@@ -4805,7 +4827,9 @@ CHAIN_TEXT = "12 000 steps x 4 dependent float32 operations x 4 cycles"
 SIM_REPS = 5
 # wider simulators than the flagship's, at 2, 4 and 8 neurons a thread: (N, ordering, reset, recurrence)
 WIDE_SIMS = ((700, "decay_first", "zero", "dense"), (1347, "integrate_first", "subtract", "dense"),
-             (1347, "decay_first", "subtract", -1), (4096, "integrate_first", "zero", -2))
+             (1347, "decay_first", "subtract", -1), (4096, "integrate_first", "zero", -2),
+             (4096, "decay_first", "subtract", "dense"))
+ROW_SIM = WIDE_SIMS.index((4096, "decay_first", "subtract", "dense"))  # the global-memory row kernel's path
 WIDE_T, WIDE_B = 2000, 3
 # the first design of both kernels (a thread a lane issuing its own copies; a block a batch row), this phase's CUDA
 # events on an NVIDIA H100 80GB HBM3 at 700 W, printed beside the redesign's
@@ -4822,7 +4846,11 @@ IIR_EDGES = tuple((f"N = {n}: (300, 45) float32, 45 lanes, T no multiple of a ti
     ("(5, 777, 7) float32 along dim 1: MUSIC's strided view", 777, (5, 7), "float32", 2, "movedim"),
     ("(400, 40) float32, zi carried over two halves", 400, (40,), "float32", 4, "carried"),
 )
-# the simulator's: (label, T, B, N, recurrence (0: none, an int: uniform, "dense"), ordering, reset, records)
+# the simulator's: (label, T, B, N, recurrence (0: none, an int: uniform, "dense"), ordering, reset, records[,
+# extras]); extras (a dense w_rec): "width" the bytes an entry takes (its boundary entries put in), "spk0" the
+# largest initial spike value, "zero_row" a spiking neuron whose row of w_rec is zero.  Each runs the kernel and
+# the cluster size sim_launch plans for it: the on-chip kernel on 1, 2, 4 and 8 CTAs a row in each width and with
+# a uniform w_rec at 1, 2 and 8 neurons a thread, the global-memory row kernel at 2 and 8.
 SIM_EDGES = (
     ("B = 3, N = 449: flat, the last block partial; two halves carried", 999, 3, 449, 0, "decay_first", "subtract",
      True),
@@ -4836,7 +4864,39 @@ SIM_EDGES = (
     ("B = 1, N = 4096: uniform w_rec = -1", 999, 1, 4096, -1, "integrate_first", "subtract", True),
     ("B = 7, N = 37: uniform w_rec = 2", 999, 7, 37, 2, "decay_first", "subtract", True),
     ("B = 4, N = 300: dense w_rec, records off", 999, 4, 300, "dense", "decay_first", "zero", False),
+    ("int8 on chip: entries -128 and 127, N = 300", 999, 4, 300, "dense", "integrate_first", "subtract", True,
+     dict(width=1)),
+    ("int16 on chip: entries -129 and 128 beside -32768 and 32767, N = 300", 999, 4, 300, "dense", "decay_first",
+     "zero", True, dict(width=2)),
+    ("int32 on chip: entries -32769 and 32768, N = 200", 999, 3, 200, "dense", "decay_first", "subtract", True,
+     dict(width=4)),
+    ("int32 at N = 477: on eight CTAs a row", 999, 2, 477, "dense", "integrate_first", "zero", True, dict(width=4)),
+    ("N = 1000 in int8 (Xylo-A2's cap): on eight CTAs a row", 999, 2, 1000, "dense", "decay_first", "subtract", True,
+     dict(width=1)),
+    ("N = 601 in int8 (no multiple of S·c), B = 1: on two CTAs a row", 999, 1, 601, "dense", "integrate_first",
+     "subtract", True, dict(width=1)),
+    ("N = 777 in int8 (no multiple of S·c), B = 1: on four CTAs a row", 999, 1, 777, "dense", "decay_first", "zero",
+     True, dict(width=1)),
+    ("spk0 up to 3 and a spiking neuron whose row of w_rec is zero, N = 200", 999, 3, 200, "dense", "decay_first",
+     "subtract", True, dict(width=1, spk0=3, zero_row=True)),
+    ("N = 477 in int8 on one CTA a row: two halves carried", 1000, 2, 477, "dense", "integrate_first", "zero", True,
+     dict(width=1)),
+    ("N = 555 in int8 on two CTAs a row: two halves carried", 1000, 2, 555, "dense", "decay_first", "subtract", True,
+     dict(width=1)),
+    ("int16 at N = 477: on four CTAs a row", 999, 2, 477, "dense", "integrate_first", "subtract", True,
+     dict(width=2)),
+    ("int16 at N = 700: on eight CTAs a row", 999, 2, 700, "dense", "decay_first", "zero", True, dict(width=2)),
+    ("int32 at N = 700: the global-memory row kernel, two neurons a thread", 999, 2, 700, "dense", "integrate_first",
+     "zero", True, dict(width=4)),
+    ("uniform w_rec = 3 at N = 700 (two neurons a thread), spk0 up to 3", 999, 3, 700, 3, "integrate_first",
+     "subtract", True, dict(spk0=3)),
+    ("N = 4096 dense: the global-memory row kernel", 300, 1, 4096, "dense", "integrate_first", "zero", True,
+     dict(width=1)),
 )
+# the entries put at each width's boundary (int8, int16, int32) and the scale of the rest of a dense edge's w_rec
+WIDTH_EDGE_ENTRIES = {1: (-128, 127), 2: (-129, 128, -32768, 32767), 4: (-32769, 32768)}
+WIDTH_EDGE_SCALE = {1: 1, 2: 300, 4: 70_000}
+ONCHIP_CLUSTERS = (1, 2, 4)  # the cluster sizes the dense block is held to the plain loop at
 
 
 def wide_sim_config(torch, XyloConfig, N: int, rec, seed: int):
@@ -4891,35 +4951,53 @@ def sim_edge(torch, dev, case, seed: int) -> dict:
     from haghighatshoarmuir2024_tpu_torch.models.xylo import sim
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import _build
 
-    label, T, B, N, rec, ordering, reset, records = case
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import sim_kernel
+
+    label, T, B, N, rec, ordering, reset, records = case[:8]
+    extra = case[8] if len(case) > 8 else {}
     rng = np.random.default_rng(seed)
     def ints(lo, hi, size):
         return torch.as_tensor(rng.integers(lo, hi, size=size).astype(np.int32), device=dev)
 
     inp = ints(-90, 91, (T, B, N))
     ds, dm, th = ints(-1, 33, N), ints(1, 7, N), ints(20, 120, N)
-    state0 = (ints(-300, 300, (B, N)), ints(-300, 300, (B, N)), ints(0, 2, (B, N)))
+    state0 = (ints(-300, 300, (B, N)), ints(-300, 300, (B, N)), ints(0, extra.get("spk0", 1) + 1, (B, N)))
     kw = dict(ordering=ordering, reset=reset, record=records, record_state=records, count=True)
+    width = extra.get("width", 1)
     if rec == "dense":
-        kw["w_rec"] = (rng.integers(-4, 5, size=(N, N)) * (rng.random((N, N)) < 0.05)).astype(np.int32)
+        w = rng.integers(-4, 5, size=(N, N)) * WIDTH_EDGE_SCALE[width] * (rng.random((N, N)) < 0.05)
+        for i, v in enumerate(WIDTH_EDGE_ENTRIES[width] if "width" in extra else ()):
+            w[i, (i + 1) % N] = v
+        if extra.get("zero_row"):
+            w[N // 2] = 0
+            state0[2][:, N // 2] = extra.get("spk0", 1)
+        kw["w_rec"] = w.astype(np.int64)
+        if sim_kernel.weight_width(w) != width:
+            fail(f"xylo_sim {label}: the edge's w_rec takes {sim_kernel.weight_width(w)} bytes an entry, not {width}")
     else:
         kw["rec_coef"] = rec
+    kind = "dense" if rec == "dense" else ("uniform" if rec else "none")
+    kernel = sim_kernel.sim_launch(B, N, kind, width).kernel
+    scan = sim.scan_hidden
     _build.launch_counts.clear()
-    got = sim.scan_hidden(inp, ds, dm, th, state0, **kw)
-    launches = _build.launch_counts.get("xylo_sim", 0)
+    got = scan(inp, ds, dm, th, state0, **kw)
+    counts = dict(_build.launch_counts)
+    launches = scan_kernels.sim_launches(counts)
     want = sim.scan_hidden_plain(inp, ds, dm, th, state0, **kw)
 
     def same(g, w):
         return all(same(p, q) for p, q in zip(g, w)) if isinstance(g, tuple) else \
             (g is None and w is None) or (g is not None and w is not None and torch.equal(g, w))
 
-    out = dict(label=label, launches=launches, spikes=int(want[1].sum()),
+    out = dict(label=label, launches=launches, kernel=kernel, kernel_launches=counts.get(kernel, 0),
+               spikes=int(want[1].sum()),
                equal=same(got[:3], want[:3]) and sorted(got[3]) == sorted(want[3])
                and all(torch.equal(got[3][k], want[3][k]) for k in want[3]))
     if "halves" in label:
         h = T // 2
-        a1 = sim.scan_hidden(inp[:h], ds, dm, th, state0, **kw)
-        a2 = sim.scan_hidden(inp[h:], ds, dm, th, a1[2], **kw)
+        a1 = scan(inp[:h], ds, dm, th, state0, **kw)
+        a2 = scan(inp[h:], ds, dm, th, a1[2], **kw)
         out["halves_equal"] = bool(torch.equal(torch.cat([a1[0], a2[0]]), got[0]) and same(a2[2], got[2])
                                    and torch.equal(a1[1] + a2[1], got[1]))
     return out
@@ -4929,7 +5007,7 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
     """Phase 28: the two scan kernels (module docstring)."""
     from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
     from haghighatshoarmuir2024_tpu_torch.models.xylo import XyloConfig, XyloSim
-    from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import ORDERINGS, RESETS
+    from haghighatshoarmuir2024_tpu_torch.models.xylo.sim import ORDERINGS, RESETS, sim_hidden_batch
     from haghighatshoarmuir2024_tpu_torch.ops.cuda import iir_kernel, sim_kernel
 
     t_phase = time.perf_counter()
@@ -4941,8 +5019,9 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
     except RuntimeError as e:
         fail(str(e))
     print(f"{tag} the wrappers' constants equal the library's: iir_scan (N_MAX, LANES, TS, VEC) = "
-          f"{_build.library_constants('hm_iir_scan_constants', 4)}, xylo_sim (N_MAX, FREE_THREADS, THREADS_MAX) = "
-          f"{_build.library_constants('hm_xylo_sim_constants', 3)}", flush=True)
+          f"{_build.library_constants('hm_iir_scan_constants', 4)}, xylo_sim (N_MAX, FREE_THREADS, THREADS_MAX, "
+          f"ONCHIP_THREADS_MAX, ONCHIP_SMEM_MAX, ONCHIP_BLOCK, ONCHIP_CLUSTER_MAX) = "
+          f"{_build.library_constants('hm_xylo_sim_constants', len(sim_kernel.CONSTANTS))}", flush=True)
     B, T = frames.shape[:2]
     print(f"{tag} the first design's times (this phase, CUDA events, NVIDIA H100 80GB HBM3 at 700 W): iir_scan "
           f"{FIRST_DESIGN_MS['iir_scan']}; xylo_sim {FIRST_DESIGN_MS['xylo_sim']}", flush=True)
@@ -4959,6 +5038,24 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
         _, launches = counted(torch, _build, label, (kernel,), fn, out["s"])
         if launches.get(kernel) != want:
             fail(f"{label}: {kernel} launched {launches.get(kernel)} times, want {want} ({launches})")
+        out["launches"][label] = launches
+    # the recurrent rows: the on-chip kernel on the dense push-to-hidden block and the uniform -1, the global-memory
+    # row kernel on a dense layer too wide for shared memory; each hidden layer one launch
+    row_cfg, row_spk = wide_sim_config(torch, XyloConfig, 4096, "dense", SEED + ROW_SIM)
+    row_spk = row_spk.to(dev)
+    for label, kernel, fn in (
+            (f"XyloSim dense block ({B} frames, record=True)", "xylo_sim_onchip",
+             lambda: XyloSim(xy["block"], device=dev)(spk, record=True)),
+            (f"sim_hidden_batch dense block ({B} frames)", "xylo_sim_onchip",
+             lambda: sim_hidden_batch(xy["block"], spk, device=dev)),
+            (f"XyloSim uniform w_rec = -1 ({B} frames, record=True)", "xylo_sim_onchip",
+             lambda: XyloSim(with_rec(demo.xylo_config, -1), device=dev)(spk, record=True)),
+            (f"XyloSim N = 4096 dense ({WIDE_B} rows, record=True)", "xylo_sim_row",
+             lambda: XyloSim(row_cfg, device=dev)(row_spk.transpose(0, 1), record=True)),
+    ):
+        _, launches = counted(torch, _build, label, (kernel,), fn, out["s"])
+        if launches.get(kernel) != 1:
+            fail(f"{label}: {kernel} launched {launches.get(kernel)} times, want 1 ({launches})")
         out["launches"][label] = launches
     print(f"{tag} the scanning paths through their entry points: " + "; ".join(
         f"{k} launches {v} in {out['s'][k]:.3f} s" for k, v in out["launches"].items()), flush=True)
@@ -5021,24 +5118,30 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
         cases.append((f"{o}/{r}, N = {N}, {'dense' if rec == 'dense' else f'uniform {rec}'} w_rec, (T, B) = "
                       f"({WIDE_T}, {WIDE_B})", cfg, wide.to(dev), o, r))
     for k, (label, cfg, x, o, r) in enumerate(cases):
-        res = skn.sim_against_plain(cfg, x, o, r, split=k == 0)
-        if not res["equal"] or res["launches"] != 2 or not res.get("halves_equal", True):
+        # the dense block also through the on-chip kernel at each cluster size
+        clusters = (None,) + (ONCHIP_CLUSTERS if cfg is xy["block"] else ())
+        res = skn.sim_against_plain(cfg, x, o, r, split=k == 0, clusters=clusters)
+        launched = [res[f"launches{'' if c is None else f'@{c}'}"] for c in clusters]
+        if not res["equal"] or set(launched) != {2} or not res.get("halves_equal", True):
             fail(f"xylo_sim {label}: the kernel differs from the plain loop ({res})")
+        if any(res[f"kernels@{c}"].get("xylo_sim_onchip") != 1 for c in clusters[1:]):
+            fail(f"xylo_sim {label}: the on-chip kernel did not run at every cluster size ({res})")
         if res["spikes"] == 0:
             fail(f"xylo_sim {label}: no hidden spike")
         out["sim"][label] = res
         print(f"{tag} xylo_sim {label} {res['shape']}: spikes, counts, Isyn, Vmem, the readout and both layers' states "
-              f"== the plain loop (torch.equal; {res['spikes']} spikes)"
+              f"== the plain loop (torch.equal; {res['spikes']} spikes; the hidden layer on {res['kernels']})"
+              + (f"; the on-chip kernel at {', '.join(map(str, clusters[1:]))} CTAs a row too" if clusters[1:] else "")
               + ("; two carried halves == one pass" if "halves_equal" in res else ""), flush=True)
         del res
     for i, case in enumerate(SIM_EDGES):
         r = sim_edge(torch, dev, case, SEED + i)
-        if not (r["equal"] and r["launches"] == 1 and r.get("halves_equal", True)):
+        if not (r["equal"] and r["launches"] == 1 and r["kernel_launches"] == 1 and r.get("halves_equal", True)):
             fail(f"xylo_sim {case[0]}: the kernel differs from the plain loop ({r})")
         out["sim"][case[0]] = r
         print(f"{tag} xylo_sim {case[0]} ({case[5]}/{case[6]}, T = {case[1]}): every output == the plain loop "
-              f"(torch.equal; {r['spikes']} spikes)" + ("; two carried halves == one pass" if "halves_equal" in r
-                                                       else ""), flush=True)
+              f"(torch.equal; {r['spikes']} spikes; {r['kernel']})" + ("; two carried halves == one pass"
+                                                                      if "halves_equal" in r else ""), flush=True)
     st = skn.sim_times(demo.xylo_config, spk_tbc, SIM_REPS)
     sp = skn.sim_split(demo.xylo_config, spk_tbc, SIM_REPS, 3)
     bound_ms, bound_by = roofline.bound(st["ops"], roofline.guide_peaks()["int32_ops_per_s"], st["bytes"])
@@ -5049,6 +5152,20 @@ def check_scan_kernels(torch, _build, roofline, dev, card, demo, frames, fam, xy
           f"bytes bound; CUDA events around the wrapper {st['ms']:.3f} ms; the plain loop's {st['plain_ms']:.1f} ms; "
           f"bound {bound_ms:.3f} ms ({bound_by}: {st['ops']:.4g} int32 operations, {st['bytes']:.4g} bytes)",
           flush=True)
+    # the two row kernels: the on-chip one on the dense block (and the uniform -1), the global-memory one at N = 4096
+    for key, label, cfg, x in (("onchip_kernel", "the dense push-to-hidden block", xy["block"], spk_tbc),
+                               ("uniform_onchip", "the uniform w_rec = -1", with_rec(demo.xylo_config, -1), spk_tbc),
+                               ("row_kernel", f"N = 4096 dense, (T, B) = ({WIDE_T}, {WIDE_B})", row_cfg, row_spk)):
+        tm = skn.sim_times(cfg, x, SIM_REPS)
+        sp = skn.sim_split(cfg, x, SIM_REPS, 3, clock_mhz=clock)
+        out[key] = dict(ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=sp["bound_ms"], bound_by=sp["bound_by"],
+                        ops=sp["ops"], bytes=sp["bytes"], max_abs_err=0.0, device_ms=sp["mean_ms"],
+                        cycles_a_step=sp["cycles_a_step"], kernels=sp["kernels"], shape=sp["shape"])
+        print(f"{tag} {' '.join(sp['kernels'])} on {label} {sp['shape']} with its three records: {sp['mean_ms']:.3f} ms "
+              f"a launch (CUPTI, {SIM_REPS} calls) = {sp['cycles_a_step']:.0f} cycles a step at {clock:.0f} MHz; "
+              f"bound {sp['bound_ms']:.3f} ms ({sp['bound_by']}: {sp['ops']:.4g} int32 operations with "
+              f"{sp['rec_rows']} spiking rows, {sp['bytes']:.4g} bytes), {100 * sp['share']:.1f} % of the launch; "
+              f"CUDA events around the wrapper {tm['ms']:.3f} ms; the plain loop {tm['plain_ms']:.1f} ms", flush=True)
 
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -5780,12 +5897,19 @@ def main() -> int:
                                              **{lbl: n.get(name, 0) for lbl, n in shx["launches"].items()}}})
     # the scan kernels (phase 28): the JAX package runs both recurrences as one lax.scan; launches from the
     # paths' entry points (the Hilbert apply of 96 frames, XyloSim on 96 frames), and from phases 20-25
-    scan_paths = {"iir_scan": f"Beamformer.apply_to_signal ({B} frames)", "xylo_sim": f"XyloSim ({B} frames, record=True)"}
+    scan_paths = {"iir_scan": f"Beamformer.apply_to_signal ({B} frames)", "xylo_sim": f"XyloSim ({B} frames, record=True)",
+                  "xylo_sim_onchip": f"XyloSim dense block ({B} frames, record=True)",
+                  "xylo_sim_row": f"XyloSim N = 4096 dense ({WIDE_B} rows, record=True)"}
     for name, src, repl, res in (
         ("iir_scan", "haghighatshoarmuir2024_tpu_torch/csrc/iir_scan.cu", "haghighatshoarmuir2024_tpu/ops/iir.py:256",
          scx["iir_kernel"]),
         ("xylo_sim", "haghighatshoarmuir2024_tpu_torch/csrc/xylo_sim.cu",
          "haghighatshoarmuir2024_tpu/models/xylo/sim.py:60", scx["sim_kernel"]),
+        # the two row kernels with a recurrence: the on-chip one and the global-memory one (a dense w_rec too wide)
+        ("xylo_sim_onchip", "haghighatshoarmuir2024_tpu_torch/csrc/xylo_sim.cu",
+         "haghighatshoarmuir2024_tpu/models/xylo/sim.py:60", scx["onchip_kernel"]),
+        ("xylo_sim_row", "haghighatshoarmuir2024_tpu_torch/csrc/xylo_sim.cu",
+         "haghighatshoarmuir2024_tpu/models/xylo/sim.py:60", scx["row_kernel"]),
     ):
         dev_ms = res["device_ms"]
         chain = (f"; the recurrence's chain floor {res['chain_ms']:.4f} ms ({CHAIN_TEXT} at {res['clock_mhz']:.0f} MHz), "

@@ -21,6 +21,14 @@ spread (max - min) of each.  K2's wrapper reads its flags on the host after
 each launch (a device sync); the flag reads a call makes are counted for each
 prefix, as the growth of K2's launch count over that call.
 
+A sync leaves the device idle while the host reaches its next launch, and
+how long depends on what the host runs next, so the isolated stages do not
+sum to the batch on the events' clock: the gap is the device's idle time.
+On the card the readings that enter the sum are also traced (CUPTI's kernel
+records, ``device_ms``): the kernels of the isolated stages run as long as
+those of the batch (``device_gap_ms``), and each reading's events time less
+its device time is its idle time (``idle_ms``).
+
     python -m haghighatshoarmuir2024_tpu_torch.experiments.flagship_attribution \\
         [--batch 96] [--reps 50] [--grid 449] [--device cpu]
 
@@ -41,6 +49,7 @@ from ..models.xylo import Demo
 from ..models.xylo.flagship import FRAME
 from ..ops.cuda import _build
 from .common import arg_parser, calibrated_demo
+from .hand_kernels import device_ms, traced_ms
 from .serving_throughput import stream_chunks
 
 
@@ -88,6 +97,19 @@ def prefixes(demo: Demo, x: torch.Tensor) -> dict:
     }
 
 
+SUMMED = ("encode", "[isolated] RZCC", "[isolated] LIF", "encode+RZCC+LIF", "forward_batch (matched)")
+"""The readings that enter the isolated stages' sum, and the total."""
+TRACE_REPS = 20  # calls traced for each of the SUMMED readings' device time
+
+
+def isolated_sum(t: dict) -> float:
+    """The isolated stages and the epilogues' in-program shares, summed, from
+    readings ``t`` (events or device ms): encode + RZCC + LIF alone, then
+    ``forward_batch(matched)`` less its encode + RZCC + LIF prefix."""
+    return (t["encode"] + t["[isolated] RZCC"] + t["[isolated] LIF"]
+            + t["forward_batch (matched)"] - t["encode+RZCC+LIF"])
+
+
 def attribute(t: dict) -> dict:
     """Prefix times → the stages, in JAX's order, and the total."""
     return {
@@ -120,8 +142,11 @@ def run(batch: int = 96, reps: int = 50, num_grid: int = 64 * 7 + 1, rounds: int
     prefix_ms = {name: float(np.median([r[name] for r in per_round])) for name in fns}
     spread_ms = {name: float(max(r[name] for r in per_round) - min(r[name] for r in per_round)) for name in fns}
     stages = attribute(prefix_ms)
-    isolated_sum = (prefix_ms["encode"] + prefix_ms["[isolated] RZCC"] + prefix_ms["[isolated] LIF"]
-                    + stages["fold+argmax epilogue"] + stages["matched epilogue"])
+    busy = idle = gap = None
+    if dev.type == "cuda":
+        busy = {name: device_ms(traced_ms(fns[name], TRACE_REPS), TRACE_REPS) for name in SUMMED}
+        idle = {name: prefix_ms[name] - busy[name] for name in SUMMED}
+        gap = isolated_sum(busy) - busy["forward_batch (matched)"]
     doa, _ = demo.forward_batch(x, method="matched")
     est = doa.cpu().numpy()
     err = np.rad2deg(np.arcsin(np.abs(np.sin(est - np.asarray(doas)))))
@@ -133,7 +158,8 @@ def run(batch: int = 96, reps: int = 50, num_grid: int = 64 * 7 + 1, rounds: int
         "isolated_ms": {"RZCC": prefix_ms["[isolated] RZCC"], "LIF": prefix_ms["[isolated] LIF"]},
         "epilogue_ms": {k[len("[epilogue] "):]: v for k, v in prefix_ms.items() if k.startswith("[epilogue]")},
         "prefix_ms": prefix_ms, "spread_ms": spread_ms,
-        "stage_sum_isolated_ms": isolated_sum,
+        "stage_sum_isolated_ms": isolated_sum(prefix_ms),
+        "device_ms": busy, "idle_ms": idle, "device_gap_ms": gap,
         "k2_flag_reads": flag_reads,
         "throughput_audio_sec_per_sec": B * x.shape[1] / demo.fs / (total / 1e3),
         "doa_ok_frac_matched_5deg": float(np.mean(err < 5.0)),

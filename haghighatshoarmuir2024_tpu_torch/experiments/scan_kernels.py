@@ -7,8 +7,10 @@ their bounds:
 
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels [--reps 20]
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels split [--reps 20] [--only LABEL ...]
+                                                                               [--clusters C ...]
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels sass --against OTHER/xylo_sim.cu
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels wrap
+    python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels barrier
 
 The IIR cases are the shapes of the paths that scan (:func:`iir_inputs`):
 the Hilbert apply's complex64 (T, B, 7) analytic signal at 1 and 96 of
@@ -55,9 +57,24 @@ of each function alone, its bits against PyTorch's ``atan2(sin x, cos x)``
 at every float32 (both forms, :func:`wrap_bits`), and each tracking kernel's registers and stack frame
 (``ptxas -v``, :func:`build_resources`) and SASS (:func:`tracker_sass`).
 ``sass`` compiles this tree's ``csrc/xylo_sim.cu`` and another's
-(``--against``) with the library's nvcc flags and compares the recurrent
-row kernel's instantiations (``xylo_sim_kernel<NPT, REC>``) instruction by
-instruction in ``cuobjdump -sass`` (the addresses left out).
+(``--against``) with the library's nvcc flags and compares both recurrent
+kernels' instantiations (the global-memory row kernel ``xylo_sim_kernel<NPT>``
+and the on-chip ``xylo_sim_onchip_kernel<S, W, REC, CLUSTER>``) instruction
+by instruction in ``cuobjdump -sass`` (the addresses left out), with each
+instantiation's counts of shared loads, atomics, barriers and the like
+(:data:`SIM_SASS_COUNTED`) and its registers and spills (``ptxas -v``).
+For the simulator's recurrent cases ``split`` also gives the launch's
+cycles a step, its bound by :func:`sim_work` (operations or bytes) and the
+share; ``--clusters 1 2 4`` runs the dense block once more through the
+on-chip kernel at each cluster size (``sim_kernel.scan_hidden(...,
+cluster=c)``; a tree without that kernel refuses it).  The dense
+``w_rec`` goes to the kernel as the models hold it (:func:`held_recurrence`:
+its on-chip image built once), so CUDA events time the wrapper as
+``XyloSim`` calls it.
+``barrier`` measures the barriers the recurrent kernels wait on a step
+(:func:`barrier_latency`): ``__syncthreads`` on one block of 128 and 512
+threads and ``barrier.cluster`` arrive/wait on one cluster of 1, 2, 4 and
+8 CTAs, 4096 in a row between two ``clock64`` reads.
 Each mode prints one JSON line; ``check`` and ``split`` raise without a GPU.
 """
 from __future__ import annotations
@@ -228,12 +245,44 @@ def sim_work(T: int, B: int, N: int, records: int, rec_rows: int = 0, dense: boo
     return ops, 4.0 * T * B * N * (1 + records) + 4.0 * B * N * 7 + (4.0 * N * N if dense else 0.0)
 
 
-def sim_against_plain(cfg, spikes_tbc: torch.Tensor, ordering: str, reset: str, split: bool = False) -> dict:
+def sim_launches(counts) -> int:
+    """The simulator's launches in a ``launch_counts``: every kernel named
+    ``xylo_sim...`` (the flat, the row and the on-chip kernels; an older
+    tree's one name too, so that this module runs in a parent's tree)."""
+    return sum(v for k, v in counts.items() if k.startswith("xylo_sim"))
+
+
+def held_recurrence(sim, w_rec):
+    """``(rec_coef, w_rec)`` as the models hold them (``sim.held_recurrence``:
+    a dense matrix whose array for the card is built once), or as given in a
+    tree whose ``sim`` has no such form."""
+    return getattr(sim, "held_recurrence", sim.recurrence)(w_rec)
+
+
+def hidden_scan(cluster=None):
+    """The hidden layer's scan: ``sim.scan_hidden`` (the plan's kernel), or
+    with ``cluster`` a dense ``w_rec`` on that many CTAs a row."""
+    from ..models.xylo import sim
+
+    if cluster is None:
+        return sim.scan_hidden
+    from ..ops.cuda import sim_kernel
+
+    return lambda *args, **kw: sim_kernel.scan_hidden(*args, cluster=cluster, **kw)
+
+
+def sim_against_plain(cfg, spikes_tbc: torch.Tensor, ordering: str, reset: str, split: bool = False,
+                      clusters=(None,)) -> dict:
     """``XyloSim``'s two scans on ``spikes_tbc`` (T, B, n_in) int32 on the
     card, the hidden layer with every record, counts and state, then the
     readout on its spikes: the kernel (``sim.scan_hidden``) against
     ``sim.scan_hidden_plain`` on the same card tensors, by ``torch.equal``.
-    With ``split`` also two halves carried against one pass (kernel)."""
+    With ``split`` also two halves carried against one pass (kernel).
+    ``clusters``: the hidden layer once for each (None: the plan's kernel;
+    an int: a dense ``w_rec`` on that many CTAs a row), each against the
+    one plain run; the result's keys for c are suffixed ``@c``.  The
+    kernel takes the dense ``w_rec`` as the models hold it
+    (``sim.held_recurrence``)."""
     from ..models.xylo import sim
     from ..ops.cuda import _build
 
@@ -242,24 +291,32 @@ def sim_against_plain(cfg, spikes_tbc: torch.Tensor, ordering: str, reset: str, 
     args = (cfg.dash_syn, cfg.dash_mem, cfg.threshold)
     kw = dict(rec_coef=rec_coef, w_rec=w_rec, ordering=ordering, reset=reset, record=True, record_state=True,
               count=True)
-    _build.launch_counts.clear()
-    got = sim.scan_hidden(inp, *args, **kw)
+    want = sim.scan_hidden_plain(inp, *args, **kw)
+    kw["w_rec"] = held_recurrence(sim, cfg.w_rec)[1]
     ro_args = (cfg.dash_syn_out, cfg.dash_mem_out, cfg.threshold_out)
     ro_kw = dict(ordering=ordering, reset=reset)
-    ro_in = sim.int_matmul(got[0], cfg.w_out)
-    ro = sim.scan_hidden(ro_in, *ro_args, **ro_kw)
-    launches = _build.launch_counts.get("xylo_sim", 0)
-    want = sim.scan_hidden_plain(inp, *args, **kw)
-    ro_want = sim.scan_hidden_plain(ro_in, *ro_args, **ro_kw)
-    pairs = {"spikes": (got[0], want[0]), "counts": (got[1], want[1]), "Isyn": (got[3]["Isyn"], want[3]["Isyn"]),
-             "Vmem": (got[3]["Vmem"], want[3]["Vmem"]), "readout": (ro[0], ro_want[0])}
-    pairs.update({f"state {n}": (g, w) for n, g, w in zip(("isyn", "vmem", "spk"), got[2], want[2])})
-    pairs.update({f"readout state {n}": (g, w) for n, g, w in zip(("isyn", "vmem", "spk"), ro[2], ro_want[2])})
-    _sync(inp.device)
-    out = dict(shape=tuple(inp.shape), launches=launches, spikes=int(want[1].sum()),
-               mismatches={k: _mismatches(g, w) for k, (g, w) in pairs.items()})
-    out["equal"] = not any(out["mismatches"].values())
+    out = dict(shape=tuple(inp.shape), spikes=int(want[1].sum()))
+    for c in clusters:
+        _build.launch_counts.clear()
+        got = hidden_scan(c)(inp, *args, **kw)
+        ro_in = sim.int_matmul(got[0], cfg.w_out)
+        ro = sim.scan_hidden(ro_in, *ro_args, **ro_kw)
+        counts = dict(_build.launch_counts)
+        ro_want = sim.scan_hidden_plain(ro_in, *ro_args, **ro_kw)
+        pairs = {"spikes": (got[0], want[0]), "counts": (got[1], want[1]),
+                 "Isyn": (got[3]["Isyn"], want[3]["Isyn"]), "Vmem": (got[3]["Vmem"], want[3]["Vmem"]),
+                 "readout": (ro[0], ro_want[0])}
+        pairs.update({f"state {n}": (g, w) for n, g, w in zip(("isyn", "vmem", "spk"), got[2], want[2])})
+        pairs.update({f"readout state {n}": (g, w) for n, g, w in zip(("isyn", "vmem", "spk"), ro[2], ro_want[2])})
+        _sync(inp.device)
+        sfx = "" if c is None else f"@{c}"
+        out[f"launches{sfx}"] = sim_launches(counts)
+        out[f"kernels{sfx}"] = {k: v for k, v in counts.items() if k.startswith("xylo_sim")}
+        out[f"mismatches{sfx}"] = {k: _mismatches(g, w) for k, (g, w) in pairs.items()}
+        del got, ro, ro_want, pairs
+    out["equal"] = not any(any(v.values()) for k, v in out.items() if k.startswith("mismatches"))
     if split:
+        got = sim.scan_hidden(inp, *args, **kw)
         T = inp.shape[0] // 2
         a1 = sim.scan_hidden(inp[:T], *args, **kw)
         a2 = sim.scan_hidden(inp[T:], *args, a1[2], **kw)
@@ -272,17 +329,19 @@ def sim_against_plain(cfg, spikes_tbc: torch.Tensor, ordering: str, reset: str, 
 def sim_times(cfg, spikes_tbc: torch.Tensor, reps: int) -> dict:
     """The hidden-layer scan with its three records, by the kernel (CUDA
     events over ``reps`` calls) and by the plain loop (one call), and the
-    kernel's operations and bytes (:func:`sim_work`)."""
+    kernel's operations and bytes (:func:`sim_work`); the kernel takes a
+    dense ``w_rec`` as the models hold it (``sim.held_recurrence``)."""
     from ..models.xylo import sim
 
     inp = sim.project_input(cfg, spikes_tbc)
     rec_coef, w_rec = sim.recurrence(cfg.w_rec)
-    kw = dict(rec_coef=rec_coef, w_rec=w_rec, record=True, record_state=True)
+    held = held_recurrence(sim, cfg.w_rec)[1]
+    kw = dict(rec_coef=rec_coef, record=True, record_state=True)
     args = (inp, cfg.dash_syn, cfg.dash_mem, cfg.threshold)
     T, B, N = inp.shape
     ops, nbytes = sim_work(T, B, N, 3)
-    return dict(ms=events_ms(lambda: sim.scan_hidden(*args, **kw), reps),
-                plain_ms=events_ms(lambda: sim.scan_hidden_plain(*args, **kw), 1),
+    return dict(ms=events_ms(lambda: sim.scan_hidden(*args, w_rec=held, **kw), reps),
+                plain_ms=events_ms(lambda: sim.scan_hidden_plain(*args, w_rec=w_rec, **kw), 1),
                 ops=ops, bytes=nbytes, shape=(T, B, N))
 
 
@@ -335,15 +394,18 @@ def iir_split(b, a, x: torch.Tensor, axis: int, zi, reps: int, clock_mhz: float)
     return out
 
 
-def sim_split(cfg, spikes_tbc: torch.Tensor, reps: int, records: int = 3) -> dict:
+def sim_split(cfg, spikes_tbc: torch.Tensor, reps: int, records: int = 3, cluster=None, clock_mhz=None) -> dict:
     """One hidden-layer ``xylo_sim`` call traced, with ``records`` of the
     three records on (3: spikes, Isyn, Vmem; 1: spikes; 0: the counts
     alone): :func:`kernel_split`, its bytes (:func:`sim_work`), bytes a
-    second and the share of the bytes bound."""
+    second and the share of the bytes bound.  With a recurrence also the
+    launch's cycles a step at ``clock_mhz``, its bound by operations or
+    bytes and the share; ``cluster``: a dense ``w_rec`` on that many CTAs a
+    row (:func:`hidden_scan`), as the models hold it."""
     from ..models.xylo import sim
 
     inp = sim.project_input(cfg, spikes_tbc)
-    rec_coef, w_rec = sim.recurrence(cfg.w_rec)
+    rec_coef, w_rec = held_recurrence(sim, cfg.w_rec)
     kw = dict(rec_coef=rec_coef, w_rec=w_rec, record=records > 0, record_state=records == 3, count=records == 0)
     args = (inp, cfg.dash_syn, cfg.dash_mem, cfg.threshold)
     T, B, N = inp.shape
@@ -353,16 +415,20 @@ def sim_split(cfg, spikes_tbc: torch.Tensor, reps: int, records: int = 3) -> dic
         rows = int((spikes[:-1] != 0).sum())
         del spikes
     ops, nbytes = sim_work(T, B, N, records, rows, dense=w_rec is not None)
-    out = kernel_split(lambda: sim.scan_hidden(*args, **kw), reps, "xylo_sim")
+    scan = hidden_scan(cluster)
+    out = kernel_split(lambda: scan(*args, **kw), reps, "xylo_sim")
     out.update(shape=(T, B, N), records=records, recurrence="dense" if w_rec is not None else f"uniform {rec_coef}",
                bytes=nbytes, bytes_per_s=nbytes / (out["device_ms"] * 1e-3),
-               bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops=ops, rec_rows=rows)
+               bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops=ops, rec_rows=rows, cluster=cluster)
     out["bound_share"] = out["bytes_bound_ms"] / out["device_ms"]
-    if w_rec is not None:  # int32 operations over 64 a clock × the SMs × the highest SM clock
+    if w_rec is not None or rec_coef:  # int32 operations over 64 a clock × the SMs × the highest SM clock
         from . import roofline
 
         out["bound_ms"], out["bound_by"] = roofline.bound(ops, roofline.guide_peaks()["int32_ops_per_s"], nbytes)
         out["share"] = out["bound_ms"] / out["device_ms"]
+        if clock_mhz:
+            out["cycles_a_step"] = out["device_ms"] * 1e3 * clock_mhz / T
+            out["clock_mhz"] = clock_mhz
     return out
 
 
@@ -609,8 +675,9 @@ def kernel_resources(log: str, names=TRACK_KERNELS) -> dict:
             if name is None:
                 cur = None
                 continue
-            arg = re.search(re.escape(name) + r"ILi(\d+)E", mangled)
-            cur = out.setdefault(name + (f"<{arg.group(1)}>" if arg else ""), {})
+            arg = re.search(re.escape(name) + r"I((?:L\w\d+E)+)E", mangled)
+            targs = ", ".join(re.findall(r"L\w(\d+)E", arg.group(1))) if arg else ""
+            cur = out.setdefault(name + (f"<{targs}>" if arg else ""), {})
             continue
         if cur is None:
             continue
@@ -796,14 +863,17 @@ def recurrence_split(frames: torch.Tensor, reps: int, clock_mhz: float, only=Non
 
 SIM_CASES = ("flagship, 3 records", "flagship, spikes only", "flagship, counts only", "uniform w_rec = -1, 3 records",
              "dense push-to-hidden block, 3 records", "one row, 3 records")
+SIM_DENSE = "dense push-to-hidden block, 3 records"  # the case --clusters sweeps
 
 
-def split(reps: int = 20, only=None, pad_mib: int = 0) -> dict:
+def split(reps: int = 20, only=None, pad_mib: int = 0, clusters=()) -> dict:
     """Both kernels' device times by CUPTI at every case (module docstring);
     with ``only`` (labels of ``SIM_CASES``) those simulator cases alone.
     ``pad_mib``: a device tensor of that many MiB allocated first, so that
     every later tensor lands elsewhere in device memory (how much of a time
-    its inputs' and outputs' placement decides)."""
+    its inputs' and outputs' placement decides).  ``clusters``: the dense
+    block (:data:`SIM_DENSE`) once more at each cluster size through the
+    on-chip kernel, labelled ``"..., c = C"``."""
     import dataclasses
 
     dev = _require_cuda()
@@ -831,7 +901,10 @@ def split(reps: int = 20, only=None, pad_mib: int = 0) -> dict:
                                  (uniform, spk, 3), (block, spk, 3), (demo.xylo_config, spk[:, :1].contiguous(), 3))))
     for label, (cfg, x, records) in cases.items():
         if only is None or label in only:
-            out["xylo_sim"][label] = sim_split(cfg, x, sim_reps, records)
+            out["xylo_sim"][label] = sim_split(cfg, x, sim_reps, records, clock_mhz=clock)
+            for c in clusters if label == SIM_DENSE else ():
+                out["xylo_sim"][f"{label}, c = {c}"] = sim_split(cfg, x, sim_reps, records, cluster=c,
+                                                                  clock_mhz=clock)
     if only is None:
         out["iir_scan by order"] = iir_by_order(dev, reps, clock)
         from ..models.xylo import sim
@@ -867,30 +940,71 @@ def kernel_sass(cu: Path, name: str) -> dict:
     return out
 
 
-def sass_against(other: Path, name: str = "xylo_sim_kernel") -> dict:
-    """This tree's ``csrc/xylo_sim.cu`` against ``other`` by
-    :func:`kernel_sass`: for each instantiation in both, its instruction
-    counts and how many positions differ."""
-    mine = kernel_sass(Path(__file__).resolve().parent.parent / "csrc" / "xylo_sim.cu", name)
-    theirs = kernel_sass(Path(other), name)
-    out = {"card": card_line() if torch.cuda.is_available() else None, "kernels": {}}
+SIM_KERNELS = ("xylo_sim_kernel", "xylo_sim_onchip_kernel")
+# the SASS opcodes counted for the simulator's recurrent kernels: shared loads and stores, atomics (shared,
+# generic: distributed shared memory), barriers, ballots, shuffles, byte permutes and global loads
+SIM_SASS_COUNTED = ("LDS", "STS", "ATOMS", "ATOM", "RED", "BAR", "UCGABAR_ARV", "UCGABAR_WAIT", "VOTE", "SHFL",
+                    "PRMT", "LDG", "STG", "LDGSTS", "BRA")
+
+
+def sass_against(other, names=SIM_KERNELS, listing=None) -> dict:
+    """This tree's ``csrc/xylo_sim.cu`` against ``other`` (None: this tree
+    alone) by :func:`kernel_sass`: for each instantiation of the kernels
+    ``names`` in either, its instruction counts, how many positions differ,
+    its counts of :data:`SIM_SASS_COUNTED` here, and its registers and
+    spills from the built library's ``ptxas -v`` (:func:`build_resources`;
+    here, where a card is present).  ``listing``: a path that receives
+    this tree's instructions, instantiation by instantiation."""
+    cu = Path(__file__).resolve().parent.parent / "csrc" / "xylo_sim.cu"
+    mine = {k: v for name in names for k, v in kernel_sass(cu, name).items()}
+    if listing:
+        Path(listing).write_text("\n".join(f"== {k}\n" + "\n".join(f"{i:5d} {x}" for i, x in enumerate(v))
+                                           for k, v in mine.items()) + "\n")
+    theirs = {k: v for name in names for k, v in kernel_sass(Path(other), name).items()} if other else {}
+    out = {"card": card_line() if torch.cuda.is_available() else None, "kernels": {},
+           "ptxas": build_resources(names) if torch.cuda.is_available() else None}
     for k in sorted(set(mine) | set(theirs)):
         a, b = mine.get(k), theirs.get(k)
+        ops = [_opcode(i) for i in a or ()]
         out["kernels"][k] = dict(
             here=None if a is None else len(a), other=None if b is None else len(b),
             identical=a == b, differing=None if a is None or b is None else
-            sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)))
+            sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)),
+            counts={op: ops.count(op) for op in SIM_SASS_COUNTED} if a else None)
+    return out
+
+
+def barrier_latency(reps: int = WRAP_CHAIN_STEPS) -> dict:
+    """Cycles a barrier on the card (``sim_kernel.barrier_cycles``), the
+    largest over a cluster's CTAs: ``__syncthreads`` on one block of 128 and
+    512 threads, ``barrier.cluster`` arrive/wait on one cluster of 1, 2, 4
+    and 8 CTAs of 128 threads (the kernel's release/acquire pair, and a
+    relaxed arrive), after a short run that warms the instruction cache."""
+    from ..ops.cuda import sim_kernel
+
+    _require_cuda()
+    out = {}
+    for threads in (128, 512):
+        sim_kernel.barrier_cycles(1, threads, 64, on_cluster=False)
+        out[f"__syncthreads, {threads} threads"] = max(sim_kernel.barrier_cycles(1, threads, reps, on_cluster=False))
+    for c in sim_kernel.CLUSTERS:
+        for relaxed in (False, True):
+            sim_kernel.barrier_cycles(c, 128, 64, relaxed=relaxed)
+            out[f"barrier.cluster{' (arrive.relaxed)' if relaxed else ''}, {c} CTAs of 128 threads"] = max(
+                sim_kernel.barrier_cycles(c, 128, reps, relaxed=relaxed))
     return out
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", nargs="?", default="check", choices=("check", "split", "sass", "wrap"))
+    ap.add_argument("mode", nargs="?", default="check", choices=("check", "split", "sass", "wrap", "barrier"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", nargs="+", choices=SIM_CASES + RECURRENCE_CASES, help="split: these cases alone")
     ap.add_argument("--pad-mib", type=int, default=0, help="split: MiB allocated on the card first")
+    ap.add_argument("--clusters", nargs="+", type=int, default=(),
+                    help="split: the dense block also through the on-chip kernel at these cluster sizes")
     ap.add_argument("--against", help="sass: the other tree's csrc/xylo_sim.cu")
-    ap.add_argument("--sass-listing", help="wrap: write the tracking kernels' SASS to this file")
+    ap.add_argument("--sass-listing", help="wrap, sass: write the kernels' SASS to this file")
     args = ap.parse_args(argv)
     if args.mode == "wrap":
         out = {"card": card_line(), "clock_mhz": sm_clock_mhz(), "cycles a step": wrap_latency(),
@@ -898,8 +1012,13 @@ def main(argv=None) -> dict:
                "sass": tracker_sass(args.sass_listing)}
         print(json.dumps(out, default=str))
         return out
+    if args.mode == "barrier":
+        out = {"card": card_line(), "clock_mhz": sm_clock_mhz(), "cycles a barrier": barrier_latency()}
+        print(json.dumps(out, default=str))
+        return out
     if args.mode in ("split", "sass"):
-        out = split(args.reps, args.only, args.pad_mib) if args.mode == "split" else sass_against(args.against)
+        out = split(args.reps, args.only, args.pad_mib, args.clusters) if args.mode == "split" \
+            else sass_against(args.against, listing=args.sass_listing)
         print(json.dumps(out, default=str))
         return out
     from ..models.xylo.sim import ORDERINGS, RESETS

@@ -80,6 +80,16 @@ def project_input(config: XyloConfig, spikes: torch.Tensor) -> torch.Tensor:
     return int_matmul(spikes, config.w_in)
 
 
+def held_recurrence(w_rec):
+    """:func:`recurrence` for a model that keeps its weights: a dense matrix
+    as a ``sim_kernel.DenseRec``, whose array for the card is built at its
+    first call there and kept."""
+    from ...ops.cuda import sim_kernel
+
+    coef, dense = recurrence(w_rec)
+    return coef, None if dense is None else sim_kernel.DenseRec(dense)
+
+
 def _int32(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev).to(torch.int32)
 
@@ -226,7 +236,7 @@ class XyloSim:
         self.reset = reset
         self.dt = config.dt
         self.device = resolve_device(device)
-        self._rec_coef, self._w_rec = recurrence(config.w_rec)
+        self._rec_coef, self._w_rec = held_recurrence(config.w_rec)
         self.reset_state()
 
     @classmethod
@@ -305,7 +315,7 @@ class XyloSimPushToHidden:
         self.dash_syn_in = np.asarray(dash_syn_in, np.int32)
         self.dash_mem_in = np.asarray(dash_mem_in, np.int32)
         self.threshold_in = np.asarray(threshold_in, np.int32)
-        self._rec_coef, self._w_rec = recurrence(config.w_rec)
+        self._rec_coef, self._w_rec = held_recurrence(config.w_rec)
         self.reset_state()
 
     def block_config(self) -> XyloConfig:

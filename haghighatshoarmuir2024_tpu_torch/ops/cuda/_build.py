@@ -73,6 +73,8 @@ _SIGNATURES = {
     "hm_iir_scan": ([_P] * 5 + [_I, _L, _I, _I, _I] + [_L] * 6 + [_I, _I, _P], _I),
     "hm_xylo_sim_constants": ([_P], None),
     "hm_xylo_sim": ([_P] * 15 + [_I] * 10 + [_P], _I),
+    "hm_xylo_sim_onchip": ([_P] * 15 + [_I] * 12 + [_P], _I),
+    "hm_barrier_probe": ([_I] * 4 + [_P, _P], _I),
     "hm_envelope_constants": ([_P], None),
     "hm_envelope": ([_P] * 4 + [_D, _D, _L, _I, _I, _P], _I),
     "hm_track_constants": ([_P], None),

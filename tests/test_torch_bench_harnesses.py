@@ -141,10 +141,32 @@ def test_torch_flagship_attribution_stages_equal_forward_batch():
                        "matched epilogue", "TOTAL (matched)"]
     assert sum(v for k, v in s.items() if k != "TOTAL (matched)") == pytest.approx(s["TOTAL (matched)"], rel=1e-9)
     assert set(res["k2_flag_reads"].values()) == {0}  # the CPU path has no kernel and no flag read
+    assert res["device_ms"] is res["idle_ms"] is res["device_gap_ms"] is None  # no CUPTI trace off the card
     assert res["doa"] == demo.forward_batch(x, method="matched")[0].tolist()
     out = io.StringIO()
     flagship_attribution.print_stages(res, file=out)
     assert "TOTAL (matched)" in out.getvalue() and "[isolated" in out.getvalue()
+
+
+def test_torch_flagship_attribution_gap_splits_into_device_and_idle():
+    """The isolated stages' sum is encode + RZCC + LIF alone plus the
+    epilogues' in-program shares, and its gap to the batch on the events'
+    clock is the device gap plus the idle gap, each reading split as events
+    = device + idle."""
+    rng = np.random.default_rng(0)
+    names = flagship_attribution.SUMMED + ("encode+RZCC", "forward_batch (peak)")
+    events = {k: float(v) for k, v in zip(names, rng.uniform(0.1, 2.5, len(names)))}
+    stages = flagship_attribution.attribute(events)
+    assert flagship_attribution.isolated_sum(events) == pytest.approx(
+        events["encode"] + events["[isolated] RZCC"] + events["[isolated] LIF"] + stages["fold+argmax epilogue"]
+        + stages["matched epilogue"], rel=1e-12)
+    busy = {k: events[k] * float(f) for k, f in zip(flagship_attribution.SUMMED, rng.uniform(0.5, 1.0, 5))}
+    idle = {k: events[k] - busy[k] for k in flagship_attribution.SUMMED}
+    gap = flagship_attribution.isolated_sum(events) - events["forward_batch (matched)"]
+    parts = [flagship_attribution.isolated_sum(t) - t["forward_batch (matched)"] for t in (busy, idle)]
+    assert gap == pytest.approx(sum(parts), rel=1e-12)
+    assert parts[0] == pytest.approx(busy["encode"] + busy["[isolated] RZCC"] + busy["[isolated] LIF"]
+                                     - busy["encode+RZCC+LIF"], rel=1e-12)
 
 
 # ------------------------------------------------------------ serving_throughput
