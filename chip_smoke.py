@@ -422,13 +422,22 @@ Phases, each failing the run with a non-zero exit:
     4, 16 by K = 1, 2, 16 over 45 lanes, every slot empty then every slot
     full, ties across rows and within a row, the lanes of a warp and the
     slots of a lane in different states in one frame, T = 1 and 2 at the
-    caps, T no multiple of the stage over 129 lanes), one launch each; the
+    caps, T no multiple of the stage over 129 lanes; for the redesigned
+    follower, a consumer and a producer warp over a ring of tiles, also
+    T = TS - 1, TS, TS + 1 and STAGES·TS + 1 over 31, 32 and 33 lanes,
+    16-byte row copies, an item a lane a step and x off its alignment, each
+    held to the cut ``envelope_kernel.plan`` names, NaN, inf and zeros
+    across a tile's end and the ring's turn, a state carried from the middle
+    of a tile, in float32 and float64), one launch each; the
     kernels' wrap and ``atan2f(sinf, cosf)`` against PyTorch's ``atan2(sin,
     cos)`` at all 2^32 float32 patterns, the wrap's latency (a one-thread
     ``clock64`` chain) and the tracking kernels' registers and stack frames
     (``ptxas -v``); each kernel timed by CUDA events around the wrapper and
     by CUPTI alone, beside its plain loop's one call, its bound, its chain
-    floor (from the measured wrap) and the scalar design's device time.
+    floor (the trackers' from the measured wrap; the follower's three
+    operations of 4 cycles a step, beside its step's chain as one warp runs
+    it from registers, ``envelope_kernel.chain_cycles``) and the first
+    design's device time.
 
 The kernels line (one JSON object with one entry per kernel, each with its
 bound) comes third from last, then the card's name and power limit, then the
@@ -5184,7 +5193,35 @@ ENV_EDGES = (
     ("lanes that only fall, only rise, hold NaN, inf or zeros: (700, 6) float32", 700, (6,), "float32", "shapes"),
     ("lanes that only fall, only rise, hold NaN, inf or zeros: (700, 6) float64", 700, (6,), "float64", "shapes"),
     ("(4000, 33) float32, the state carried over two halves", 4000, (33,), "float32", "halves"),
+    # the redesign's (csrc/envelope.cu: tiles of 128 steps, a ring of 4, blocks of 32 lanes, x and out by 16-byte
+    # rows where L times the item size is a multiple of 16 and the base aligned, else an item a lane a step)
+    ("T = TS - 1, 32 lanes, 16-byte rows: (127, 32) float32", 127, (32,), "float32", "rows"),
+    ("T = TS - 1, 32 lanes, 16-byte rows: (127, 32) float64", 127, (32,), "float64", "rows"),
+    ("T = TS, 31 lanes: (128, 31) float32", 128, (31,), "float32", "items"),
+    ("T = TS + 1, 33 lanes: (129, 33) float32", 129, (33,), "float32", "items"),
+    ("T = TS + 1, 33 lanes: (129, 33) float64", 129, (33,), "float64", "items"),
+    ("T = STAGES·TS + 1, 31 lanes: (513, 31) float32", 513, (31,), "float32", "items"),
+    ("T = STAGES·TS + 1, 31 lanes: (513, 31) float64", 513, (31,), "float64", "items"),
+    ("16-byte rows, a partial block: (1000, 36) float32", 1000, (36,), "float32", "rows"),
+    ("16-byte rows of two items: (1000, 2) float64", 1000, (2,), "float64", "rows"),
+    ("x one item past a 16-byte boundary: (1000, 64) float32", 1000, (64,), "float32", "offset"),
+    ("x one item past a 16-byte boundary: (1000, 64) float64", 1000, (64,), "float64", "offset"),
+    ("NaN, inf and zeros across a tile's end and the ring's turn: (589, 6) float32", 589, (6,), "float32",
+     "tile edges"),
+    ("NaN, inf and zeros across a tile's end and the ring's turn: (589, 6) float64", 589, (6,), "float64",
+     "tile edges"),
+    ("a state carried mid-tile: two calls split at step 192 against one pass, (1000, 33) float32", 1000, (33,),
+     "float32", "mid-tile"),
+    ("a state carried mid-tile: two calls split at step 192 against one pass, (1000, 33) float64", 1000, (33,),
+     "float64", "mid-tile"),
 )
+# the copy widths (x, out) each kind of edge must take: row copies, an item a lane, x off its alignment
+ENV_COPIES = {"rows": (True, True), "items": (False, False), "offset": (False, True)}
+# the calls whose cut the library reports (hm_envelope_plan) and envelope_kernel.plan mirrors: T, L, the item
+# size, and x's and out's addresses modulo 16 (the library only reads them)
+ENV_PLAN_GRID = tuple((T, L, itemsize, ptrs) for T in (1, 2, 127, 128, 129, 513, 12_000)
+                      for L in (1, 2, 7, 31, 32, 33, 36, 672) for itemsize in (4, 8)
+                      for ptrs in ((0, 0), (4, 0), (8, 16), (16, 8)))
 # (label, kind, keyword arguments)
 TRACK_EDGES = (
     ("T = 1: (1, 96)", "T1", {}),
@@ -5226,18 +5263,27 @@ MULTI_EDGES = (
     ("T = 2 at the caps: (2, 33, 16), 16 tracks", "T2caps", 16, {}),
 )
 RECURRENCE_REPS = 20  # CUDA-event calls a kernel's time
-# the trackers' device ms a launch in their scalar design, before the redesign (PERF.md §6), printed beside
-# this run's
-PARENT_DEVICE_MS = {"track_angles": "0.1974-0.1975", "track_multi": "1.8742-1.8769"}
+# each kernel's device ms a launch in its first design, before its redesign (PERF.md §6), printed beside this
+# run's
+PARENT_DEVICE_MS = {"track_angles": "0.1974-0.1975", "track_multi": "1.8742-1.8769",
+                    "envelope one frame (12000, 7) float32": "0.3885-0.3915",
+                    "envelope 96 frames' microphones (12000, 672) float32": "0.4520-0.4648",
+                    "envelope one frame (12000, 7) float64": "0.4412-0.4447"}
 
 
 def envelope_edge(torch, dev, case, seed: int) -> dict:
     """One of ``ENV_EDGES`` from ``seed``: ``Envelope.evolve`` (the kernel on
-    the card) against ``evolve_plain``, outputs and final state, and its
-    launches; for ``halves`` two calls with the state carried against one
-    pass over the signal without the second half's first sample (a chunk
-    with a carried state starts from it in place of its first sample)."""
+    the card) against ``evolve_plain``, outputs and final state, its
+    launches and the cut the library makes of the call
+    (``envelope_kernel.kernel_plan`` on x and a fresh output), held to its
+    mirror ``envelope_kernel.plan`` and to ``ENV_COPIES`` for the kinds
+    there (``plan_as_expected``);
+    for ``halves`` and ``mid-tile`` two calls with the state carried (split
+    at T / 2, or in the middle of the second tile) against one pass over
+    the signal without the second part's first sample (a chunk with a
+    carried state starts from it in place of its first sample)."""
     from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels as skn
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import envelope_kernel as ek
     from haghighatshoarmuir2024_tpu_torch.ops.envelope import Envelope
 
     label, T, lanes, dtype, kind = case
@@ -5250,12 +5296,30 @@ def envelope_edge(torch, dev, case, seed: int) -> dict:
         x[:, 4] = 0.0
         x[0, 4] = 5.0  # only falls
         x[:, 5] = np.arange(T) * 1e-3  # only rises
+    if kind == "tile edges":  # around the first tile's end (step TS) and the ring's first turn (STAGES·TS)
+        ts, turn = ek.ENV_TS, ek.ENV_STAGES * ek.ENV_TS
+        x[ts - 1, 1], x[ts, 2], x[turn, 5] = np.nan, np.nan, np.nan
+        x[ts - 1, 3], x[ts, 3] = np.inf, -np.inf
+        x[ts - 3:ts + 3, 4] = 0.0
+        x[turn - 1:turn + 1, 0] = 0.0
     x = torch.as_tensor(x.astype(dtype), device=dev)
+    if kind == "offset":  # the same values one item past an aligned base: x by an item a lane, out by rows
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
     state = torch.as_tensor(np.abs(rng.standard_normal(lanes)).astype(dtype), device=dev) if kind == "carried" \
         else None
     out = dict(skn.envelope_against_plain(x, state), label=label)
-    if kind == "halves":
-        env, h = Envelope(*skn.ENVELOPE_ARGS), T // 2
+    L = int(np.prod(lanes))
+    if x.is_cuda:  # the library's cut (a rehearsal on the CPU has no library)
+        ptrs = x.data_ptr(), torch.empty((T, L), dtype=x.dtype, device=dev).data_ptr()
+        got = ek.kernel_plan(T, L, x.dtype, *ptrs)
+        out["plan"] = got._asdict()
+        out["plan_as_expected"] = got == ek.plan(T, L, x.element_size(), *ptrs) and (
+            kind not in ENV_COPIES or (got.vec_x, got.vec_out) == ENV_COPIES[kind])
+    if kind in ("halves", "mid-tile"):
+        env = Envelope(*skn.ENVELOPE_ARGS)
+        h = T // 2 if kind == "halves" else ek.ENV_TS + ek.ENV_TS // 2
         a, s = env.evolve(x[:h], return_state=True)
         b, s2 = env.evolve(x[h:], s, return_state=True)
         pa, ps = env.evolve_plain(x[:h], return_state=True)
@@ -5267,6 +5331,21 @@ def envelope_edge(torch, dev, case, seed: int) -> dict:
 
 
 GATE_TURNS = 64  # gate + 2 pi k, |k| <= GATE_TURNS: where gate_measurements looks for float32(gate)
+
+
+def envelope_plan_mismatches(torch) -> list:
+    """The calls of ``ENV_PLAN_GRID`` whose cut the library reports
+    (``envelope_kernel.kernel_plan``) otherwise than its mirror
+    ``envelope_kernel.plan``, each with both cuts; nothing launches."""
+    from haghighatshoarmuir2024_tpu_torch.ops.cuda import envelope_kernel as ek
+
+    dtypes = {4: torch.float32, 8: torch.float64}
+    out = []
+    for T, L, itemsize, ptrs in ENV_PLAN_GRID:
+        got, want = ek.kernel_plan(T, L, dtypes[itemsize], *ptrs), ek.plan(T, L, itemsize, *ptrs)
+        if got != want:
+            out.append(dict(call=(T, L, itemsize, ptrs), library=got, mirror=want))
+    return out
 
 
 def gate_measurements(torch, dev, gate_deg: float = 25.0):
@@ -5393,8 +5472,8 @@ def check_recurrences(torch, _build, roofline, dev, card, frames) -> dict:
         track_kernel.checked_library()
     except RuntimeError as e:
         fail(str(e))
-    print(f"{tag} the wrappers' constants equal the library's: envelope (THREADS, AHEAD) = "
-          f"{_build.library_constants('hm_envelope_constants', 2)}, tracking (THREADS, M_MAX, K_MAX) = "
+    print(f"{tag} the wrappers' constants equal the library's: envelope (LANES, TS, STAGES, VEC_BYTES, CHAIN_X) = "
+          f"{_build.library_constants('hm_envelope_constants', 5)}, tracking (THREADS, M_MAX, K_MAX) = "
           f"{_build.library_constants('hm_track_constants', 3)}", flush=True)
     B, T = frames.shape[:2]
     env = Envelope(*skn.ENVELOPE_ARGS)
@@ -5445,9 +5524,14 @@ def check_recurrences(torch, _build, roofline, dev, card, frames) -> dict:
     # ---- the edges
     for i, case in enumerate(ENV_EDGES):
         r = envelope_edge(torch, dev, case, SEED + i)
-        if not (r["equal"] and r["launches"] == 1 and r.get("halves_equal", True)):
-            fail(f"envelope {case[0]}: the kernel differs from the plain loop ({r})")
+        if not (r["equal"] and r["launches"] == 1 and r.get("halves_equal", True) and r["plan_as_expected"]):
+            fail(f"envelope {case[0]}: the kernel differs from the plain loop or its cut from the expected ({r})")
         out["envelope"][case[0]] = r
+    bad = envelope_plan_mismatches(torch)
+    if bad:
+        fail(f"envelope: the library's cut differs from envelope_kernel.plan at {len(bad)} calls ({bad[:4]})")
+    print(f"{tag} envelope: the library's cut (hm_envelope_plan) == envelope_kernel.plan at {len(ENV_PLAN_GRID)} "
+          f"calls (T, L, item size, x's and out's alignment)", flush=True)
     for i, case in enumerate(TRACK_EDGES):
         r = track_edge(torch, dev, case, SEED + i)
         if not (r["equal"] and r["launches"] == 1):
@@ -5499,11 +5583,13 @@ def check_recurrences(torch, _build, roofline, dev, card, frames) -> dict:
     split = skn.recurrence_split(frames, RECURRENCE_REPS, clock)
     out["split"] = split
     for label, r in split.items():
-        parent = next((v for k, v in PARENT_DEVICE_MS.items() if label.startswith(k + " ")), None)
+        parent = next((v for k, v in PARENT_DEVICE_MS.items() if label == k or label.startswith(k + " ")), None)
         print(f"{tag} {label}: {r['mean_ms']:.4f} ms a launch (CUPTI, {RECURRENCE_REPS} calls"
-              + (f"; the scalar design's {parent} ms, PERF.md" if parent else "") + "), chain floor "
+              + (f"; the first design's {parent} ms, PERF.md" if parent else "") + "), chain floor "
               f"{r['chain_floor_ms']:.4f} ms ({r['chain_cycles']:.0f} cycles a step at {clock:.0f} MHz"
               + (f", the wrap's link measured at {r['link_cycles']:.1f}" if "link_cycles" in r else "")
+              + (f"; the step's chain measured at {r['step_cycles']:.2f} cycles; {r['cycles_a_step']:.2f} cycles "
+                 f"a step" if "step_cycles" in r else "")
               + f"; {100 * r['chain_share']:.1f} % of the launch), bytes bound {r['bytes_bound_ms']:.5f} ms "
               f"({r['bytes']:.4g} bytes)", flush=True)
     env_main = out["envelope"][f"one frame ({T}, 7) float32"]
@@ -5516,7 +5602,9 @@ def check_recurrences(torch, _build, roofline, dev, card, frames) -> dict:
         sp = split[split_label]
         out["kernels"][name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
                                     ops=r["ops"], bytes=r["bytes"], chain_ms=sp["chain_floor_ms"], clock_mhz=clock,
-                                    device_ms=sp["mean_ms"],
+                                    device_ms=sp["mean_ms"], chain_share=sp["chain_share"],
+                                    cycles_a_step=sp.get("cycles_a_step", sp.get("cycles_a_frame")),
+                                    step_cycles=sp.get("step_cycles"),
                                     max_abs_err=max(v["max_abs_err"] for v in out[name].values()))
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -5959,7 +6047,10 @@ def main() -> int:
                         "launches": rcx["launches"][rec_paths[name]][name], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"], "library_ms": None, "device_ms": dev_ms,
-                        "chain_ms": res["chain_ms"], "harness_launches": {k: v for k, v in harness.items() if v}})
+                        "chain_ms": res["chain_ms"],
+                        "chain_share": res["chain_share"], "cycles_a_step": res["cycles_a_step"],
+                        **({"chain_step_cycles": res["step_cycles"]} if res["step_cycles"] is not None else {}),
+                        "harness_launches": {k: v for k, v in harness.items() if v}})
     for label, r in scx["iir"].items():
         if "ms" in r:
             print(f"{tag} iir_scan {label} {r['shape']}: {r['ms']:.4f} ms, the plain loop {r['plain_ms']:.1f} ms")

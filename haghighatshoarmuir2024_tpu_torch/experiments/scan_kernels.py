@@ -8,7 +8,8 @@ their bounds:
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels [--reps 20]
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels split [--reps 20] [--only LABEL ...]
                                                                                [--clusters C ...]
-    python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels sass --against OTHER/xylo_sim.cu
+    python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels sass [--kernel xylo_sim|envelope]
+                                                                              [--against OTHER/csrc/SOURCE.cu]
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels wrap
     python -m haghighatshoarmuir2024_tpu_torch.experiments.scan_kernels barrier
 
@@ -48,7 +49,8 @@ loop by ``torch.equal`` (:func:`envelope_against_plain`,
 launch's device ms from CUPTI beside its chain floor
 (:func:`envelope_chain_ms`, :func:`track_chain_ms`, :func:`multi_chain_ms`;
 the trackers' from the wrap's latency measured in the same run,
-:func:`wrap_latency`) and its bytes.  The dense push-to-hidden block's
+:func:`wrap_latency`; beside the follower's, its step's chain as one warp
+runs it from registers, :func:`envelope_chain_latency`) and its bytes.  The dense push-to-hidden block's
 bound counts its recurrence (:func:`sim_work`).
 ``wrap`` measures the trackers' wrap, ``atan2f(sinf(x), cosf(x))`` as
 ``atan2f`` of ``sincosf``'s pair: its latency in a one-thread chain
@@ -56,13 +58,17 @@ bound counts its recurrence (:func:`sim_work`).
 of each function alone, its bits against PyTorch's ``atan2(sin x, cos x)``
 at every float32 (both forms, :func:`wrap_bits`), and each tracking kernel's registers and stack frame
 (``ptxas -v``, :func:`build_resources`) and SASS (:func:`tracker_sass`).
-``sass`` compiles this tree's ``csrc/xylo_sim.cu`` and another's
-(``--against``) with the library's nvcc flags and compares both recurrent
-kernels' instantiations (the global-memory row kernel ``xylo_sim_kernel<NPT>``
-and the on-chip ``xylo_sim_onchip_kernel<S, W, REC, CLUSTER>``) instruction
-by instruction in ``cuobjdump -sass`` (the addresses left out), with each
-instantiation's counts of shared loads, atomics, barriers and the like
-(:data:`SIM_SASS_COUNTED`) and its registers and spills (``ptxas -v``).
+``sass`` compiles this tree's source of a kernel (:data:`SASS_KERNELS`:
+``--kernel xylo_sim``, the default, ``csrc/xylo_sim.cu``'s two recurrent
+kernels, the global-memory row kernel ``xylo_sim_kernel<NPT>`` and the
+on-chip ``xylo_sim_onchip_kernel<S, W, REC, CLUSTER>``; ``--kernel
+envelope``, ``csrc/envelope.cu``'s ``envelope_kernel<T>``) and another
+tree's (``--against``) with the library's nvcc flags and compares their
+instantiations instruction by instruction in ``cuobjdump -sass`` (the
+addresses left out), with each instantiation's counts of the opcodes that
+kernel's table names (shared loads, atomics, barriers and the like), its
+innermost loops (:func:`innermost_loops`: what a recurrence's unrolled
+steps issue) in both trees, and its registers and spills (``ptxas -v``).
 For the simulator's recurrent cases ``split`` also gives the launch's
 cycles a step, its bound by :func:`sim_work` (operations or bytes) and the
 share; ``--clusters 1 2 4`` runs the dense block once more through the
@@ -80,6 +86,7 @@ Each mode prints one JSON line; ``check`` and ``split`` raise without a GPU.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import subprocess
@@ -575,6 +582,17 @@ def envelope_chain_ms(T: int, clock_mhz: float, latency: int = FP32_LATENCY_CYCL
     return (T - 1) * ENV_CHAIN_OPS * latency / (clock_mhz * 1e3)
 
 
+def envelope_chain_latency(env, dtype, n: int = WRAP_CHAIN_STEPS) -> float:
+    """Cycles a step of the follower's chain as the card runs it
+    (``envelope_kernel.chain_cycles``: one warp, ``n`` of the kernel's
+    steps from registers between two ``clock64`` reads, after a short chain
+    that warms the instruction cache)."""
+    from ..ops.cuda import envelope_kernel
+
+    envelope_kernel.chain_cycles(env, dtype, 64)
+    return envelope_kernel.chain_cycles(env, dtype, n)
+
+
 def track_chain_cycles(link_cycles: float) -> float:
     """A tracking frame's dependent chain in cycles: three links (an add and
     a wrap, ``link_cycles`` as :func:`wrap_latency` measures them) and
@@ -836,7 +854,7 @@ def recurrence_split(frames: torch.Tensor, reps: int, clock_mhz: float, only=Non
             latency = FP64_LATENCY_CYCLES if x.dtype == torch.float64 else FP32_LATENCY_CYCLES
             r.update(shape=(T, L), chain_floor_ms=envelope_chain_ms(T, clock_mhz, latency),
                      bytes=envelope_work(T, L, x.element_size())[1], cycles_a_step=r["mean_ms"] * 1e3 * clock_mhz / T,
-                     chain_cycles=ENV_CHAIN_OPS * latency)
+                     chain_cycles=ENV_CHAIN_OPS * latency, step_cycles=envelope_chain_latency(env, x.dtype))
             out[f"envelope {name}"] = r
     z, zk, valid = (t.to(dev) for t in track_inputs())
     T, B = z.shape
@@ -927,6 +945,11 @@ def kernel_sass(cu: Path, name: str) -> dict:
         subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(cubin), str(cu)], check=True,
                        capture_output=True, text=True)
         text = subprocess.run(["cuobjdump", "-sass", str(cubin)], check=True, capture_output=True, text=True).stdout
+    return parse_sass(text, name)
+
+
+def parse_sass(text: str, name: str) -> dict:
+    """:func:`kernel_sass` of ``cuobjdump -sass``'s ``text``."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -940,38 +963,81 @@ def kernel_sass(cu: Path, name: str) -> dict:
     return out
 
 
-SIM_KERNELS = ("xylo_sim_kernel", "xylo_sim_onchip_kernel")
+SASS_INSTRUCTION_BYTES = 16  # every Hopper instruction: the n-th of a kernel lies at address 16 n
+
+
+def innermost_loops(code) -> list:
+    """The innermost loops of one kernel's instructions (:func:`kernel_sass`):
+    for each backward branch (a ``BRA`` to an address before its own; the
+    branch to itself after ``EXIT`` is no loop) whose span holds no other
+    backward branch, ``{first, last, instructions, opcodes}`` (the span's
+    addresses, and its count of each opcode, :func:`_opcode`)."""
+    spans = []
+    for i, ins in enumerate(code):
+        m = re.search(r"\bBRA\b[^;]*?\b0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) <= i * SASS_INSTRUCTION_BYTES:
+            spans.append((int(m.group(1), 16), i * SASS_INSTRUCTION_BYTES))
+    out = []
+    for lo, hi in spans:
+        if lo == hi or any(lo <= a <= b <= hi and (a, b) != (lo, hi) for a, b in spans):
+            continue
+        body = [_opcode(ins) for ins in code[lo // SASS_INSTRUCTION_BYTES:hi // SASS_INSTRUCTION_BYTES + 1]]
+        out.append(dict(first=hex(lo), last=hex(hi), instructions=len(body),
+                        opcodes=dict(sorted(collections.Counter(body).items(), key=lambda kv: -kv[1]))))
+    return out
+
+
 # the SASS opcodes counted for the simulator's recurrent kernels: shared loads and stores, atomics (shared,
 # generic: distributed shared memory), barriers, ballots, shuffles, byte permutes and global loads
 SIM_SASS_COUNTED = ("LDS", "STS", "ATOMS", "ATOM", "RED", "BAR", "UCGABAR_ARV", "UCGABAR_WAIT", "VOTE", "SHFL",
                     "PRMT", "LDG", "STG", "LDGSTS", "BRA")
+# the SASS opcodes counted for the follower: global and shared loads and stores, asynchronous copies, barriers,
+# branches, the integer work of a counter or an address, and the step's float operations
+ENV_SASS_COUNTED = ("LDG", "STG", "LDS", "STS", "LDGSTS", "BAR", "MEMBAR", "BRA", "ISETP", "IADD3", "IMAD", "LEA",
+                    "MOV", "FMUL", "FADD", "FSETP", "FSEL", "DMUL", "DADD", "DSETP", "SEL")
+# sass --kernel: each kernel's source in csrc/, the names of its kernels and the opcodes counted
+SASS_KERNELS = {
+    "xylo_sim": ("xylo_sim.cu", ("xylo_sim_kernel", "xylo_sim_onchip_kernel"), SIM_SASS_COUNTED),
+    "envelope": ("envelope.cu", ("envelope_kernel",), ENV_SASS_COUNTED),
+}
 
 
-def sass_against(other, names=SIM_KERNELS, listing=None) -> dict:
-    """This tree's ``csrc/xylo_sim.cu`` against ``other`` (None: this tree
-    alone) by :func:`kernel_sass`: for each instantiation of the kernels
-    ``names`` in either, its instruction counts, how many positions differ,
-    its counts of :data:`SIM_SASS_COUNTED` here, and its registers and
-    spills from the built library's ``ptxas -v`` (:func:`build_resources`;
-    here, where a card is present).  ``listing``: a path that receives
-    this tree's instructions, instantiation by instantiation."""
-    cu = Path(__file__).resolve().parent.parent / "csrc" / "xylo_sim.cu"
-    mine = {k: v for name in names for k, v in kernel_sass(cu, name).items()}
+def sass_against(other, kernel: str = "xylo_sim", listing=None) -> dict:
+    """This tree's source of ``kernel`` (:data:`SASS_KERNELS`) against
+    ``other`` (another tree's copy of that source; None: this tree alone)
+    by :func:`kernel_sass`: for each instantiation of the source's kernels
+    in either, its instruction counts, how many positions differ, its counts
+    of the table's opcodes and its innermost loops (:func:`innermost_loops`)
+    in each tree, and its registers and spills from the built library's
+    ``ptxas -v`` (:func:`build_resources`; here, where a card is present).
+    ``listing``: a path that receives each tree's instructions with their
+    addresses, instantiation by instantiation."""
+    source, names, counted = SASS_KERNELS[kernel]
+    cu = Path(__file__).resolve().parent.parent / "csrc" / source
+    trees = {"here": {k: v for name in names for k, v in kernel_sass(cu, name).items()},
+             "other": {k: v for name in names for k, v in kernel_sass(Path(other), name).items()} if other else {}}
     if listing:
-        Path(listing).write_text("\n".join(f"== {k}\n" + "\n".join(f"{i:5d} {x}" for i, x in enumerate(v))
-                                           for k, v in mine.items()) + "\n")
-    theirs = {k: v for name in names for k, v in kernel_sass(Path(other), name).items()} if other else {}
+        Path(listing).write_text("\n".join(
+            f"== {tree} {k}\n" + "\n".join(f"{SASS_INSTRUCTION_BYTES * i:05x} {x}" for i, x in enumerate(v))
+            for tree, code in trees.items() for k, v in code.items()) + "\n")
     out = {"card": card_line() if torch.cuda.is_available() else None, "kernels": {},
            "ptxas": build_resources(names) if torch.cuda.is_available() else None}
+    mine, theirs = trees["here"], trees["other"]
     for k in sorted(set(mine) | set(theirs)):
         a, b = mine.get(k), theirs.get(k)
-        ops = [_opcode(i) for i in a or ()]
         out["kernels"][k] = dict(
             here=None if a is None else len(a), other=None if b is None else len(b),
             identical=a == b, differing=None if a is None or b is None else
             sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)),
-            counts={op: ops.count(op) for op in SIM_SASS_COUNTED} if a else None)
+            counts={tree: _opcode_counts(code[k], counted) for tree, code in trees.items() if k in code},
+            loops={tree: innermost_loops(code[k]) for tree, code in trees.items() if k in code})
     return out
+
+
+def _opcode_counts(code, counted) -> dict:
+    """How many of ``code``'s instructions have each opcode of ``counted``."""
+    ops = collections.Counter(_opcode(i) for i in code)
+    return {op: ops[op] for op in counted}
 
 
 def barrier_latency(reps: int = WRAP_CHAIN_STEPS) -> dict:
@@ -1003,7 +1069,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--pad-mib", type=int, default=0, help="split: MiB allocated on the card first")
     ap.add_argument("--clusters", nargs="+", type=int, default=(),
                     help="split: the dense block also through the on-chip kernel at these cluster sizes")
-    ap.add_argument("--against", help="sass: the other tree's csrc/xylo_sim.cu")
+    ap.add_argument("--kernel", default="xylo_sim", choices=list(SASS_KERNELS), help="sass: the kernel's source")
+    ap.add_argument("--against", help="sass: the other tree's copy of the kernel's source (csrc/SOURCE.cu)")
     ap.add_argument("--sass-listing", help="wrap, sass: write the kernels' SASS to this file")
     args = ap.parse_args(argv)
     if args.mode == "wrap":
@@ -1018,7 +1085,7 @@ def main(argv=None) -> dict:
         return out
     if args.mode in ("split", "sass"):
         out = split(args.reps, args.only, args.pad_mib, args.clusters) if args.mode == "split" \
-            else sass_against(args.against, listing=args.sass_listing)
+            else sass_against(args.against, args.kernel, listing=args.sass_listing)
         print(json.dumps(out, default=str))
         return out
     from ..models.xylo.sim import ORDERINGS, RESETS

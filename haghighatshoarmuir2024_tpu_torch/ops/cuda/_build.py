@@ -77,6 +77,8 @@ _SIGNATURES = {
     "hm_barrier_probe": ([_I] * 4 + [_P, _P], _I),
     "hm_envelope_constants": ([_P], None),
     "hm_envelope": ([_P] * 4 + [_D, _D, _L, _I, _I, _P], _I),
+    "hm_envelope_chain": ([_P, _D, _D, _I, _I, _P, _P, _P], _I),
+    "hm_envelope_plan": ([_L, _I, _I, _P, _P, _P], _I),
     "hm_track_constants": ([_P], None),
     "hm_track_angles": ([_P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
     "hm_track_multi": ([_P] * 4 + [_I] * 6 + [_F] * 4 + [_P], _I),

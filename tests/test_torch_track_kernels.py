@@ -156,24 +156,38 @@ def test_torch_track_multi_route_matches_jax(seed, num_tracks, K):
 
 
 # ------------------------------------------------------------------ a model of the envelope kernel's lane
-def envelope_lane_model(x: np.ndarray, win_lens, s0=None) -> tuple[np.ndarray, np.ndarray]:
-    """``csrc/envelope.cu`` in numpy, in ``x``'s dtype: the reciprocals
-    ``(1/w)·1`` and ``1 - 1/w`` of both windows once, then per step both
-    candidates, each operation rounded on its own, one selected by
-    ``x >= s``."""
-    dt = x.dtype.type
-    one, zero = dt(1), dt(0)
-    xa = np.abs(x)
+def envelope_coefficients(dtype, win_lens) -> tuple:
+    """The kernel's ``Coef``: the reciprocals ``(1/w)·1`` and ``1 - 1/w`` of
+    both windows, in ``dtype``, each rounded on its own."""
+    dt = np.dtype(dtype).type
+    one = dt(1)
     r_fall, r_rise = ((one / dt(w)) * one for w in win_lens)
-    c_fall, c_rise = one - r_fall, one - r_rise
-    s = xa[0].copy() if s0 is None else np.asarray(s0, x.dtype).copy()
-    out = np.empty_like(xa)
+    return r_fall, r_rise, one - r_fall, one - r_rise
+
+
+def envelope_step(x: np.ndarray, s: np.ndarray, coef) -> np.ndarray:
+    """The kernel's ``step``: both candidates, each operation rounded on its
+    own, one selected by ``|x| >= s``."""
+    r_fall, r_rise, c_fall, c_rise = coef
+    dt = s.dtype.type
+    xa = np.abs(x)
     with np.errstate(invalid="ignore", over="ignore"):
-        for t in range(1, x.shape[0]):
-            out[t - 1] = s
-            up = c_rise * s + (r_rise * xa[t]) * one
-            down = c_fall * s + (r_fall * xa[t]) * zero
-            s = np.where(xa[t] >= s, up, down)
+        up = c_rise * s + (r_rise * xa) * dt(1)
+        down = c_fall * s + (r_fall * xa) * dt(0)
+        return np.where(xa >= s, up, down)
+
+
+def envelope_lane_model(x: np.ndarray, win_lens, s0=None) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/envelope.cu``'s arithmetic in numpy, lane by lane, in ``x``'s
+    dtype: the reciprocals ``(1/w)·1`` and ``1 - 1/w`` of both windows once,
+    then per step both candidates, each operation rounded on its own, one
+    selected by ``x >= s``."""
+    coef = envelope_coefficients(x.dtype, win_lens)
+    s = np.abs(x[0]) if s0 is None else np.asarray(s0, x.dtype).copy()
+    out = np.empty_like(x)
+    for t in range(1, x.shape[0]):
+        out[t - 1] = s
+        s = envelope_step(x[t], s, coef)
     out[-1] = s
     return out, s
 
@@ -209,6 +223,232 @@ def test_torch_envelope_kernel_lane_model(dtype, carried):
     if not carried:
         assert np.isnan(got[100:, 4]).all() and np.isinf(got[52:, 5]).all() and not got[:, 6].any()
         assert (np.diff(got[:, 7]) <= 0).all() and (np.diff(got[:, 8]) >= 0).all()
+
+
+# ------------------------------------------------------------------ a model of the envelope kernel's tiles
+ENV_LANES, ENV_TS, ENV_STAGES = envelope_kernel.ENV_LANES, envelope_kernel.ENV_TS, envelope_kernel.ENV_STAGES
+ENV_GROUP = 8  # csrc/envelope.cu's GROUP: steps a whole tile reads ahead into registers
+
+
+def envelope_tiles_model(x: np.ndarray, win_lens, s0=None, x_ptr: int = 0, out_ptr: int = 0):
+    """``hm_envelope``'s schedule in numpy, in ``x``'s dtype, on contiguous
+    (T, L) ``x`` at address ``x_ptr`` into ``out`` at ``out_ptr``, cut as
+    ``envelope_kernel.plan`` says.  Every block runs the same schedule, so
+    all run at once: the ring holds (ENV_STAGES, ENV_TS, blocks·ENV_LANES)
+    items, lane j of every block at column j.  For each tile of ENV_TS
+    steps the producer's 32 threads fill the slot tile % ENV_STAGES (thread
+    p: 16-byte copies ``[lane0 + vcol, + VEC)`` of rows ``vrow``, ``vrow +
+    ROWS_A_COPY``, ... where the plan moves x by rows, else lane ``lane0 +
+    p`` of every row), the consumer runs the tile's steps in place (a whole
+    tile after the first reads its x a group of ENV_GROUP steps ahead, two
+    groups in turn; the first tile's first step is the initial state, and
+    the first and the last, partial tile step by step), and the producer
+    drains the slot to ``out`` the same two ways.  Idle lanes compute on
+    what the slot holds (NaN here) and are never drained.  Returns ``(out,
+    s_fin, plan, reads, writes)``: ``reads`` and ``writes`` count the
+    copies of each (t, lane) of x in and of out out."""
+    T, L = x.shape
+    plan = envelope_kernel.plan(T, L, x.itemsize, x_ptr, out_ptr)
+    coef = envelope_coefficients(x.dtype, win_lens)
+    vec = envelope_kernel.ENV_VEC_BYTES // x.itemsize
+    copies_a_row = ENV_LANES // vec
+    rows_a_copy = ENV_LANES // copies_a_row
+    lane0 = np.arange(plan.blocks) * ENV_LANES
+    ring = np.full((ENV_STAGES, ENV_TS, plan.blocks * ENV_LANES), np.nan, x.dtype)
+    out = np.full_like(x, np.nan)
+    reads, writes = np.zeros((T, L), np.int64), np.zeros((T, L), np.int64)
+    s = np.zeros(plan.blocks * ENV_LANES, x.dtype)
+    if s0 is not None:
+        s[:L] = s0
+
+    def threads(by_rows: bool, n: int):
+        """``(rows, lanes)`` each producer thread moves in a tile of ``n`` rows."""
+        for p in range(ENV_LANES):
+            if by_rows:
+                vcol, vrow = (p % copies_a_row) * vec, p // copies_a_row
+                first = lane0[lane0 + vcol < L] + vcol
+                yield np.arange(vrow, n, rows_a_copy), (first[:, None] + np.arange(vec)).ravel()
+            else:
+                lanes = lane0 + p
+                yield np.arange(n), lanes[lanes < L]
+
+    for tile in range(plan.tiles):
+        slot, t0 = tile % ENV_STAGES, tile * ENV_TS
+        n = min(ENV_TS, T - t0)
+        v = ring[slot]
+        for rows, lanes in threads(plan.vec_x, n):
+            v[np.ix_(rows, lanes)] = x[np.ix_(t0 + rows, lanes)]
+            reads[np.ix_(t0 + rows, lanes)] += 1
+        if tile > 0 and n == ENV_TS:
+            ahead = v[:ENV_GROUP].copy()
+            for k in range(0, ENV_TS, 2 * ENV_GROUP):
+                behind = v[k + ENV_GROUP:k + 2 * ENV_GROUP].copy()
+                for u in range(ENV_GROUP):
+                    s = v[k + u] = envelope_step(ahead[u], s, coef)
+                if k + 2 * ENV_GROUP < ENV_TS:
+                    ahead = v[k + 2 * ENV_GROUP:k + 3 * ENV_GROUP].copy()
+                for u in range(ENV_GROUP):
+                    s = v[k + ENV_GROUP + u] = envelope_step(behind[u], s, coef)
+        else:
+            k = 0
+            if tile == 0:
+                s = v[0] = np.abs(v[0]) if s0 is None else s
+                k = 1
+            for k in range(k, n):
+                s = v[k] = envelope_step(v[k], s, coef)
+        for rows, lanes in threads(plan.vec_out, n):
+            out[np.ix_(t0 + rows, lanes)] = v[np.ix_(rows, lanes)]
+            writes[np.ix_(t0 + rows, lanes)] += 1
+    return out, s[:L].copy(), plan, reads, writes
+
+
+def tile_signal(T: int, L: int, dtype, seed: int = 9) -> np.ndarray:
+    return signal(seed, T=T, C=L).astype(dtype)
+
+
+def assert_tiles_model(x: np.ndarray, s0=None, x_ptr: int = 0, out_ptr: int = 0):
+    """The tile model on ``x`` equals the plain loop bit for bit (NaN for
+    NaN), outputs and final state, every (t, lane) read once and written
+    once; returns the model's outputs, state and plan."""
+    env = envelope.Envelope(1e-3, 1e-2, FS)
+    y, s, plan, reads, writes = envelope_tiles_model(x, env.win_lens, s0, x_ptr, out_ptr)
+    want, want_s = (t.numpy() for t in env.evolve_plain(torch.as_tensor(x), None if s0 is None else
+                                                        torch.as_tensor(s0), return_state=True))
+    assert np.array_equal(y, want, equal_nan=True) and np.array_equal(s, want_s, equal_nan=True)
+    assert (reads == 1).all() and (writes == 1).all()
+    return y, s, plan
+
+
+TILE_T = (1, 2, ENV_TS - 1, ENV_TS, ENV_TS + 1, ENV_STAGES * ENV_TS + 1, 12_000)
+TILE_L = (1, 7, 31, 32, 33, 672)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L", TILE_L)
+@pytest.mark.parametrize("T", TILE_T)
+def test_torch_envelope_kernel_tiles_model(T, L, dtype):
+    """The redesigned kernel's schedule (a consumer and a producer warp over
+    a ring of tiles) equals the plain loop bit for bit at every T and L
+    around a tile, the ring, a warp and the flagship shapes, each (t, lane)
+    read and written once, by the cut ``plan`` names: 16-byte rows where L
+    items fill whole 16-byte vectors (672 lanes in float32; 32 in either
+    dtype), an item a lane otherwise (7 lanes)."""
+    x = tile_signal(T, L, dtype)
+    _, _, plan = assert_tiles_model(x)
+    itemsize = np.dtype(dtype).itemsize
+    assert plan.blocks == -(-L // ENV_LANES) and plan.tiles == -(-T // ENV_TS)
+    assert plan.last_rows == T - (plan.tiles - 1) * ENV_TS and 1 <= plan.last_rows <= ENV_TS
+    assert plan.vec_x == plan.vec_out == ((L * itemsize) % 16 == 0)
+    if (L, dtype) in ((672, "float32"), (32, "float64")):
+        assert plan.vec_x
+    if L == 7:
+        assert not plan.vec_x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("L", [7, 672])
+@pytest.mark.parametrize("T", [ENV_TS - 1, ENV_TS + 1, ENV_STAGES * ENV_TS + 1])
+def test_torch_envelope_kernel_tiles_model_carried(T, L, dtype):
+    """A carried state (some lanes above the signal, some below) takes the
+    first step in place of ``|x[0]|``, through the tiles as through the
+    plain loop."""
+    x = tile_signal(T, L, dtype, seed=10)
+    s0 = (np.random.default_rng(11).random(L) * 3).astype(dtype)
+    y, s, _ = assert_tiles_model(x, s0)
+    assert np.array_equal(y[0], s0)
+
+
+@pytest.mark.parametrize("L,dtype", [(672, "float32"), (2, "float64"), (64, "float64")])
+def test_torch_envelope_kernel_tiles_model_unaligned(L, dtype):
+    """x one item past a 16-byte boundary moves an item a lane a step while
+    the aligned output still drains by 16-byte rows, and the other way
+    round; both equal the plain loop."""
+    x = tile_signal(ENV_STAGES * ENV_TS + 3, L, dtype, seed=12)
+    itemsize = np.dtype(dtype).itemsize
+    for x_ptr, out_ptr, want in ((itemsize, 0, (False, True)), (0, itemsize, (True, False))):
+        _, _, plan = assert_tiles_model(x, x_ptr=x_ptr, out_ptr=out_ptr)
+        assert (plan.vec_x, plan.vec_out) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_torch_envelope_kernel_tiles_model_nan_across_tiles(dtype):
+    """NaN, inf and zeros at the last step of a tile, the first of the next
+    and the ring's turn (step ENV_STAGES·ENV_TS) propagate as in the plain
+    loop: a NaN sample makes the state NaN from its step on."""
+    T, turn = ENV_STAGES * ENV_TS + 77, ENV_STAGES * ENV_TS
+    x = tile_signal(T, 6, dtype, seed=13)
+    x[ENV_TS - 1, 1], x[ENV_TS, 2], x[turn, 5] = np.nan, np.nan, np.nan
+    x[ENV_TS - 1, 3], x[ENV_TS, 3] = np.inf, -np.inf
+    x[ENV_TS - 3:ENV_TS + 3, 4] = 0.0
+    x[turn - 1:turn + 1, 0] = 0.0
+    y, _, _ = assert_tiles_model(x)
+    for lane, t in ((1, ENV_TS - 1), (2, ENV_TS), (5, turn)):
+        assert np.isnan(y[t:, lane]).all() and not np.isnan(y[:t, lane]).any()
+    assert np.isfinite(y[:, [0, 4]]).all()
+
+
+@pytest.mark.parametrize("L,dtype", [(7, "float32"), (33, "float64"), (672, "float32")])
+def test_torch_envelope_kernel_tiles_model_split_mid_tile(L, dtype):
+    """Two calls split in the middle of the second tile, the state carried,
+    equal the plain loop's two calls and one pass over the signal without
+    the second call's first sample (which the carried state replaces)."""
+    x = tile_signal(3 * ENV_TS + 50, L, dtype, seed=14)
+    h = ENV_TS + ENV_TS // 2
+    a, sa, _ = assert_tiles_model(x[:h])
+    b, sb, _ = assert_tiles_model(x[h:], sa)
+    one, s1, _ = assert_tiles_model(np.delete(x, h, axis=0))
+    assert np.array_equal(np.concatenate([a, b[1:]]), one) and np.array_equal(sb, s1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("T,L,carried", [(ENV_TS + 1, 33, False), (ENV_STAGES * ENV_TS + 1, 7, True)])
+def test_torch_envelope_kernel_tiles_model_matches_jax(T, L, carried, dtype):
+    """The tile model against JAX's ``Envelope.evolve`` on the same numpy
+    input, outputs and final state, within ``ENV_TOL`` of JAX's peak (float32:
+    XLA contracts the update into a fused multiply-add)."""
+    x = tile_signal(T, L, dtype, seed=15)
+    s0 = (np.random.default_rng(16).random(L) * 2).astype(dtype) if carried else None
+    y, s, _ = assert_tiles_model(x, s0)
+    jenv = jax_envelope.Envelope(1e-3, 1e-2, FS)
+    with jax.enable_x64(dtype == "float64"):
+        want, want_s = jenv.evolve(jnp.asarray(x), None if s0 is None else jnp.asarray(s0), return_state=True)
+        want, want_s = np.asarray(want), np.asarray(want_s)
+    tol = ENV_TOL[dtype] * np.abs(want).max()
+    assert np.abs(y - want).max() <= tol and np.abs(s - want_s).max() <= tol
+
+
+@pytest.mark.parametrize("T,L,itemsize,ptrs,want", [
+    (1, 1, 4, (0, 0), (1, 1, 1, False, False)),
+    (12_000, 7, 4, (0, 0), (1, 94, 96, False, False)),
+    (12_000, 672, 4, (0, 0), (21, 94, 96, True, True)),
+    (12_000, 7, 8, (0, 0), (1, 94, 96, False, False)),
+    (ENV_STAGES * ENV_TS, 33, 8, (0, 0), (2, ENV_STAGES, ENV_TS, False, False)),
+    (ENV_TS + 1, 36, 4, (4, 0), (2, 2, 1, False, True)),
+    (ENV_TS - 1, 2, 8, (16, 8), (1, 1, ENV_TS - 1, True, False)),
+])
+def test_torch_envelope_plan(T, L, itemsize, ptrs, want):
+    """``plan``'s cut: blocks of 32 lanes, tiles of 128 steps with the last
+    one's rows, and 16-byte row copies only where L items make whole
+    16-byte vectors and the tensor's base is 16-byte aligned."""
+    assert tuple(envelope_kernel.plan(T, L, itemsize, *ptrs)) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_torch_envelope_chain_samples_take_both_sides(dtype):
+    """The chain probe's samples, cycled as the probe cycles them, make
+    every lane's state rise and fall in turn, so the probe's steps take
+    both sides of the select (the kernel's arithmetic, lane model)."""
+    xs = envelope_kernel.chain_samples(getattr(torch, dtype)).numpy()
+    assert xs.shape == (envelope_kernel.ENV_CHAIN_X, ENV_LANES) and xs.dtype == np.dtype(dtype)
+    y, _ = envelope_lane_model(np.tile(xs, (64, 1)), envelope.Envelope(1e-3, 1e-2, FS).win_lens)
+    d = np.diff(y[envelope_kernel.ENV_CHAIN_X:], axis=0)
+    assert ((d > 0).sum(axis=0) > 0).all() and ((d < 0).sum(axis=0) > 0).all()
+
+
+@pytest.mark.parametrize("T,L", [(0, 7), (12, 0)])
+def test_torch_envelope_plan_refuses_empty(T, L):
+    with pytest.raises(ValueError, match="T, L >= 1"):
+        envelope_kernel.plan(T, L, 4)
 
 
 # ------------------------------------------------------------------ models of the tracking kernels
@@ -641,6 +881,41 @@ def test_torch_track_chain_floors_from_the_measured_link(M, K, ops):
     assert scan_kernels.track_chain_ms(240, 1980.0, 300.0) == pytest.approx(240 * 908.0 / 1.98e6)
 
 
+SASS_TEXT = """
+\t\tFunction : _ZN44_GLOBAL__N__9f3ad860_11_envelope_cu_f858a88015envelope_kernelIfEEvPKT_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                          /* 0x00000a00ff017b82 */
+        /*0010*/                   FMUL R2, R2, R3 ;                               /* 0x0000000302027220 */
+        /*0020*/                   LDS R4, [R5] ;                                  /* 0x0000000005047984 */
+        /*0030*/                   FADD R2, R2, R4 ;                               /* 0x0000000402027221 */
+        /*0040*/               @!P0 BRA 0x20 ;                                     /* 0xfffffffc00008947 */
+        /*0050*/                   ISETP.GE.AND P1, PT, R6, 0x4, PT ;              /* 0x000000040600780c */
+        /*0060*/               @!P1 BRA 0x10 ;                                     /* 0xfffffffc00009947 */
+        /*0070*/                   EXIT ;                                          /* 0x000000000000794d */
+        /*0080*/                   BRA 0x80;                                       /* 0xfffffff000007947 */
+\t\tFunction : _ZN44_GLOBAL__N__9f3ad860_11_envelope_cu_f858a88021envelope_chain_kernelIfEEvPKT_
+        /*0000*/                   EXIT ;                                          /* 0x000000000000794d */
+"""
+
+
+def test_torch_envelope_sass_innermost_loops():
+    """``sass --kernel envelope``'s reading of ``cuobjdump -sass``: the
+    instantiations of ``envelope_kernel`` alone (not the chain probe's),
+    the n-th instruction at address 16 n, and of their backward branches
+    only the innermost loop's span, the branch to itself after ``EXIT``
+    left out; the opcodes counted from the kernel's table."""
+    from haghighatshoarmuir2024_tpu_torch.experiments import scan_kernels
+
+    code = scan_kernels.parse_sass(SASS_TEXT, "envelope_kernel")
+    assert list(code) == ["envelope_kernelIfEEvPKT_"]
+    ins = code["envelope_kernelIfEEvPKT_"]
+    assert ins[0] == "MOV R1, c[0x0][0x28]" and ins[4] == "@!P0 BRA 0x20" and len(ins) == 9
+    assert scan_kernels.SASS_KERNELS["envelope"][:2] == ("envelope.cu", ("envelope_kernel",))
+    counts = scan_kernels._opcode_counts(ins, scan_kernels.SASS_KERNELS["envelope"][2])
+    assert (counts["BRA"], counts["LDS"], counts["FMUL"], counts["ISETP"], counts["LDG"]) == (3, 1, 1, 1, 0)
+    assert scan_kernels.innermost_loops(ins) == [
+        dict(first="0x20", last="0x40", instructions=3, opcodes={"LDS": 1, "FADD": 1, "BRA": 1})]
+
+
 # ------------------------------------------------------------------ the device repair
 def _numpy_signal():
     return signal(2, T=400, C=2)
@@ -701,6 +976,11 @@ REFUSALS = {
     "envelope no sample": (ValueError, lambda: _env(_meta((0, 3)))),
     "envelope off the card": (ValueError, lambda: _env(_meta((50, 3)))),
     "envelope float64 off the card": (ValueError, lambda: _env(_meta((50,), torch.float64), return_state=True)),
+    "envelope chain float16": (TypeError, lambda: envelope_kernel.chain_cycles(
+        envelope.Envelope(1e-3, 1e-2, FS), torch.float16)),
+    "envelope chain steps no multiple of its samples": (ValueError, lambda: envelope_kernel.chain_cycles(
+        envelope.Envelope(1e-3, 1e-2, FS), torch.float32, n=12)),
+    "envelope kernel plan float16": (TypeError, lambda: envelope_kernel.kernel_plan(12, 7, torch.float16, 0, 0)),
     "track_angles float64": (TypeError, lambda: track_kernel.track_angles(_meta((20, 4), torch.float64))),
     "track_angles max_misses beyond int32": (ValueError, lambda: tracking.track_angles(_meta((20, 4)), device=META,
                                                                                       max_misses=2**31)),
@@ -725,7 +1005,9 @@ def test_torch_track_wrappers_raise(case, monkeypatch):
 
 
 MIRRORS = {
-    "envelope": (envelope_kernel, "hm_envelope_constants", (envelope_kernel.ENV_THREADS, envelope_kernel.ENV_AHEAD)),
+    "envelope": (envelope_kernel, "hm_envelope_constants", (envelope_kernel.ENV_LANES, envelope_kernel.ENV_TS,
+                                                            envelope_kernel.ENV_STAGES, envelope_kernel.ENV_VEC_BYTES,
+                                                            envelope_kernel.ENV_CHAIN_X)),
     "tracking": (track_kernel, "hm_track_constants", (track_kernel.TRACK_THREADS, track_kernel.M_MAX,
                                                       track_kernel.K_MAX)),
 }

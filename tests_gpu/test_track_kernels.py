@@ -11,7 +11,14 @@
     ``MULTI_EDGES``): T = 1 and 2, one lane, lanes no multiple of 32, lanes
     that only fall or rise, NaN and inf, carried states and two halves
     against one pass, the gate's boundary, re-acquisition, all-invalid
-    frames, K > M, M > K, the caps, tied costs;
+    frames, K > M, M > K, the caps, tied costs; for the follower's tiles
+    (a consumer and a producer warp over a ring of 4 tiles of 128 steps)
+    T = TS - 1, TS, TS + 1 and STAGES·TS + 1 over 31, 32 and 33 lanes,
+    16-byte rows, an item a lane and x off its alignment (each held to the
+    cut the library reports, ``envelope_kernel.kernel_plan``, and that cut
+    to its mirror ``envelope_kernel.plan`` over ``ENV_PLAN_GRID``), NaN,
+    inf and zeros across a tile's end and the ring's turn, a state carried
+    from the middle of a tile, in float32 and float64;
   * the routes: each entry point launches its kernel once and a numpy
     signal given to ``Envelope.evolve`` without a device lands on the card;
     a dtype or a cap the kernels do not take raises on the card;
@@ -87,7 +94,12 @@ def test_track_multi_against_plain(track_inputs):
 @pytest.mark.parametrize("i", range(len(cs.ENV_EDGES)))
 def test_envelope_edges(i):
     r = cs.envelope_edge(torch, _card(), cs.ENV_EDGES[i], cs.SEED + i)
-    assert r["equal"] and r["launches"] == 1 and r.get("halves_equal", True), r
+    assert r["equal"] and r["launches"] == 1 and r.get("halves_equal", True) and r["plan_as_expected"], r
+
+
+def test_envelope_plan_mirror():
+    _card()
+    assert cs.envelope_plan_mismatches(torch) == []
 
 
 @pytest.mark.parametrize("i", range(len(cs.TRACK_EDGES)))
